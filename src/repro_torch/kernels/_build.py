@@ -1,0 +1,98 @@
+"""Build the hand-written CUDA kernels and load them with ``ctypes``.
+
+Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled alone
+by ``nvcc`` into ``build/kernels/<name>-<hash>.so`` at the repository root
+(listed in ``.gitignore``), at first use. The hash covers the sources and
+the flags, so an edited kernel is rebuilt and a cached one is reused. The
+libraries link against nothing of PyTorch: ``nvcc`` takes seconds, where
+an extension including PyTorch's headers takes minutes.
+
+A missing ``nvcc`` or a failed build raises. Several sources are built in
+parallel by :func:`build`, one ``nvcc`` process each.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+BUILD_TIMEOUT_S = 600
+
+
+def nvcc_path() -> str:
+    """The CUDA compiler: ``nvcc`` on ``PATH``, else the toolkit's default
+    location. Raises ``RuntimeError`` when neither exists."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError(
+        "nvcc not found: the CUDA kernels are compiled at first use and "
+        "need the CUDA toolkit"
+    )
+
+
+def library_path(name: str) -> Path:
+    """Where the library built from ``csrc/<name>.cu`` lives."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h.update((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+def build(*names: str) -> dict:
+    """Compile every ``csrc/<name>.cu`` whose library is missing, all at
+    once. Returns ``{name: compiler output}`` (``-Xptxas -v``: registers,
+    shared memory and spills of each kernel), for cached builds too."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    try:
+        for name in names:
+            lib = library_path(name)
+            if lib.exists():
+                continue
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            os.close(fd)
+            cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+            procs[name] = (subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+            ), tmp)
+        for name, (proc, tmp) in procs.items():
+            out, _ = proc.communicate(timeout=BUILD_TIMEOUT_S)
+            if proc.returncode != 0:
+                os.unlink(tmp)
+                raise RuntimeError(f"nvcc failed on {name}.cu:\n{out}")
+            library_path(name).with_suffix(".log").write_text(out)
+            os.replace(tmp, library_path(name))
+    finally:
+        for proc, tmp in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+    return {
+        name: library_path(name).with_suffix(".log").read_text()
+        for name in names
+    }
+
+
+@functools.lru_cache(maxsize=None)
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+    build(name)
+    return ctypes.CDLL(str(library_path(name)))

@@ -1,0 +1,386 @@
+"""Plan-served GAN inference engine: bucketed dynamic batching over
+precompiled :class:`~repro_torch.kernels.plan.TconvPlan`s. Mirrors
+``GenRequest``, ``GanEngine`` and ``sequential_executables`` of
+``repro/serve/gan_engine.py``.
+
+1. **warmup** -- for every registered model and every policy bucket,
+   resolve the whole-generator plan
+   (:func:`~repro_torch.kernels.plan.compile_plan_buckets`, fused epilogues
+   included), build its executable and run it once on zero latents. Each
+   executable built increments the metrics recompile counter, so a flat
+   counter after warmup shows that steady-state serving builds nothing.
+2. **admit** -- requests (``n`` latent rows for one model) enter a
+   per-model FIFO queue, or are rejected with
+   :class:`~repro_torch.serve.batching.QueueFull` past the queued-sample
+   bound (backpressure).
+3. **bucket + execute + recycle** -- the step loop serves the model whose
+   head request is oldest, packs whole head-of-queue requests into the
+   smallest bucket that holds them (padding with zero rows), runs the
+   executable on the device, and hands each request its slice as a CPU
+   tensor. A max-wait deadline flushes partial batches.
+
+The engine runs on the CUDA card unless constructed with another device.
+The reference's observability spans and request timelines, and its plan
+registry (``save_plans``/``registry_path``), wait for later slices.
+"""
+from __future__ import annotations
+
+import dataclasses
+import itertools
+import time
+from collections import deque
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.kernels.plan import compile_plan_buckets
+from repro_torch.models.gan import generator_apply, generator_epilogues
+from repro_torch.serve.batching import BucketPolicy, QueueFull
+from repro_torch.serve.metrics import ServeMetrics
+
+
+@dataclasses.dataclass
+class GenRequest:
+    """One generation request: ``n`` latent rows for one registered model.
+
+    ``deadline_s`` (optional) is the request's maximum queueing budget in
+    seconds from admission; a request still queued past it is **expired**,
+    never served stale. Every request reaches exactly one terminal state:
+    ``done`` (``output`` holds the samples), ``expired``, ``rejected``
+    (backpressure at admission) or ``failed`` (malformed in replay mode).
+    ``t_done`` is stamped at every terminal resolution.
+    """
+
+    model: str
+    z: object                  # (n, z_dim) latents
+    deadline_s: float | None = None
+    # filled by the engine:
+    rid: int = -1
+    t_submit: float = 0.0
+    t_done: float = 0.0
+    output: object = None      # (n, H, W, C) CPU tensor on completion
+    done: bool = False
+    expired: bool = False
+    rejected: bool = False
+    failed: bool = False
+
+    @property
+    def n(self) -> int:
+        return int(np.shape(self.z)[0])
+
+    @property
+    def terminal_state(self) -> str | None:
+        """``"done" | "expired" | "rejected" | "failed"``, or None while
+        pending. Raises if the request is in more than one terminal state."""
+        states = [s for s in ("done", "expired", "rejected", "failed")
+                  if getattr(self, s)]
+        if len(states) > 1:
+            raise AssertionError(
+                f"request {self.rid} in {len(states)} terminal states: "
+                f"{states}"
+            )
+        return states[0] if states else None
+
+    @property
+    def latency_s(self) -> float:
+        """Admission to terminal resolution (NaN while pending)."""
+        if self.done or self.expired or self.failed or self.rejected:
+            return self.t_done - self.t_submit
+        return float("nan")
+
+
+@dataclasses.dataclass
+class _ModelSlot:
+    cfg: object
+    params: dict
+    plans: dict = dataclasses.field(default_factory=dict)   # bucket -> plan
+    apply: dict = dataclasses.field(default_factory=dict)   # bucket -> fn
+    queue: deque = dataclasses.field(default_factory=deque)
+
+
+class GanEngine:
+    """Bucketed dynamic-batching engine over plan-compiled generators.
+
+    ``device`` is where the generators run (the CUDA card unless given);
+    registered parameters must live there. ``clock`` is injectable for
+    deterministic deadline tests.
+    """
+
+    def __init__(self, policy: BucketPolicy | None = None, *, device=None,
+                 clock=time.monotonic):
+        self.policy = policy or BucketPolicy()
+        self.device = resolve_device(device)
+        self.clock = clock
+        self.metrics = ServeMetrics()
+        self.registry: dict[str, _ModelSlot] = {}
+        self.completed: list[GenRequest] = []   # completion order
+        self.warmup_recompiles: int | None = None
+        self._rid = itertools.count()
+
+    # ----------------------------------------------------------- registry
+
+    def register(self, cfg, params: dict, *, name: str | None = None) -> str:
+        """Add one generator (config + parameters on the engine's device).
+        Call for each model to be served, then :meth:`warmup` once."""
+        name = name or cfg.name
+        if name in self.registry:
+            raise ValueError(f"model {name!r} already registered")
+        if params["proj"]["w"].device != self.device:
+            raise ValueError(
+                f"params live on {params['proj']['w'].device}, the engine "
+                f"runs on {self.device}"
+            )
+        self.registry[name] = _ModelSlot(cfg=cfg, params=params)
+        return name
+
+    def warmup(self) -> None:
+        """Build every (model, bucket) executable and run it once on zero
+        latents. Afterwards the recompile counter is frozen at
+        :attr:`warmup_recompiles`."""
+        for name, slot in self.registry.items():
+            for bucket in self.policy.buckets:
+                fn = self._executable(name, bucket)
+                fn(slot.params, torch.zeros((bucket, slot.cfg.z_dim),
+                                            device=self.device))
+        self._sync()
+        self.warmup_recompiles = self.metrics.recompiles
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _executable(self, name: str, bucket: int):
+        """The whole-generator callable for one (model, bucket), built
+        lazily: an un-warmed engine still serves, and the recompile counter
+        shows the inline build."""
+        slot = self.registry[name]
+        fn = slot.apply.get(bucket)
+        if fn is None:
+            if bucket not in slot.plans:
+                slot.plans.update(compile_plan_buckets(
+                    slot.cfg, [bucket], epilogues=generator_epilogues(slot.cfg),
+                ))
+            plan, cfg, device = slot.plans[bucket], slot.cfg, self.device
+
+            def fn(params, z):
+                return generator_apply(params, cfg, z, plan=plan, device=device)
+
+            slot.apply[bucket] = fn
+            self.metrics.count_recompile()
+        return fn
+
+    # ---------------------------------------------------------- admission
+
+    @property
+    def queued_samples(self) -> int:
+        return sum(r.n for s in self.registry.values() for r in s.queue)
+
+    @property
+    def queued_requests(self) -> int:
+        return sum(len(s.queue) for s in self.registry.values())
+
+    def submit(self, req: GenRequest) -> int:
+        """Admit one request (FIFO per model). Raises :class:`QueueFull`
+        past the queued-sample bound and ``ValueError`` for a malformed
+        request (a request must fit one dispatch: ``n <= max_bucket``)."""
+        slot = self.registry.get(req.model)
+        if slot is None:
+            raise ValueError(
+                f"model {req.model!r} not registered "
+                f"(have {sorted(self.registry)})"
+            )
+        n = req.n
+        if np.ndim(req.z) != 2 or np.shape(req.z)[1] != slot.cfg.z_dim:
+            raise ValueError(
+                f"z must be (n, {slot.cfg.z_dim}), got {np.shape(req.z)}"
+            )
+        if n < 1:
+            raise ValueError("request must carry at least one latent row")
+        if n > self.policy.max_bucket:
+            raise ValueError(
+                f"request of {n} samples exceeds the largest bucket "
+                f"{self.policy.max_bucket}; split it client-side"
+            )
+        if req.deadline_s is not None and req.deadline_s <= 0:
+            raise ValueError(
+                f"deadline_s must be positive, got {req.deadline_s}"
+            )
+        if self.queued_samples + n > self.policy.max_queue:
+            req.rejected = True
+            req.t_submit = req.t_done = self.clock()
+            self.metrics.record_reject(req.model)
+            raise QueueFull(
+                f"queue holds {self.queued_samples} samples, request of {n} "
+                f"exceeds max_queue={self.policy.max_queue}"
+            )
+        req.rid = next(self._rid)
+        req.t_submit = self.clock()
+        self.metrics.record_admit(req.t_submit, req.model)
+        slot.queue.append(req)
+        return req.rid
+
+    # --------------------------------------------------------------- step
+
+    def _purge_expired(self, now: float) -> int:
+        """Drop queued requests past their deadline, anywhere in a queue,
+        before every dispatch decision."""
+        dropped = 0
+        for name, slot in self.registry.items():
+            keep = deque()
+            for r in slot.queue:
+                if r.deadline_s is not None and now - r.t_submit > r.deadline_s:
+                    r.expired = True
+                    r.t_done = now
+                    self.metrics.record_expired(
+                        now, residence_s=now - r.t_submit, model=name
+                    )
+                    dropped += 1
+                else:
+                    keep.append(r)
+            slot.queue = keep
+        return dropped
+
+    def _next_model(self) -> str | None:
+        """FIFO fairness across models: the queue whose head is oldest."""
+        best, best_t = None, None
+        for name, slot in self.registry.items():
+            if slot.queue and (best_t is None
+                               or slot.queue[0].t_submit < best_t):
+                best, best_t = name, slot.queue[0].t_submit
+        return best
+
+    def step(self, now: float | None = None, *, drain: bool = False) -> bool:
+        """One batching-loop iteration; ``drain=True`` forces a flush.
+        Returns whether a batch ran."""
+        if now is None:
+            now = self.clock()
+        self._purge_expired(now)
+        name = self._next_model()
+        if name is None:
+            return False
+        slot = self.registry[name]
+        sizes = [r.n for r in slot.queue]
+        if not drain and not self.policy.should_flush(
+            sizes, now - slot.queue[0].t_submit
+        ):
+            return False
+        count, bucket = self.policy.pack(sizes)
+        reqs = [slot.queue.popleft() for _ in range(count)]
+        self._execute(name, reqs, bucket)
+        return True
+
+    def _pack_latents(self, reqs: list, bucket: int):
+        """The requests' latents, padded with zero rows up to the bucket:
+        ``(z, n_real)`` with ``z`` a host array of ``bucket`` rows."""
+        z = np.concatenate(
+            [np.asarray(r.z, dtype=np.float32) for r in reqs], axis=0
+        )
+        n_real = z.shape[0]
+        if n_real < bucket:
+            z = np.concatenate(
+                [z, np.zeros((bucket - n_real, z.shape[1]), z.dtype)], axis=0
+            )
+        return z, n_real
+
+    def _finalize(self, name: str, reqs: list, out: torch.Tensor,
+                  n_real: int, bucket: int, t0: float) -> None:
+        """Record the batch and hand each request its contiguous rows; pad
+        rows never reach a client."""
+        now = self.clock()
+        self.metrics.record_batch(n_real, bucket, now - t0, now, model=name)
+        row = 0
+        for r in reqs:
+            r.output = out[row : row + r.n]
+            row += r.n
+            r.done = True
+            r.t_done = now
+            self.metrics.record_completion(r.latency_s, model=name)
+            self.completed.append(r)
+
+    def _execute(self, name: str, reqs: list, bucket: int) -> None:
+        """Pad-and-mask dispatch: move the packed latents to the device, run
+        the executable, wait for it, and slice the CPU copy per request."""
+        slot = self.registry[name]
+        z, n_real = self._pack_latents(reqs, bucket)
+        t0 = self.clock()
+        zt = torch.from_numpy(z).to(self.device)
+        out = self._executable(name, bucket)(slot.params, zt)
+        self._sync()
+        self._finalize(name, reqs, out.cpu(), n_real, bucket, t0)
+
+    # -------------------------------------------------------- conservation
+
+    def conservation(self) -> dict:
+        """The terminal-state ledger: ``ok`` is False iff an admitted
+        request is neither done, expired, failed nor still queued."""
+        c = self.metrics.conservation()
+        c["queued"] = self.queued_requests
+        c["ok"] = c["admitted"] == c["resolved"] + c["queued"]
+        return c
+
+    # ---------------------------------------------------------------- run
+
+    def serve(self, requests, *, drain: bool = True) -> list:
+        """Burst mode: submit everything, then run the loop to completion."""
+        for r in requests:
+            self.submit(r)
+        while self.step(drain=drain):
+            pass
+        return requests
+
+    def replay(self, requests, arrivals_s, *, sleep=time.sleep) -> list:
+        """Trace-replay mode: submit each request when the clock passes its
+        arrival offset (seconds from replay start, sorted ascending),
+        batching between arrivals under the live policy, then drain. A
+        ``QueueFull`` sheds that request (``rejected``); a malformed one is
+        marked ``failed`` and counted in ``metrics.malformed``; the rest of
+        the trace is served."""
+        order = list(zip(requests, arrivals_s))
+        if any(b < a for (_, a), (_, b) in zip(order, order[1:])):
+            raise ValueError("arrivals_s must be sorted ascending")
+        t0 = self.clock()
+        i = 0
+        while i < len(order) or self.queued_requests:
+            now = self.clock() - t0
+            while i < len(order) and order[i][1] <= now:
+                req = order[i][0]
+                try:
+                    self.submit(req)
+                except QueueFull:
+                    pass   # shed: request marked rejected by submit
+                except ValueError:
+                    req.failed = True
+                    req.t_submit = req.t_done = self.clock()
+                    self.metrics.record_malformed(getattr(req, "model", None))
+                i += 1
+            if self.step():
+                continue
+            if i < len(order):   # idle until the next arrival or deadline
+                wait = order[i][1] - (self.clock() - t0)
+                if self.queued_requests:
+                    wait = min(wait, self.policy.max_wait_s)
+                if wait > 0:
+                    sleep(min(wait, 1e-3))
+            elif self.queued_requests:
+                self.step(drain=True)   # no more arrivals: flush the tail
+        return requests
+
+
+def sequential_executables(cfg, params: dict, sizes, *, device=None) -> dict:
+    """Warmed per-size executables ``{n: fn(params, z)}``, each running the
+    whole generator at exactly batch ``n``: the sequential per-request
+    baseline the bucketed engine is compared against."""
+    dev = resolve_device(device)
+    plans = compile_plan_buckets(cfg, sizes, epilogues=generator_epilogues(cfg))
+    fns = {}
+    for n, plan in plans.items():
+
+        def run(p, z, _plan=plan):
+            return generator_apply(p, cfg, z, plan=_plan, device=dev)
+
+        run(params, torch.zeros((n, cfg.z_dim), device=dev))
+        fns[n] = run
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    return fns

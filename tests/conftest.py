@@ -41,3 +41,9 @@ def tconv_trace_counter(monkeypatch):
 
     monkeypatch.setattr(planlib, "execute_layer", spy)
     return counts
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card; skips itself when none is present"
+    )
