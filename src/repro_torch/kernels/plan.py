@@ -4,8 +4,8 @@
 ``execute_layer``).
 
 * :class:`LayerPlan` -- an immutable, hashable record of one layer: its
-  signature (batch, N, n, Cin, Cout, P, dtype, epilogue) and the resolved
-  forward method.
+  signature (batch, N, n, Cin, Cout, P, dtype, epilogue), the resolved
+  forward method and the resolved backward method.
 * :class:`TconvPlan` -- the ordered stack of a whole generator.
 * :func:`execute_layer` -- runs one resolved layer ``act(tconv + b)``.
 
@@ -24,6 +24,15 @@ Methods a plan resolves to:
 yet): the implicit-GEMM kernel for a phase plane of fewer than 8 rows (the
 channel-deep 4x4 head layers), the fused kernel otherwise. The reference's
 cold rule splits at the same line between its dense and segregated forms.
+
+The two kernel methods run through the ``torch.autograd.Function`` s of
+:mod:`repro_torch.kernels.ops`, whose backward is ``bwd_method``:
+``segregated`` (the three backward kernels; the reference's ``pallas``) or
+``autograd`` (autograd of the ``unified`` form; the reference's ``lax``),
+``segregated`` unless pinned. (The reference takes its lax VJP off the TPU
+only because its Pallas kernels interpret at Python speed there; here a
+CPU tensor runs the kernels' plain versions, so one default serves both
+devices.) The baselines differentiate through PyTorch's own autograd.
 """
 from __future__ import annotations
 
@@ -36,8 +45,7 @@ from repro_torch.core import segregation as seg
 from repro_torch.core import transpose_conv as tc
 from repro_torch.kernels import epilogue as epilib
 from repro_torch.kernels.epilogue import Epilogue
-from repro_torch.kernels.transpose_conv2d import transpose_conv2d_fused
-from repro_torch.kernels.transpose_conv2d_gemm import transpose_conv2d_gemm
+from repro_torch.kernels.ops import BWD_METHODS, TconvFusedFn, TconvGemmFn
 
 METHODS = ("fused", "gemm") + tuple(tc.METHODS)
 
@@ -55,6 +63,7 @@ class LayerPlan:
     dtype: str = "float32"
     epilogue: Epilogue | None = None
     method: str = "unified_reshape"
+    bwd_method: str = "segregated"
     # "cold" (the rule above) or "pinned" (an explicit method); not part of
     # eq/hash, so the same decision compares equal whatever its provenance
     source: str = dataclasses.field(default="cold", compare=False)
@@ -64,7 +73,7 @@ class LayerPlan:
         return (
             f"{self.n_in}x{self.n_in}x{self.cin}->{self.cout} "
             f"k{self.n_k} p{self.padding} b{self.batch} {self.dtype}: "
-            f"fwd={self.method}{epi} ({self.source})"
+            f"fwd={self.method} bwd={self.bwd_method}{epi} ({self.source})"
         )
 
 
@@ -105,20 +114,23 @@ def _dtype_name(dtype) -> str:
 def plan_layer(
     b: int, n_in: int, n_k: int, cin: int, cout: int, padding: int,
     dtype="float32", *, method: str = "auto",
-    epilogue: Epilogue | None = None,
+    epilogue: Epilogue | None = None, bwd: str = "segregated",
 ) -> LayerPlan:
     """Resolve one layer: ``auto`` by :func:`cold_method`, any name in
-    :data:`METHODS` pinned."""
+    :data:`METHODS` pinned; the backward is any name in
+    :data:`BWD_METHODS`."""
     if method == "auto":
         resolved, source = cold_method(n_in, n_k, padding), "cold"
     elif method in METHODS:
         resolved, source = method, "pinned"
     else:
         raise ValueError(f"unknown method {method!r}; one of {METHODS} or 'auto'")
+    if bwd not in BWD_METHODS:
+        raise ValueError(f"unknown bwd {bwd!r}; one of {BWD_METHODS}")
     return LayerPlan(
         batch=b, n_in=n_in, n_k=n_k, cin=cin, cout=cout, padding=padding,
         dtype=_dtype_name(dtype), epilogue=epilib.canonical(epilogue),
-        method=resolved, source=source,
+        method=resolved, bwd_method=bwd, source=source,
     )
 
 
@@ -152,21 +164,21 @@ def _layer_epilogues(cfg, epilogues) -> tuple:
 
 
 def compile_plan(cfg, batch: int, dtype="float32", *, method: str = "auto",
-                 epilogues=None) -> TconvPlan:
+                 epilogues=None, bwd: str = "segregated") -> TconvPlan:
     """A whole-generator :class:`TconvPlan`. ``cfg`` has ``layers`` as
     ``(input_hw, cin, cout)`` triples plus ``kernel``/``padding``/``name``;
     ``epilogues`` is an optional per-layer tuple of :class:`Epilogue`."""
     epis = _layer_epilogues(cfg, epilogues)
     layers = tuple(
         plan_layer(batch, hw, cfg.kernel, cin, cout, cfg.padding, dtype,
-                   method=method, epilogue=epi)
+                   method=method, epilogue=epi, bwd=bwd)
         for (hw, cin, cout), epi in zip(cfg.layers, epis)
     )
     return TconvPlan(name=getattr(cfg, "name", "tconv"), layers=layers)
 
 
-def compile_plan_buckets(cfg, batches, dtype="float32", *,
-                         method: str = "auto", epilogues=None) -> dict:
+def compile_plan_buckets(cfg, batches, dtype="float32", *, method: str = "auto",
+                         epilogues=None) -> dict:
     """``{batch: TconvPlan}`` over a set of batch buckets, each layer
     resolved through :func:`plan_layer_cached`."""
     epis = _layer_epilogues(cfg, epilogues)
@@ -201,11 +213,9 @@ def execute_layer(lp: LayerPlan, x, kernel, *, bias=None) -> torch.Tensor:
             f"got bias={'set' if bias is not None else None}"
         )
     if lp.method == "fused":
-        return transpose_conv2d_fused(x, kernel, lp.padding, epilogue=epi,
-                                      bias=bias)
+        return TconvFusedFn.apply(x, kernel, bias, lp)
     if lp.method == "gemm":
-        return transpose_conv2d_gemm(x, kernel, lp.padding, epilogue=epi,
-                                     bias=bias)
+        return TconvGemmFn.apply(x, kernel, bias, lp)
     fn = tc.METHODS.get(lp.method)
     if fn is None:
         raise ValueError(f"LayerPlan resolved to unknown method {lp.method!r}")

@@ -1,17 +1,21 @@
 """GAN generators of the paper's Table 4 on the unified kernel-segregated
-transpose convolution. Mirrors the generator half of ``repro/models/gan.py``.
+transpose convolution, and the small conv discriminator that trains them.
+Mirrors ``repro/models/gan.py``.
 
 Each generator projects a latent ``z`` to a ``(h0, h0, c0)`` NHWC map and
 runs a stack of stride-2 4x4 transpose-conv layers, each
 ``act(tconv(x, W) + b)``: relu mid-stack, tanh at the output. Parameters are
 a plain dict in the reference's layout: ``{"proj": {"w": (z_dim,
-h0*h0*c0)}, "tconv{i}": {"w": (4, 4, cin, cout) HWIO, "b": (cout,)}}``.
+h0*h0*c0)}, "tconv{i}": {"w": (4, 4, cin, cout) HWIO, "b": (cout,)}}``; the
+discriminator's are ``{"conv{i}": {"w": (4, 4, cin, cout) HWIO}, "head":
+{"w": (hw*hw*c, 1)}}``.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core.segregation import (
     flop_count,
@@ -34,6 +38,9 @@ class GANConfig:
     # paper-convention padding on the upsampled map (Fig. 5: P=2 for 4x4):
     # out = 2N - n + 2P = 2N, i.e. resolution doubles per layer
     padding: int = 2
+
+    def out_hw(self, in_hw: int) -> int:
+        return 2 * in_hw - self.kernel + 2 * self.padding
 
 
 # Table 4 layer stacks (input size / kernel columns).
@@ -81,12 +88,14 @@ def generator_epilogues(cfg: GANConfig) -> tuple:
 
 
 def generator_plan(cfg: GANConfig, batch: int, *, method: str = "auto",
-                   epilogues=None):
+                   epilogues=None, bwd: str = "segregated"):
     """The whole generator's :class:`~repro_torch.kernels.plan.TconvPlan`,
-    with each layer's bias + activation baked in (:func:`generator_epilogues`)."""
+    with each layer's bias + activation baked in (:func:`generator_epilogues`).
+    ``bwd`` is the backward: ``segregated`` or ``autograd``."""
     if epilogues is None:
         epilogues = generator_epilogues(cfg)
-    return compile_plan(cfg, batch, method=method, epilogues=epilogues)
+    return compile_plan(cfg, batch, method=method,
+                        epilogues=epilogues, bwd=bwd)
 
 
 def generator_init(generator: torch.Generator, cfg: GANConfig, *,
@@ -123,6 +132,7 @@ def generator_apply(params: dict, cfg: GANConfig, z, *, method: str = "auto",
     ``plan=`` (a compiled :class:`~repro_torch.kernels.plan.TconvPlan` from
     :func:`generator_plan`) runs every layer as the plan resolved it;
     without one each layer resolves a memoized plan for ``method``.
+    Differentiable in ``params``.
     """
     dev = resolve_device(device)
     if plan is not None and len(plan) != len(cfg.layers):
@@ -172,3 +182,40 @@ def generator_memory_savings(cfg: GANConfig, *,
             m = output_size(hw, cfg.kernel, cfg.padding)
             total += 4 * m * m * cout * 4
     return total
+
+
+# ------------------------------------------------------- small discriminator
+
+def discriminator_init(generator: torch.Generator, in_hw: int, cin: int,
+                       width: int = 64, *, device=None) -> dict:
+    """Three stride-2 4x4 convs (``cin -> width -> 2 width -> 4 width``, HWIO,
+    fan-in scaled) and a linear head, drawn from ``generator`` and placed on
+    ``device`` (the CUDA card unless the caller names another)."""
+    dev = resolve_device(device)
+    chans = [cin, width, width * 2, width * 4]
+
+    def normal(shape, scale):
+        return (torch.randn(shape, generator=generator, device=generator.device)
+                * scale).to(dev)
+
+    params = {
+        f"conv{i}": {"w": normal((4, 4, chans[i], chans[i + 1]),
+                                 (16 * chans[i]) ** -0.5)}
+        for i in range(3)
+    }
+    hw = in_hw // 8
+    params["head"] = {"w": normal((hw * hw * chans[3], 1), 0.02)}
+    return params
+
+
+def discriminator_apply(params: dict, x: torch.Tensor) -> torch.Tensor:
+    """x: (B, H, W, C) NHWC images -> (B,) logits. Each conv is stride 2 with
+    padding 1 and a 0.2 leaky relu (``F.conv2d``, as the reference computes
+    them outside any kernel). The head flattens in NHWC order, as the
+    reference's ``reshape(B, -1)`` does."""
+    h = x.permute(0, 3, 1, 2)
+    for i in range(3):
+        w = params[f"conv{i}"]["w"].permute(3, 2, 0, 1)  # HWIO -> OIHW
+        h = F.leaky_relu(F.conv2d(h, w, stride=2, padding=1), 0.2)
+    h = h.permute(0, 2, 3, 1).reshape(h.shape[0], -1)
+    return (h @ params["head"]["w"])[:, 0]

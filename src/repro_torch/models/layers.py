@@ -21,8 +21,10 @@ def tconv_init(generator: torch.Generator, n: int, cin: int, cout: int, *,
 
 
 def tconv_apply(p: dict, x: torch.Tensor, padding: int, *,
-                method: str = "auto", plan=None, act: str = "none"):
-    """Stride-2 transpose convolution + bias + activation as one unit.
+                method: str = "auto", plan=None,
+                act: str = "none"):
+    """Stride-2 transpose convolution + bias + activation as one unit,
+    differentiable in ``x``, ``p["w"]`` and ``p["b"]``.
 
     ``plan=`` (a :class:`~repro_torch.kernels.plan.LayerPlan` compiled
     with this layer's epilogue) runs exactly what the plan resolved;

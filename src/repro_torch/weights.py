@@ -1,10 +1,13 @@
-"""Load the reference package's generator parameters into the port.
+"""Load the reference package's parameters and training state into the
+port.
 
 The JAX generator's parameters are a pytree ``{"proj": {"w"}, "tconv{i}":
 {"w", "b"}}``; handed over as numpy arrays, they become the port's dict of
 tensors with every layout kept: ``proj.w`` stays ``(z_dim, h0*h0*c0)``
 (its product reshapes to NHWC in both packages) and kernels stay HWIO. Both
-packages then compute the same function.
+packages then compute the same function. :func:`from_jax_state` does the
+same for the reference trainer's whole state (both nets and both optimizer
+states), so both packages can start a step from one state.
 """
 from __future__ import annotations
 
@@ -32,3 +35,33 @@ def from_jax_params(params_np: dict, cfg, device) -> dict:
             raise ValueError(f"{layer}.{name} has shape {a.shape}, want {shape}")
         out.setdefault(layer, {})[name] = torch.from_numpy(a.copy()).to(dev)
     return out
+
+
+def _tensor(a, dev) -> torch.Tensor:
+    """A numpy array (bfloat16 ones by their bits: the port does not use
+    ``ml_dtypes``) as a tensor on ``dev``."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        bits = torch.from_numpy(np.ascontiguousarray(a).view(np.int16))
+        return bits.view(torch.bfloat16).to(dev)
+    return torch.from_numpy(np.array(a)).to(dev)
+
+
+def _tree(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _tree(v, dev) for k, v in tree.items()}
+    return _tensor(tree, dev)
+
+
+def from_jax_state(state_np: dict, cfg, device) -> dict:
+    """The port trainer's state from numpy copies of the reference
+    trainer's ``{"g_params", "d_params", "g_opt", "d_opt"}`` (optimizer
+    moments of any dtype, the step count, and the error-feedback trees when
+    present), on ``device`` (``None`` means the CUDA card)."""
+    dev = resolve_device(device)
+    return {
+        "g_params": from_jax_params(state_np["g_params"], cfg, dev),
+        "d_params": _tree(state_np["d_params"], dev),
+        "g_opt": _tree(state_np["g_opt"], dev),
+        "d_opt": _tree(state_np["d_opt"], dev),
+    }

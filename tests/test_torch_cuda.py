@@ -1,5 +1,6 @@
-"""Card tests of the port: each CUDA kernel against its plain version, and
-the generator's batch invariance. Every test is marked ``cuda`` and skips
+"""Card tests of the port: each CUDA kernel against its plain version, the
+generator's batch invariance, and the generator's gradients through the
+backward kernels. Every test is marked ``cuda`` and skips
 itself when no card is present. The file imports no JAX, so it runs on a
 machine that has only PyTorch:
 
@@ -11,6 +12,7 @@ import torch
 
 from repro_torch.kernels import epilogue as epilib
 from repro_torch.kernels import transpose_conv2d as tcf
+from repro_torch.kernels import transpose_conv2d_bwd as bw
 from repro_torch.kernels import transpose_conv2d_gemm as tcg
 from repro_torch.models import gan
 
@@ -96,3 +98,77 @@ def test_generator_batch_invariant_bitwise(card):
     for i in range(8):
         one = gan.generator_apply(params, cfg, z[i : i + 1], device=card)
         assert torch.equal(one[0], batched[i])
+
+
+def _close(got, want):
+    """Within 1e-4 * max|ref| + 1e-5: fp32 sums of up to 8192 terms taken in
+    another order."""
+    assert got.shape == want.shape
+    err = (got - want).abs().max().item()
+    assert err <= 1e-4 * want.abs().max().item() + 1e-5, err
+
+
+@pytest.mark.parametrize("epi", EPILOGUES[2:], ids=EPI_IDS[2:])
+def test_epilogue_grad_kernel_matches_plain_bitwise(card, epi):
+    gen = torch.Generator(device=card).manual_seed(0)
+    g = torch.randn((8, 64, 64, 3), device=card, generator=gen)
+    y = torch.tanh(torch.randn(g.shape, device=card, generator=gen))
+    y[0, 0, 0] = 0.0
+    before = bw.epilogue_grad.launches
+    got = bw.epilogue_grad(g, y, epi)
+    want = bw.epilogue_grad_plain(g, y, epi)
+    torch.cuda.synchronize()
+    assert bw.epilogue_grad.launches == before + 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("with_db", [False, True])
+@pytest.mark.parametrize("shape", SHAPES, ids=str)
+def test_dx_and_dw_kernels_match_plain(card, shape, with_db):
+    b, n_in, n_k, pad, cin, cout = shape
+    x, k, _ = _case(sum(shape), b, n_in, cin, n_k, cout, card)
+    m = 2 * n_in - n_k + 2 * pad
+    gm = torch.randn((b, m, m, cout), device=card,
+                     generator=torch.Generator(device=card).manual_seed(1))
+    before = (bw.transpose_conv2d_dx.launches, bw.transpose_conv2d_dw.launches)
+    dx = bw.transpose_conv2d_dx(gm, k, n_in, pad)
+    dw = bw.transpose_conv2d_dw(x, gm, n_k, pad, with_db=with_db)
+    torch.cuda.synchronize()
+    assert (bw.transpose_conv2d_dx.launches, bw.transpose_conv2d_dw.launches) == (
+        before[0] + 1, before[1] + 1)
+    _close(dx, bw.transpose_conv2d_dx_plain(gm, k, n_in, pad))
+    want = bw.transpose_conv2d_dw_plain(x, gm, n_k, pad, with_db=with_db)
+    if with_db:
+        _close(dw[0], want[0])
+        _close(dw[1], want[1])
+    else:
+        _close(dw, want)
+
+
+def test_backward_kernels_are_deterministic(card):
+    """Two runs of the split dx and dw kernels give the same bits."""
+    b, n_in, n_k, pad, cin, cout = 8, 32, 4, 2, 128, 3
+    x, k, _ = _case(3, b, n_in, cin, n_k, cout, card)
+    gm = torch.randn((b, 64, 64, cout), device=card)
+    runs = [(bw.transpose_conv2d_dx(gm, k, n_in, pad),
+             *bw.transpose_conv2d_dw(x, gm, n_k, pad, with_db=True))
+            for _ in range(2)]
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+def test_generator_grads_segregated_match_autograd(card):
+    cfg = gan.reduced_config(gan.DCGAN, 4)
+    params = gan.generator_init(torch.Generator().manual_seed(0), cfg,
+                                device=card)
+    z = torch.randn((4, cfg.z_dim), generator=torch.Generator().manual_seed(1))
+    r = torch.randn((4, 64, 64, cfg.layers[-1][2]),
+                    generator=torch.Generator().manual_seed(2)).to(card)
+    grads = {}
+    for bwd in ("segregated", "autograd"):
+        live = {k: {n: t.detach().requires_grad_(True) for n, t in v.items()}
+                for k, v in params.items()}
+        plan = gan.generator_plan(cfg, 4, bwd=bwd)
+        (gan.generator_apply(live, cfg, z, plan=plan, device=card) * r).sum().backward()
+        grads[bwd] = {(k, n): t.grad for k, v in live.items() for n, t in v.items()}
+    for key, want in grads["autograd"].items():
+        _close(grads["segregated"][key], want)

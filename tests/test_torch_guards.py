@@ -10,10 +10,12 @@ import pytest
 import torch
 
 import repro_torch
+from repro_torch.data import SyntheticImages
 from repro_torch.device import resolve_device
 from repro_torch.models import gan
 from repro_torch.serve import GanEngine
-from repro_torch.weights import from_jax_params
+from repro_torch.train.gan_trainer import GanTrainer, GanTrainerConfig
+from repro_torch.weights import from_jax_params, from_jax_state
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 MODULES = sorted(m.name for m in pkgutil.walk_packages(
@@ -21,12 +23,13 @@ MODULES = sorted(m.name for m in pkgutil.walk_packages(
 
 
 def test_port_imports_without_jax_or_reference():
-    """Every port module, and chip_smoke.py, imports with ``jax`` blocked
-    and loads no ``repro`` module."""
+    """Every port module, and chip_smoke.py, imports with ``jax`` and
+    ``ml_dtypes`` blocked and loads no ``repro`` module."""
     code = (
         "import importlib, sys\n"
         "sys.modules['jax'] = None\n"
         "sys.modules['jaxlib'] = None\n"
+        "sys.modules['ml_dtypes'] = None\n"
         f"for name in {MODULES!r} + ['chip_smoke']:\n"
         "    importlib.import_module(name)\n"
         "bad = sorted(m for m in sys.modules\n"
@@ -46,8 +49,12 @@ def test_module_list_covers_the_slice():
     for name in ("core.segregation", "core.transpose_conv", "kernels.ref",
                  "kernels.epilogue", "kernels._build", "kernels.plan",
                  "kernels.transpose_conv2d", "kernels.transpose_conv2d_gemm",
+                 "kernels.transpose_conv2d_bwd", "kernels.ops",
                  "models.layers", "models.gan", "serve.batching",
-                 "serve.metrics", "serve.gan_engine", "timing", "weights"):
+                 "serve.metrics", "serve.gan_engine", "timing", "weights",
+                 "tree", "optim.adamw", "optim.compression", "data.pipeline",
+                 "distributed.fault_tolerance", "train.checkpoint",
+                 "train.gan_trainer"):
         assert f"repro_torch.{name}" in MODULES
 
 
@@ -55,6 +62,7 @@ def _entry_points(cfg, params_cpu):
     z = np.zeros((1, cfg.z_dim), np.float32)
     np_params = {k: {n: t.numpy() for n, t in v.items()}
                  for k, v in params_cpu.items()}
+    data = SyntheticImages(64, cfg.layers[-1][2], 1, device="cpu")
     return {
         "resolve_device": lambda: resolve_device(None),
         "GanEngine": lambda: GanEngine(),
@@ -62,12 +70,22 @@ def _entry_points(cfg, params_cpu):
             torch.Generator().manual_seed(0), cfg),
         "generator_apply": lambda: gan.generator_apply(params_cpu, cfg, z),
         "from_jax_params": lambda: from_jax_params(np_params, cfg, None),
+        "discriminator_init": lambda: gan.discriminator_init(
+            torch.Generator().manual_seed(0), 64, 3),
+        "SyntheticImages": lambda: SyntheticImages(64, 3, 1),
+        "GanTrainer": lambda: GanTrainer(cfg, GanTrainerConfig(global_batch=1),
+                                         data),
+        "from_jax_state": lambda: from_jax_state(
+            {"g_params": np_params, "d_params": {}, "g_opt": {}, "d_opt": {}},
+            cfg, None),
     }
 
 
 @pytest.mark.parametrize("entry", ["resolve_device", "GanEngine",
                                    "generator_init", "generator_apply",
-                                   "from_jax_params"])
+                                   "from_jax_params", "discriminator_init",
+                                   "SyntheticImages", "GanTrainer",
+                                   "from_jax_state"])
 def test_entry_points_default_to_the_card(entry):
     """Without ``device=`` an entry point runs on the card; with no card it
     raises instead of falling back to the CPU."""
