@@ -10,7 +10,7 @@ Phases, in order; any failure raises and the script exits non-zero:
 1. device  -- the card's name, count and power limit; TF32 off for matmul
               and cuDNN, so every fp32 comparison is fp32; cudnn.benchmark
               off; CUBLAS_WORKSPACE_CONFIG set before torch is imported.
-2. build   -- the three CUDA sources compiled from src/repro_torch/kernels/csrc
+2. build   -- the five CUDA sources compiled from src/repro_torch/kernels/csrc
               (in parallel), with nvcc's -Xptxas -v report.
 3. check   -- each forward kernel against its plain PyTorch version at the
               four DCGAN layer shapes at batch 8 and at odd geometries, with
@@ -42,8 +42,34 @@ Phases, in order; any failure raises and the script exits non-zero:
               plan pinned to bwd="autograd" (cuDNN), same tolerance.
 9. bwd times -- per DCGAN layer at batch 8: each backward kernel, its plain
               version, a one-call library yardstick and the bound.
-10. train  -- deterministic algorithms on (a bit-exact resume needs them;
-              phases 3-9 run and are timed without them), then GanTrainer on
+10. pair check -- the per-phase kernel against its plain version at the
+              four DCGAN shapes and ODD_SHAPES with every epilogue; the pair
+              kernel against its plain version at both DCGAN pairs (batch
+              8), EB-GAN's two legal head pairs (batch 1) and odd
+              geometries, with interface and output epilogues; EB-GAN's
+              64x64x128->64->64 tail pair refused (over the shared-memory
+              budget); same tolerance.
+11. pair times -- per DCGAN pair at batch 8: the pair kernel and the port's
+              own back-to-back kernels in turns (and both at batch 1), its
+              plain version, a library yardstick (two F.conv_transpose2d +
+              activation) and the bound; per DCGAN layer: the per-phase kernel and the fused
+              kernel in turns (the paper's unified-versus-segregated
+              comparison, recorded, not claimed), the plain version, the
+              library call and the bound; the whole generator per bucket
+              through fused pairs and per layer, in turns; a profiled fused
+              generator call.
+12. fused engine -- GanEngine(fuse="force") on full-width DCGAN: the 32
+              requests of phase 5, the pair kernel launched, each request
+              bitwise equal to its own unbatched fused call and within
+              tolerance of the per-layer generator; save_plans, then a fresh
+              engine's warmup(registry_path=...) gives equal plans and
+              bitwise equal outputs; then phase 6's windows on fused engines.
+13. pair autograd -- the full-width generator's parameter gradients through
+              a fused-pair plan and through a plan pinned to method="phase",
+              each against the per-layer plan, same tolerance; the launches
+              of each run.
+14. train  -- deterministic algorithms on (a bit-exact resume needs them;
+              phases 3-13 run and are timed without them), then GanTrainer on
               full-width DCGAN (GanTrainerConfig defaults, global batch 8):
               6 steps checkpointing every 3 with every kernel launched; a
               resume from step 3 bitwise equal to the uninterrupted run
@@ -52,7 +78,7 @@ Phases, in order; any failure raises and the script exits non-zero:
               TRAIN_WINDOWS alternating windows of 30 timed steps through
               the kernels and with the plan pinned to bwd="autograd"; one
               profiled step.
-11. result -- a JSON line of per-kernel numbers, then the last line
+15. result -- a JSON line of per-kernel numbers, then the last line
               {"ok": true, "device": {...}}.
 
 Full results also go to chiprun_out/chip_smoke.json.
@@ -94,8 +120,24 @@ SOURCES = {
     "epilogue_grad": (BWD_CU, "src/repro/kernels/transpose_conv2d_bwd.py:194"),
     "dx": (BWD_CU, "src/repro/kernels/transpose_conv2d_bwd.py:306"),
     "dw": (BWD_CU, "src/repro/kernels/transpose_conv2d_bwd.py:485"),
+    "phase": ("src/repro_torch/kernels/csrc/transpose_conv2d_phase.cu",
+              "src/repro/kernels/transpose_conv2d.py:395"),
+    "pair": ("src/repro_torch/kernels/csrc/transpose_conv2d_pair.cu",
+             "src/repro/kernels/transpose_conv2d_pair.py:348"),
 }
 FORWARD = ("fused", "gemm")
+TRAINING = ("fused", "gemm", "epilogue_grad", "dx", "dw")
+DCGAN_PAIRS = [  # (B, N, n, P, C0, C1, C2): DCGAN L0-1 and L2-3 at batch 8
+    (BATCH, 4, 4, 2, 1024, 512, 256), (BATCH, 16, 4, 2, 256, 128, 3),
+]
+PAIR_CHECKS = DCGAN_PAIRS + [
+    (1, 4, 4, 2, 2048, 1024, 512),   # EB-GAN L0-1
+    (1, 16, 4, 2, 512, 256, 128),    # EB-GAN L2-3: 177 KB of shared memory
+    (2, 5, 3, 1, 13, 21, 7),         # n = 3, odd P, C2 not a tile multiple
+    (2, 7, 5, 3, 9, 12, 5),          # n = 5, odd P = 3
+    (1, 6, 3, 0, 17, 35, 6),         # n = 3, P = 0, 5 cluster blocks
+]
+PAIR_OVER_BUDGET = (1, 64, 4, 2, 128, 64, 64)   # EB-GAN L4-5
 
 
 def log(*args) -> None:
@@ -139,8 +181,9 @@ def phase_build() -> dict:
 
     t0 = time.perf_counter()
     logs = _build.build("transpose_conv2d_fused", "transpose_conv2d_gemm",
-                        "transpose_conv2d_bwd")
-    log(f"[build] three sources in {time.perf_counter() - t0:.1f} s")
+                        "transpose_conv2d_bwd", "transpose_conv2d_phase",
+                        "transpose_conv2d_pair")
+    log(f"[build] five sources in {time.perf_counter() - t0:.1f} s")
     for name, text in logs.items():   # registers, shared memory, spills
         for line in text.splitlines():
             if line.strip():
@@ -163,6 +206,7 @@ def kernels(names=tuple(SOURCES)):
     from repro_torch.kernels import transpose_conv2d as tcf
     from repro_torch.kernels import transpose_conv2d_bwd as bw
     from repro_torch.kernels import transpose_conv2d_gemm as tcg
+    from repro_torch.kernels import transpose_conv2d_pair as tcp
 
     every = {
         "fused": (tcf.transpose_conv2d_fused, tcf.transpose_conv2d_fused_plain),
@@ -170,6 +214,8 @@ def kernels(names=tuple(SOURCES)):
         "epilogue_grad": (bw.epilogue_grad, bw.epilogue_grad_plain),
         "dx": (bw.transpose_conv2d_dx, bw.transpose_conv2d_dx_plain),
         "dw": (bw.transpose_conv2d_dw, bw.transpose_conv2d_dw_plain),
+        "phase": (tcf.transpose_conv2d_phase, tcf.transpose_conv2d_phase_plain),
+        "pair": (tcp.transpose_conv2d_pair, tcp.transpose_conv2d_pair_plain),
     }
     return {name: every[name] for name in names}
 
@@ -209,6 +255,15 @@ def phase_check(torch) -> dict:
     return worst
 
 
+def _limits(flops, nbytes) -> dict:
+    """The least time for ``flops`` fp32 operations on ``nbytes`` moved once:
+    the larger of the two over the card's peak rates."""
+    t_ops, t_bytes = flops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_HBM_BPS * 1e3
+    return {"flops": flops, "bytes": nbytes, "ops_ms": t_ops,
+            "bytes_ms": t_bytes, "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
 def _bound(shape) -> dict:
     from repro_torch.core.segregation import flop_count, output_size
 
@@ -217,10 +272,7 @@ def _bound(shape) -> dict:
     flops = 2 * b * flop_count(n_in, n_k, cin, cout, pad)
     nbytes = 4 * (b * n_in * n_in * cin + n_k * n_k * cin * cout + cout
                   + b * m * m * cout)
-    t_ops, t_bytes = flops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_HBM_BPS * 1e3
-    return {"flops": flops, "bytes": nbytes, "ops_ms": t_ops,
-            "bytes_ms": t_bytes, "bound_ms": max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+    return _limits(flops, nbytes)
 
 
 def phase_times(torch) -> dict:
@@ -323,10 +375,8 @@ def phase_profile(torch) -> dict:
 
 
 def phase_engine(torch) -> dict:
-    import numpy as np
-
     from repro_torch.models import gan
-    from repro_torch.serve import BucketPolicy, GanEngine, GenRequest
+    from repro_torch.serve import BucketPolicy, GanEngine
 
     launchers = {name: fns[0] for name, fns in kernels(FORWARD).items()}
     cfg = gan.DCGAN
@@ -337,11 +387,7 @@ def phase_engine(torch) -> dict:
     t0 = time.perf_counter()
     eng.warmup()
     warm_s = time.perf_counter() - t0
-    rng = np.random.default_rng(0)
-    sizes = rng.integers(1, 5, size=32)
-    reqs = [GenRequest("dcgan", rng.standard_normal((int(n), cfg.z_dim))
-                       .astype(np.float32)) for n in sizes]
-    arrivals = np.cumsum(rng.exponential(1e-3, size=len(reqs))).tolist()
+    reqs, arrivals = _dcgan_requests(cfg)
 
     for fn in launchers.values():
         fn.launches = 0
@@ -409,7 +455,7 @@ def phase_projection(torch) -> dict:
     return out
 
 
-def phase_serving(torch) -> list:
+def phase_serving(torch, fuse="off") -> list:
     import numpy as np
 
     from repro_torch.models import gan
@@ -420,7 +466,7 @@ def phase_serving(torch) -> list:
     rows = []
     for rate in SERVE_RATES:
         eng = GanEngine(BucketPolicy(buckets=(1, 2, 4, 8), max_wait_s=0.002,
-                                     max_queue=256))
+                                     max_queue=256), fuse=fuse)
         eng.register(cfg, params)
         eng.warmup()
         rng = np.random.default_rng(int(rate))
@@ -440,7 +486,7 @@ def phase_serving(torch) -> list:
             raise AssertionError("executables were built after warm-up")
         s = eng.metrics.summary()
         lat = s["latency_s"]
-        row = {"offered_requests_per_s": rate,
+        row = {"fuse": fuse, "offered_requests_per_s": rate,
                "offered_samples_per_s": rate * float(sizes.mean()),
                "window_s": SERVE_WINDOW_S, "wall_s": wall_s,
                "requests": count, "done": s["requests"], "rejected": s["rejected"],
@@ -449,7 +495,7 @@ def phase_serving(torch) -> list:
                "requests_per_s": s["requests_per_s"], "pad_waste": s["pad_waste"],
                "latency_ms": {k: v * 1e3 for k, v in lat.items()}}
         rows.append(row)
-        log(f"[serve] {torch.cuda.get_device_name(0)} offered {rate} req/s "
+        log(f"[serve] fuse={fuse} {torch.cuda.get_device_name(0)} offered {rate} req/s "
             f"({row['offered_samples_per_s']} samples/s) for {SERVE_WINDOW_S} s:"
             f" {s['requests']} done, {s['rejected']} rejected, {s['samples']} "
             f"samples in {s['batches']} batches, {s['samples_per_s']} samples/s,"
@@ -559,15 +605,9 @@ def _bwd_bounds(shape) -> dict:
     flops = 2 * b * flop_count(n_in, n_k, cin, cout, pad)
     x_b, g_b, w_b = 4 * b * n_in * n_in * cin, 4 * b * m * m * cout, 4 * n_k * n_k * cin * cout
 
-    def bound(ops, nbytes):
-        t_ops, t_bytes = ops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_HBM_BPS * 1e3
-        return {"flops": ops, "bytes": nbytes, "ops_ms": t_ops, "bytes_ms": t_bytes,
-                "bound_ms": max(t_ops, t_bytes),
-                "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
-
-    return {"dx": bound(flops, g_b + w_b + x_b),
-            "dw": bound(flops, x_b + g_b + w_b + 4 * cout),
-            "epilogue_grad": bound(3 * b * m * m * cout, 3 * g_b)}
+    return {"dx": _limits(flops, g_b + w_b + x_b),
+            "dw": _limits(flops, x_b + g_b + w_b + 4 * cout),
+            "epilogue_grad": _limits(3 * b * m * m * cout, 3 * g_b)}
 
 
 def phase_bwd_times(torch) -> list:
@@ -638,18 +678,26 @@ def phase_bwd_times(torch) -> list:
     return rows
 
 
-def _device_us(torch, fn, *args, calls: int = 5, **kwargs) -> float:
+def _device_us(torch, fn, *args, calls: int = 5, **kwargs) -> float | None:
     """Device microseconds per call of ``fn`` (every kernel it launches,
-    the reduce pass included), from torch.profiler over ``calls`` calls."""
+    the reduce pass included), from torch.profiler over ``calls`` calls.
+    A trace that holds no kernel at all (the profiler lost its events) is
+    taken again, up to three times in all; ``None`` (not measured) if every
+    one came back empty."""
     from torch.profiler import ProfilerActivity, profile
 
     fn(*args, **kwargs)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn(*args, **kwargs)
-        torch.cuda.synchronize()
-    return sum(_kernel_times(prof).values()) / calls
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn(*args, **kwargs)
+            torch.cuda.synchronize()
+        busy = sum(_kernel_times(prof).values())
+        if busy > 0:
+            return busy / calls
+    return None
 
 
 class _NanAt:
@@ -739,7 +787,7 @@ def phase_train(torch) -> dict:
         if not all(np.isfinite([h["g_loss"], h["d_loss"]]).all() and not h["skipped"]
                    for h in hist):
             raise AssertionError(f"non-finite or skipped step: {hist}")
-        if min(launches[n] for n in SOURCES) < 1:
+        if min(launches[n] for n in TRAINING) < 1:
             raise AssertionError(f"a kernel of the training path never launched: "
                                  f"{launches}")
         log(f"[train] 6 steps, losses {[(h['g_loss'], h['d_loss']) for h in hist]}")
@@ -817,6 +865,371 @@ def phase_train(torch) -> dict:
     return out
 
 
+def _pair_inputs(torch, shape, seed):
+    """x, k1, k2 (fan-in scaled) and the two biases of a pair shape."""
+    b, n_in, n_k, _, c0, c1, c2 = shape
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((b, n_in, n_in, c0), device="cuda", generator=g)
+    k1 = torch.randn((n_k, n_k, c0, c1), device="cuda", generator=g)
+    k1 *= (n_k * n_k * c0) ** -0.5
+    k2 = torch.randn((n_k, n_k, c1, c2), device="cuda", generator=g)
+    k2 *= (n_k * n_k * c1) ** -0.5
+    b1 = 0.1 * torch.randn((c1,), device="cuda", generator=g)
+    b2 = 0.1 * torch.randn((c2,), device="cuda", generator=g)
+    return x, k1, k2, b1, b2
+
+
+def _tag(epi) -> str:
+    return epi.tag() if epi is not None else "none"
+
+
+def phase_pair_check(torch) -> dict:
+    """The per-phase kernel and the pair kernel against their plain
+    versions; the over-budget pair refused."""
+    from repro_torch.kernels.epilogue import Epilogue
+    from repro_torch.kernels.transpose_conv2d_pair import pair_smem_bytes
+
+    worst = {"phase": 0.0, "pair": 0.0}
+    launch, plain = kernels(("phase",))["phase"]
+    for i, shape in enumerate(DCGAN_SHAPES + ODD_SHAPES):
+        x, k, bias = _inputs(torch, shape, seed=400 + i)
+        pad = shape[3]
+        for epi in epilogues():
+            b = bias if epi is not None else None
+            _worst("phase", shape, _tag(epi),
+                   [(launch(x, k, pad, epilogue=epi, bias=b),
+                     plain(x, k, pad, epilogue=epi, bias=b))], worst)
+        torch.cuda.synchronize()
+        log(f"[pair-check] phase {shape}: every epilogue within tolerance; "
+            f"worst so far {worst['phase']:.3e}")
+    launch, plain = kernels(("pair",))["pair"]
+    relu, tanh = Epilogue(True, "relu"), Epilogue(True, "tanh")
+    epi_pairs = [(relu, relu), (relu, tanh), (None, None),
+                 (Epilogue(True, "leaky_relu", 0.2), Epilogue(True))]
+    for i, shape in enumerate(PAIR_CHECKS):
+        x, k1, k2, b1, b2 = _pair_inputs(torch, shape, seed=500 + i)
+        pad = shape[3]
+        for e1, e2 in epi_pairs:
+            kw = dict(epilogue1=e1, bias1=b1 if e1 else None, epilogue2=e2,
+                      bias2=b2 if e2 else None)
+            _worst("pair", shape, f"{_tag(e1)}/{_tag(e2)}",
+                   [(launch(x, k1, k2, pad, **kw), plain(x, k1, k2, pad, **kw))],
+                   worst)
+        torch.cuda.synchronize()
+        log(f"[pair-check] pair {shape}, {pair_smem_bytes(*shape[1:3], *shape[4:], pad)}"
+            f" B of shared memory a block: every epilogue pair within tolerance;"
+            f" worst so far {worst['pair']:.3e}")
+    x, k1, k2, b1, b2 = _pair_inputs(torch, PAIR_OVER_BUDGET, seed=599)
+    try:
+        launch(x, k1, k2, PAIR_OVER_BUDGET[3], epilogue1=relu, bias1=b1,
+               epilogue2=relu, bias2=b2)
+    except ValueError as e:
+        log(f"[pair-check] {PAIR_OVER_BUDGET} refused: {e}")
+    else:
+        raise AssertionError(f"the pair {PAIR_OVER_BUDGET} over the shared-memory "
+                             "budget launched")
+    return worst
+
+
+def _pair_bound(shape) -> dict:
+    from repro_torch.core.segregation import flop_count, output_size
+
+    b, n_in, n_k, pad, c0, c1, c2 = shape
+    m1 = output_size(n_in, n_k, pad)
+    m2 = output_size(m1, n_k, pad)
+    flops = 2 * b * (flop_count(n_in, n_k, c0, c1, pad)
+                     + flop_count(m1, n_k, c1, c2, pad))
+    nbytes = 4 * (b * n_in * n_in * c0 + n_k * n_k * (c0 * c1 + c1 * c2)
+                  + c1 + c2 + b * m2 * m2 * c2)
+    return _limits(flops, nbytes)
+
+
+def _flipped(torch, k):
+    """An HWIO kernel as F.conv_transpose2d's (Cin, Cout, n, n) kernel."""
+    return torch.flip(k, (0, 1)).permute(2, 3, 0, 1).contiguous()
+
+
+def phase_pair_times(torch) -> dict:
+    """Per DCGAN pair and per DCGAN layer at batch 8, by CUDA events: the
+    pair kernel, the per-phase kernel beside the fused kernel, their plain
+    versions, library yardsticks and bounds; then the whole generator per
+    bucket through fused pairs and per layer, and a profiled fused call."""
+    import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import plan as planlib
+    from repro_torch.kernels.epilogue import Epilogue
+    from repro_torch.kernels.transpose_conv2d_pair import pair_smem_bytes
+    from repro_torch.models import gan
+    from repro_torch.timing import time_cuda
+
+    relu, tanh = Epilogue(True, "relu"), Epilogue(True, "tanh")
+    pair, pair_plain = kernels(("pair",))["pair"]
+    pairs = []
+    for i, shape in enumerate(DCGAN_PAIRS):
+        b, n_in, n_k, pad, c0, c1, c2 = shape
+        x, k1, k2, b1, b2 = _pair_inputs(torch, shape, seed=600 + i)
+        e2 = tanh if i == len(DCGAN_PAIRS) - 1 else relu
+        kw = dict(epilogue1=relu, bias1=b1, epilogue2=e2, bias2=b2)
+        lp1 = planlib.plan_layer(b, n_in, n_k, c0, c1, pad, epilogue=relu)
+        lp2 = planlib.plan_layer(b, 2 * n_in - n_k + 2 * pad, n_k, c1, c2, pad,
+                                 epilogue=e2)
+        act = torch.tanh if e2.act == "tanh" else torch.relu
+
+        def back_to_back(xx, kk1, kk2, bb1, bb2, _lp1=lp1, _lp2=lp2):
+            y1 = planlib.execute_layer(_lp1, xx, kk1, bias=bb1)
+            return planlib.execute_layer(_lp2, y1, kk2, bias=bb2)
+
+        def library(xx, w1, w2, bb1, bb2, _pad=n_k - 1 - pad, _act=act):
+            h = torch.relu(F.conv_transpose2d(xx, w1, bb1, stride=2, padding=_pad))
+            return _act(F.conv_transpose2d(h, w2, bb2, stride=2, padding=_pad))
+
+        lib_args = (x.permute(0, 3, 1, 2).contiguous(), _flipped(torch, k1),
+                    _flipped(torch, k2), b1, b2)
+        # in turns, so drift hits both alike: pair, back to back, again, pair
+        turns = {"pair": [], "back_to_back": []}
+        for name in ("pair", "back_to_back", "back_to_back", "pair"):
+            turns[name].append(time_cuda(pair, x, k1, k2, pad, **kw) if name == "pair"
+                               else time_cuda(back_to_back, x, k1, k2, b1, b2))
+        row = {"pair": f"L{2 * i}-L{2 * i + 1}", "shape": shape, **_pair_bound(shape),
+               "back_to_back_methods": [lp1.method, lp2.method],
+               "smem_bytes": pair_smem_bytes(n_in, n_k, c0, c1, c2, pad),
+               **{f"{n}_ms": sum(t) / 2 for n, t in turns.items()},
+               **{f"{n}_turns_ms": t for n, t in turns.items()},
+               "pair_plain_ms": time_cuda(pair_plain, x, k1, k2, pad, **kw, iters=5),
+               "library_ms": time_cuda(library, *lib_args)}
+        # one batch item: one cluster, the batch-8 launch's per-cluster work
+        row["pair_b1_ms"] = time_cuda(pair, x[:1], k1, k2, pad, **kw)
+        row["back_to_back_b1_ms"] = time_cuda(back_to_back, x[:1], k1, k2, b1, b2)
+        row["device_us"] = {
+            "pair": _device_us(torch, pair, x, k1, k2, pad, **kw),
+            "back_to_back": _device_us(torch, back_to_back, x, k1, k2, b1, b2),
+            "library": _device_us(torch, library, *lib_args)}
+        pairs.append(row)
+        log(f"[pair-times] {row['pair']} {shape}: pair {row['pair_ms'] * 1e3:.2f} us "
+            f"{[round(t * 1e3, 2) for t in turns['pair']]}, back-to-back "
+            f"{'+'.join(row['back_to_back_methods'])} "
+            f"{row['back_to_back_ms'] * 1e3:.2f} us "
+            f"{[round(t * 1e3, 2) for t in turns['back_to_back']]}, plain {row['pair_plain_ms'] * 1e3:.2f}"
+            f" us, library {row['library_ms'] * 1e3:.2f} us, bound "
+            f"{row['bound_ms'] * 1e3:.2f} us ({row['bound_by']}); at batch 1 pair "
+            f"{row['pair_b1_ms'] * 1e3:.2f} us, back-to-back "
+            f"{row['back_to_back_b1_ms'] * 1e3:.2f} us; device-only us "
+            f"{row['device_us']}; {row['smem_bytes']} B shared memory a block")
+
+    phase, phase_plain = kernels(("phase",))["phase"]
+    fused = kernels(("fused",))["fused"][0]
+    layers = []
+    for i, shape in enumerate(DCGAN_SHAPES):
+        b, n_in, n_k, pad, cin, cout = shape
+        x, k, bias = _inputs(torch, shape, seed=700 + i)
+        epi = tanh if i == len(DCGAN_SHAPES) - 1 else relu
+        act = torch.tanh if epi.act == "tanh" else torch.relu
+
+        def library(xx, ww, bb, _pad=n_k - 1 - pad, _act=act):
+            return _act(F.conv_transpose2d(xx, ww, bb, stride=2, padding=_pad))
+
+        # in turns, so drift hits both alike: phase, fused, fused, phase
+        turns = {"phase": [], "fused": []}
+        for name in ("phase", "fused", "fused", "phase"):
+            fn = phase if name == "phase" else fused
+            turns[name].append(time_cuda(fn, x, k, pad, epilogue=epi, bias=bias))
+        row = {"layer": f"L{i}", "shape": shape, **_bound(shape),
+               "phase_turns_ms": turns["phase"], "fused_turns_ms": turns["fused"],
+               "phase_ms": sum(turns["phase"]) / 2, "fused_ms": sum(turns["fused"]) / 2,
+               "phase_plain_ms": time_cuda(phase_plain, x, k, pad, epilogue=epi,
+                                           bias=bias, iters=5),
+               "library_ms": time_cuda(library, x.permute(0, 3, 1, 2).contiguous(),
+                                       _flipped(torch, k), bias),
+               "device_us": {
+                   "phase": _device_us(torch, phase, x, k, pad, epilogue=epi, bias=bias),
+                   "fused": _device_us(torch, fused, x, k, pad, epilogue=epi, bias=bias)}}
+        row["fused_over_phase"] = row["fused_ms"] / row["phase_ms"]
+        layers.append(row)
+        log(f"[pair-times] L{i} {shape}: phase {row['phase_ms'] * 1e3:.2f} us "
+            f"{[round(t * 1e3, 2) for t in turns['phase']]}, fused "
+            f"{row['fused_ms'] * 1e3:.2f} us {[round(t * 1e3, 2) for t in turns['fused']]}"
+            f" (fused / phase {row['fused_over_phase']:.3f}), plain "
+            f"{row['phase_plain_ms'] * 1e3:.2f} us, library {row['library_ms'] * 1e3:.2f}"
+            f" us, bound {row['bound_ms'] * 1e3:.2f} us ({row['bound_by']}); device-only"
+            f" us {row['device_us']}")
+
+    cfg = gan.DCGAN
+    params = gan.generator_init(torch.Generator().manual_seed(0), cfg)
+    generator = []
+    for bucket in (1, 2, 4, 8):
+        z = torch.randn((bucket, cfg.z_dim), device="cuda")
+        plans = {"per_layer": gan.generator_plan(cfg, bucket),
+                 "pairs": gan.generator_plan(cfg, bucket, fuse="force")}
+        turns = {"per_layer": [], "pairs": []}
+        for name in ("per_layer", "pairs", "pairs", "per_layer"):
+            turns[name].append(time_cuda(gan.generator_apply, params, cfg, z,
+                                         plan=plans[name]))
+        row = {"bucket": bucket, **{f"{n}_ms": sum(t) / 2 for n, t in turns.items()},
+               **{f"{n}_turns_ms": t for n, t in turns.items()}}
+        generator.append(row)
+        log(f"[pair-times] generator b{bucket}: fused pairs {row['pairs_ms']:.4f} ms "
+            f"{turns['pairs']}, per layer {row['per_layer_ms']:.4f} ms "
+            f"{turns['per_layer']}")
+
+    z = torch.randn((BATCH, cfg.z_dim), device="cuda")
+    plan = gan.generator_plan(cfg, BATCH, fuse="force")
+    gan.generator_apply(params, cfg, z, plan=plan)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(10):
+            gan.generator_apply(params, cfg, z, plan=plan)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    dev = _kernel_times(prof)
+    busy = sum(dev.values())
+    top = sorted(dev.items(), key=lambda kv: -kv[1])[:6]
+    profiled = {"wall_us_per_call": wall_us / 10, "device_us_per_call": busy / 10,
+                "idle_share": 1 - busy / wall_us,
+                "top": [[name[:90], us / 10] for name, us in top]}
+    log(f"[pair-times] profiled fused generator b{BATCH}: device {busy / 10:.1f} us "
+        f"per call of {wall_us / 10:.1f} us profiled wall, idle share "
+        f"{1 - busy / wall_us:.3f}")
+    for name, us in profiled["top"]:
+        log(f"[pair-times]   {us:9.1f} us  {name}")
+    return {"pairs": pairs, "layers": layers, "generator": generator,
+            "profile": profiled}
+
+
+def _dcgan_requests(cfg):
+    """The 32 requests of phases 5 and 12 and their arrival offsets, drawn
+    anew from the same seed."""
+    import numpy as np
+
+    from repro_torch.serve import GenRequest
+
+    rng = np.random.default_rng(0)
+    sizes = rng.integers(1, 5, size=32)
+    reqs = [GenRequest("dcgan", rng.standard_normal((int(n), cfg.z_dim))
+                       .astype(np.float32)) for n in sizes]
+    return reqs, np.cumsum(rng.exponential(1e-3, size=len(reqs))).tolist()
+
+
+def phase_fused_engine(torch) -> dict:
+    """GanEngine(fuse="force") on full-width DCGAN: the 32-request replay
+    through the pair kernel and its checks, then a registry warm start."""
+    import tempfile
+
+    from repro_torch.kernels.plan import FusedPairPlan
+    from repro_torch.models import gan
+    from repro_torch.serve import BucketPolicy, GanEngine
+
+    cfg = gan.DCGAN
+    params = gan.generator_init(torch.Generator().manual_seed(0), cfg)
+
+    def engine():
+        eng = GanEngine(BucketPolicy(buckets=(1, 2, 4, 8), max_wait_s=0.002,
+                                     max_queue=256), fuse="force")
+        eng.register(cfg, params)
+        return eng
+
+    eng = engine()
+    t0 = time.perf_counter()
+    eng.warmup()
+    warm_s = time.perf_counter() - t0
+    plans = eng.registry["dcgan"].plans
+    if not all(isinstance(e, FusedPairPlan) for p in plans.values() for e in p.entries):
+        raise AssertionError("a fused engine plan is not all pairs")
+    reqs, arrivals = _dcgan_requests(cfg)
+    _reset_counts()
+    eng.replay(reqs, arrivals)
+    torch.cuda.synchronize()
+    launches = _read_counts()
+    summary = eng.metrics.summary()
+    cons = eng.conservation()
+    if not all(r.done for r in reqs) or not cons["ok"]:
+        raise AssertionError(f"fused engine: not every request served: {cons}")
+    if eng.metrics.recompiles != eng.warmup_recompiles:
+        raise AssertionError("executables were built after warm-up")
+    if not all(bool(torch.isfinite(r.output).all()) for r in reqs):
+        raise AssertionError("non-finite output")
+    if launches["pair"] < 1:
+        raise AssertionError(f"the pair kernel never launched: {launches}")
+    worst = 0.0
+    for r in reqs:
+        one = gan.generator_apply(params, cfg, r.z, plan=gan.generator_plan(
+            cfg, r.n, fuse="force")).cpu()
+        if not torch.equal(one, r.output):
+            raise AssertionError(
+                f"request {r.rid} (n={r.n}) differs from its unbatched fused call "
+                f"by {(one - r.output).abs().max().item()}")
+        flat = gan.generator_apply(params, cfg, r.z).cpu()
+        err = (flat - r.output).abs().max().item()
+        tol = TOL_REL * flat.abs().max().item() + TOL_ABS
+        if err > tol:
+            raise AssertionError(f"request {r.rid}: fused vs per-layer {err} > {tol}")
+        worst = max(worst, err)
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "plans.json")
+        eng.save_plans(path)
+        warm = engine()
+        warm.warmup(registry_path=path)
+    if warm.registry["dcgan"].plans != plans:
+        raise AssertionError("the registry warm start gave other plans")
+    again, _ = _dcgan_requests(cfg)
+    warm.replay(again, arrivals)
+    if not all(torch.equal(a.output, r.output) for a, r in zip(again, reqs)):
+        raise AssertionError("the registry warm start's outputs differ")
+    lat = summary["latency_s"]
+    log(f"[fused-engine] {summary['requests']} requests / {summary['samples']} samples "
+        f"in {summary['batches']} batches, latency p50 {lat['p50'] * 1e3:.3f} ms, "
+        f"warm-up {warm_s:.2f} s; launches {launches}; bitwise batch-invariant; "
+        f"vs per-layer max abs err {worst:.3e}; registry warm start: equal plans, "
+        f"bitwise equal outputs")
+    log("[fused-engine] " + plans[BATCH].describe().replace("\n", "\n[fused-engine] "))
+    return {"summary": {k: v for k, v in summary.items() if k != "per_model"},
+            "launches": launches, "warmup_s": warm_s, "vs_per_layer": worst,
+            "registry_warm_start": True, "plan": plans[BATCH].describe()}
+
+
+def phase_pair_autograd(torch) -> dict:
+    """The generator's parameter gradients through a fused-pair plan and a
+    ``phase`` plan against the per-layer plan; the launches of each run."""
+    from repro_torch.models import gan
+
+    cfg = gan.DCGAN
+    params = gan.generator_init(torch.Generator().manual_seed(0), cfg)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    hw, c = cfg.out_hw(cfg.layers[-1][0]), cfg.layers[-1][2]
+    z = torch.randn((BATCH, cfg.z_dim), device="cuda", generator=gen)
+    r = torch.randn((BATCH, hw, hw, c), device="cuda", generator=gen)
+    plans = {"per_layer": gan.generator_plan(cfg, BATCH),
+             "pair": gan.generator_plan(cfg, BATCH, fuse="force"),
+             "phase": gan.generator_plan(cfg, BATCH, method="phase")}
+    grads, launches = {}, {}
+    for name, plan in plans.items():
+        live = _live(params)
+        _reset_counts()
+        (gan.generator_apply(live, cfg, z, plan=plan) * r).sum().backward()
+        torch.cuda.synchronize()
+        launches[name] = _read_counts()
+        grads[name] = {f"{k}.{n}": t.grad for k, v in live.items()
+                       for n, t in v.items()}
+    for name in ("pair", "phase"):
+        if launches[name][name] < 1:
+            raise AssertionError(f"the {name} plan never launched its kernel: "
+                                 f"{launches[name]}")
+    out = {"launches": launches, "errors": {}}
+    for name in ("pair", "phase"):
+        for key, want in grads["per_layer"].items():
+            err = (grads[name][key] - want).abs().max().item()
+            tol = TOL_REL * want.abs().max().item() + TOL_ABS
+            out["errors"][f"{name}:{key}"] = {"max_abs_err": err, "tol": tol}
+            if not err <= tol:
+                raise AssertionError(f"{name} plan gradient {key}: {err} > {tol}")
+        log(f"[pair-autograd] {name} plan vs per-layer plan: every parameter "
+            f"gradient within tolerance, worst "
+            f"{max(v['max_abs_err'] for k, v in out['errors'].items() if k.startswith(name)):.3e};"
+            f" launches {launches[name]}")
+    return out
+
+
 def _entry(name, launches, err, rows, times_of, bound_of) -> dict:
     """One kernel's line of the result: times summed over the DCGAN layers
     it runs at batch 8 (``rows``; ``times_of(row, suffix)`` and
@@ -864,6 +1277,11 @@ def main() -> int:
     worst.update(phase_bwd_check(torch))
     grads = phase_autograd(torch)
     bwd_times = phase_bwd_times(torch)
+    worst.update(phase_pair_check(torch))
+    pair_times = phase_pair_times(torch)
+    fused_engine = phase_fused_engine(torch)
+    fused_serving = phase_serving(torch, fuse="force")
+    pair_grads = phase_pair_autograd(torch)
     train = phase_train(torch)
 
     entries = []
@@ -873,6 +1291,15 @@ def main() -> int:
             name, engine["launches"][name], worst[name], rows,
             lambda r, k, n=name: r["library_ms" if k == "_library_ms" else n + k],
             lambda r: r))
+    # launches: the phase-pinned gradient run and the fused engine's replay
+    entries.append(_entry("phase", pair_grads["launches"]["phase"]["phase"],
+                          worst["phase"], pair_times["layers"],
+                          lambda r, k: r["library_ms" if k == "_library_ms" else "phase" + k],
+                          lambda r: r))
+    entries.append(_entry("pair", fused_engine["launches"]["pair"], worst["pair"],
+                          pair_times["pairs"],
+                          lambda r, k: r["library_ms" if k == "_library_ms" else "pair" + k],
+                          lambda r: r))
     for name in ("epilogue_grad", "dx", "dw"):   # launches: the 6-step training run
         entries.append(_entry(name, train["launches_6_steps"][name], worst[name],
                               bwd_times, lambda r, k, n=name: r[n + k],
@@ -882,7 +1309,9 @@ def main() -> int:
         json.dump({"device": dev, "kernels": entries, "times": times,
                    "profile": profiled, "engine": engine, "projection": projection,
                    "serving": serving, "max_abs_err": worst, "grads": grads,
-                   "bwd_times": bwd_times, "train": train,
+                   "bwd_times": bwd_times, "pair_times": pair_times,
+                   "fused_engine": fused_engine, "fused_serving": fused_serving,
+                   "pair_grads": pair_grads, "train": train,
                    "seconds": time.perf_counter() - t_start}, f, indent=1)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": entries}))

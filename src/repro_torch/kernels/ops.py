@@ -1,12 +1,14 @@
 """Differentiable transpose-conv kernels. Mirrors ``repro/kernels/ops.py``
-(the custom VJPs of ``transpose_conv2d_pallas`` and
-``transpose_conv2d_pallas_gemm``).
+(the custom VJPs of ``transpose_conv2d_pallas``,
+``transpose_conv2d_pallas_phase``, ``transpose_conv2d_pallas_gemm`` and
+``transpose_conv2d_pair``).
 
-:class:`TconvFusedFn` and :class:`TconvGemmFn` are ``torch.autograd.Function``
-s around the two forward kernels. Each saves what ``_epi_residuals`` saves:
-the inputs, the output ``y`` only when the epilogue has an activation (every
-activation's derivative is a function of ``y``), and the bias only when the
-epilogue adds one. The backward dispatches by the layer's plan
+:class:`TconvFusedFn`, :class:`TconvPhaseFn` and :class:`TconvGemmFn` are
+``torch.autograd.Function`` s around the three single-layer forward
+kernels. Each saves what ``_epi_residuals`` saves: the inputs, the output
+``y`` only when the epilogue has an activation (every activation's
+derivative is a function of ``y``), and the bias only when the epilogue
+adds one. The backward dispatches by the layer's plan
 (``LayerPlan.bwd_method``), as ``_dispatch_bwd`` does:
 
   segregated  the three backward kernels of
@@ -17,17 +19,25 @@ epilogue adds one. The backward dispatches by the layer's plan
               and ``db = sum gm`` (the reference's ``"lax"``). A yardstick
               only: on the card its convolutions are cuDNN's.
 
-dx is computed only when the input needs a gradient. The phase and pair
-Functions wait for their kernels.
+dx is computed only when the input needs a gradient.
+
+:class:`TconvPairFn` runs two layers through the pair kernel and saves only
+the pair's inputs; its backward recomputes the interface through the
+producer's own layer plan and chains both layers' backwards, as
+``_pair_bwd`` does.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core import transpose_conv as tc
-from repro_torch.kernels.transpose_conv2d import transpose_conv2d_fused
+from repro_torch.kernels.transpose_conv2d import (
+    transpose_conv2d_fused,
+    transpose_conv2d_phase,
+)
 from repro_torch.kernels.transpose_conv2d_bwd import transpose_conv2d_bwd
 from repro_torch.kernels.transpose_conv2d_gemm import transpose_conv2d_gemm
+from repro_torch.kernels.transpose_conv2d_pair import transpose_conv2d_pair
 
 BWD_METHODS = ("segregated", "autograd")
 
@@ -101,3 +111,52 @@ class TconvGemmFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return _backward(ctx, g)
+
+
+class TconvPhaseFn(torch.autograd.Function):
+    """The same layer through the per-phase kernel; the same backward."""
+
+    @staticmethod
+    def forward(ctx, x, kernel, bias, lp):
+        y = transpose_conv2d_phase(x, kernel, lp.padding, epilogue=lp.epilogue,
+                                   bias=bias)
+        _save(ctx, lp, x, kernel, y, bias)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        return _backward(ctx, g)
+
+
+class TconvPairFn(torch.autograd.Function):
+    """Two adjacent layers through the pair kernel, for the resolved
+    :class:`~repro_torch.kernels.plan.FusedPairPlan` ``fp``. Saves the pair's
+    inputs only: the interface was never a tensor. The backward recomputes
+    it through :func:`~repro_torch.kernels.plan.execute_layer` of
+    ``fp.first`` and differentiates both layers' own plans, so a pair's
+    gradients are those of the two layers run apart."""
+
+    @staticmethod
+    def forward(ctx, x, k1, k2, b1, b2, fp):
+        y = transpose_conv2d_pair(
+            x, k1, k2, fp.padding, epilogue1=fp.first.epilogue, bias1=b1,
+            epilogue2=fp.second.epilogue, bias2=b2,
+        )
+        ctx.fp = fp
+        ctx.save_for_backward(x, k1, k2, b1, b2)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        from repro_torch.kernels.plan import execute_layer
+
+        leaves = [None if t is None else t.detach().requires_grad_(need)
+                  for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad)]
+        x, k1, k2, b1, b2 = leaves
+        wanted = [t for t in leaves if t is not None and t.requires_grad]
+        with torch.enable_grad():
+            y1 = execute_layer(ctx.fp.first, x, k1, bias=b1)
+            y2 = execute_layer(ctx.fp.second, y1, k2, bias=b2)
+            grads = iter(torch.autograd.grad(y2, wanted, g))
+        return tuple(next(grads) if t is not None and t.requires_grad else None
+                     for t in leaves) + (None,)

@@ -1,13 +1,18 @@
 """Compile-once execution plans for the transpose-conv layers. Mirrors
-``repro/kernels/plan.py`` (``LayerPlan``, ``TconvPlan``, ``plan_layer``,
-``plan_layer_cached``, ``compile_plan``, ``compile_plan_buckets``,
-``execute_layer``).
+``repro/kernels/plan.py`` (``LayerPlan``, ``FusedPairPlan``, ``TconvPlan``,
+``plan_layer``, ``plan_layer_cached``, ``pair_legal``, ``plan_pair``,
+``fuse_pairs``, ``compile_plan``, ``compile_plan_buckets``,
+``execute_layer``, ``execute_pair``).
 
 * :class:`LayerPlan` -- an immutable, hashable record of one layer: its
   signature (batch, N, n, Cin, Cout, P, dtype, epilogue), the resolved
   forward method and the resolved backward method.
-* :class:`TconvPlan` -- the ordered stack of a whole generator.
-* :func:`execute_layer` -- runs one resolved layer ``act(tconv + b)``.
+* :class:`FusedPairPlan` -- two adjacent layer plans run as one launch of
+  the pair kernel.
+* :class:`TconvPlan` -- the ordered stack of a whole generator; its
+  ``entries`` may hold pairs, its logical views flatten them.
+* :func:`execute_layer` / :func:`execute_pair` -- run one resolved layer
+  ``act(tconv + b)`` / one resolved pair.
 
 Methods a plan resolves to:
 
@@ -15,6 +20,9 @@ Methods a plan resolves to:
                    ``pallas_fused``), bias and activation applied in-kernel.
   gemm             the implicit-GEMM CUDA kernel (the reference's
                    ``pallas_gemm``), likewise.
+  phase            the per-phase CUDA kernel (the reference's
+                   ``pallas_phase``), likewise; pinned only, never chosen
+                   by the cold rule.
   conventional, xla, unified, unified_reshape
                    the PyTorch baselines of
                    :mod:`repro_torch.core.transpose_conv` (the reference's
@@ -25,7 +33,7 @@ yet): the implicit-GEMM kernel for a phase plane of fewer than 8 rows (the
 channel-deep 4x4 head layers), the fused kernel otherwise. The reference's
 cold rule splits at the same line between its dense and segregated forms.
 
-The two kernel methods run through the ``torch.autograd.Function`` s of
+The kernel methods run through the ``torch.autograd.Function`` s of
 :mod:`repro_torch.kernels.ops`, whose backward is ``bwd_method``:
 ``segregated`` (the three backward kernels; the reference's ``pallas``) or
 ``autograd`` (autograd of the ``unified`` form; the reference's ``lax``),
@@ -33,6 +41,16 @@ The two kernel methods run through the ``torch.autograd.Function`` s of
 only because its Pallas kernels interpret at Python speed there; here a
 CPU tensor runs the kernels' plain versions, so one default serves both
 devices.) The baselines differentiate through PyTorch's own autograd.
+
+The pair pass (:func:`fuse_pairs`, run by :func:`compile_plan` and
+:func:`compile_plan_buckets`) replaces adjacent layers with a
+:class:`FusedPairPlan` where :func:`pair_legal` allows it: a stride-2 chain
+with bias epilogues on both layers, fp32, and the pair kernel's per-block
+shared memory
+(:func:`~repro_torch.kernels.transpose_conv2d_pair.pair_smem_bytes`) within
+the Hopper budget. ``fuse`` is ``"off"``/``False`` (the default) or
+``"force"``/``True``. The reference's ``"auto"`` reads the autotuner's pair
+race, which the port does not have yet, so it raises.
 """
 from __future__ import annotations
 
@@ -45,9 +63,17 @@ from repro_torch.core import segregation as seg
 from repro_torch.core import transpose_conv as tc
 from repro_torch.kernels import epilogue as epilib
 from repro_torch.kernels.epilogue import Epilogue
-from repro_torch.kernels.ops import BWD_METHODS, TconvFusedFn, TconvGemmFn
+from repro_torch.kernels import transpose_conv2d_pair as pairlib
+from repro_torch.kernels.ops import (
+    BWD_METHODS,
+    TconvFusedFn,
+    TconvGemmFn,
+    TconvPairFn,
+    TconvPhaseFn,
+)
 
-METHODS = ("fused", "gemm") + tuple(tc.METHODS)
+METHODS = ("fused", "gemm", "phase") + tuple(tc.METHODS)
+_KERNEL_FNS = {"fused": TconvFusedFn, "gemm": TconvGemmFn, "phase": TconvPhaseFn}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -78,24 +104,94 @@ class LayerPlan:
 
 
 @dataclasses.dataclass(frozen=True)
+class FusedPairPlan:
+    """Two adjacent :class:`LayerPlan`s run as one launch of the pair kernel
+    (:func:`~repro_torch.kernels.transpose_conv2d_pair.transpose_conv2d_pair`).
+
+    The layer plans are kept as they are: a pair's backward recomputes the
+    interface through ``first`` and runs both layers' own backwards, and
+    either layer can still be executed alone. The kernel's partition is a
+    function of the shape, so a pair carries no tiles.
+    """
+
+    first: LayerPlan
+    second: LayerPlan
+    source: str = dataclasses.field(default="forced", compare=False)
+
+    method = "pair"   # what every FusedPairPlan executes as (not a field)
+
+    @property
+    def batch(self) -> int:
+        return self.first.batch
+
+    @property
+    def padding(self) -> int:
+        return self.first.padding
+
+    @property
+    def epilogue(self) -> Epilogue | None:
+        """The pair's output epilogue; the interface epilogue is
+        ``first.epilogue``, applied on the fp32 accumulator on chip."""
+        return self.second.epilogue
+
+    def describe(self) -> str:
+        a, b = self.first, self.second
+        return (
+            f"{a.n_in}x{a.n_in}x{a.cin}->{a.cout}->{b.cout} k{a.n_k} "
+            f"p{self.padding} b{self.batch} {a.dtype}: fwd=pair "
+            f"iface={a.epilogue.tag()}@smem epi={b.epilogue.tag()} "
+            f"bwd={a.bwd_method}/{b.bwd_method} ({self.source})"
+        )
+
+
+@dataclasses.dataclass(frozen=True)
 class TconvPlan:
-    """An ordered stack of :class:`LayerPlan`s for a whole generator."""
+    """An ordered stack of plan entries for a whole generator.
+
+    ``layers`` holds the entries in execution order: :class:`LayerPlan`s,
+    with adjacent pairs possibly replaced by a :class:`FusedPairPlan`
+    (:func:`fuse_pairs`). ``len``, iteration and indexing flatten pairs back
+    to per-layer :class:`LayerPlan`s, so a plan always matches its config's
+    layer count; executors walk :attr:`entries`.
+    """
 
     name: str
     layers: tuple
 
+    @property
+    def entries(self) -> tuple:
+        """Plan entries in execution order (pairs not flattened)."""
+        return self.layers
+
+    @functools.cached_property
+    def _logical(self) -> tuple:
+        out = []
+        for e in self.layers:
+            out.extend((e.first, e.second) if isinstance(e, FusedPairPlan)
+                       else (e,))
+        return tuple(out)
+
     def __len__(self) -> int:
-        return len(self.layers)
+        return len(self._logical)
 
     def __iter__(self):
-        return iter(self.layers)
+        return iter(self._logical)
 
     def __getitem__(self, i) -> LayerPlan:
-        return self.layers[i]
+        return self._logical[i]
 
     def describe(self) -> str:
-        lines = [f"TconvPlan({self.name}, {len(self)} layers)"]
-        lines += [f"  [{i}] {lp.describe()}" for i, lp in enumerate(self.layers)]
+        n_pairs = sum(isinstance(e, FusedPairPlan) for e in self.layers)
+        head = f"TconvPlan({self.name}, {len(self)} layers"
+        lines = [head + (f", {n_pairs} fused pairs)" if n_pairs else ")")]
+        i = 0
+        for e in self.layers:
+            if isinstance(e, FusedPairPlan):
+                lines.append(f"  [{i}-{i + 1}] {e.describe()}")
+                i += 2
+            else:
+                lines.append(f"  [{i}] {e.describe()}")
+                i += 1
         return "\n".join(lines)
 
 
@@ -163,35 +259,148 @@ def _layer_epilogues(cfg, epilogues) -> tuple:
     return tuple(epilogues)
 
 
+# --------------------------------------------------------------- pair fusion
+
+def check_fuse(fuse) -> bool:
+    """``True`` for ``"force"``/``True``, ``False`` for ``"off"``/``False``.
+    ``"auto"`` raises: the reference decides it from the autotuner's pair
+    race, and the port has no autotuner yet (ROADMAP queue 1 item 8)."""
+    if fuse is True or fuse == "force":
+        return True
+    if fuse is False or fuse == "off":
+        return False
+    if fuse == "auto":
+        raise ValueError(
+            "fuse='auto' reads the autotuner's pair race, which the port "
+            "does not have until the autotuner slice (ROADMAP queue 1 item "
+            "8); pass 'force' or 'off'"
+        )
+    raise ValueError(f"fuse must be 'off', 'force', False or True, got {fuse!r}")
+
+
+def pair_legal(lp1: LayerPlan, lp2: LayerPlan) -> tuple[bool, str]:
+    """Whether two adjacent layer plans may run as one pair launch, and if
+    not, which check failed: the stride-2 tconv -> tconv chain (the
+    consumer's input extent is the producer's output extent, channels
+    chain, same kernel and padding), a bias epilogue on the interface and
+    on the output, fp32 on both layers (the port's kernels take fp32 only),
+    a kernel extent the pair kernel was built for, and the shared memory a
+    block of the pair kernel asks for
+    (:func:`~repro_torch.kernels.transpose_conv2d_pair.pair_smem_bytes`)
+    within :data:`~repro_torch.kernels.transpose_conv2d_pair.PAIR_SMEM_BUDGET_BYTES`.
+    """
+    if lp1.batch != lp2.batch:
+        return False, f"batch mismatch ({lp1.batch} vs {lp2.batch})"
+    if lp1.n_k != lp2.n_k or lp1.padding != lp2.padding:
+        return False, "kernel/padding mismatch"
+    m1 = seg.output_size(lp1.n_in, lp1.n_k, lp1.padding)
+    if lp2.n_in != m1:
+        return False, f"not adjacent (consumer n_in {lp2.n_in} != M1 {m1})"
+    if lp1.cout != lp2.cin:
+        return False, f"channel chain broken ({lp1.cout} -> {lp2.cin})"
+    epi1, epi2 = lp1.epilogue, lp2.epilogue
+    if epi1 is None or not epi1.bias:
+        return False, "no bias epilogue on the interface"
+    if epi2 is None or not epi2.bias:
+        return False, "no bias epilogue on the output"
+    if lp2.dtype != "float32":
+        return False, (
+            f"consumer dtype {lp2.dtype} != float32 (the interface is the "
+            "fp32 accumulator)"
+        )
+    if lp1.dtype != "float32":
+        return False, (
+            f"producer dtype {lp1.dtype} != float32 (the port's kernels take "
+            "fp32 only)"
+        )
+    if seg.ceil_half(lp1.n_k) > pairlib.MAX_R:
+        return False, f"kernel {lp1.n_k}x{lp1.n_k} larger than the pair kernel's"
+    need = pairlib.pair_smem_bytes(lp1.n_in, lp1.n_k, lp1.cin, lp1.cout,
+                                   lp2.cout, lp1.padding)
+    if need > pairlib.PAIR_SMEM_BUDGET_BYTES:
+        return False, (
+            f"shared memory estimate {need} B > budget "
+            f"{pairlib.PAIR_SMEM_BUDGET_BYTES} B"
+        )
+    return True, "ok"
+
+
+def plan_pair(lp1: LayerPlan, lp2: LayerPlan, *,
+              fuse="off") -> FusedPairPlan | None:
+    """The :class:`FusedPairPlan` of two adjacent layers, or ``None`` (they
+    stay apart): ``fuse="force"`` fuses every legal pair, ``"off"`` none.
+    An illegal pair never fuses."""
+    if not check_fuse(fuse) or not pair_legal(lp1, lp2)[0]:
+        return None
+    return FusedPairPlan(first=lp1, second=lp2)
+
+
+def fuse_pairs(plan: TconvPlan, *, fuse="off") -> TconvPlan:
+    """The plan-level pair pass: walk the logical layers left to right and
+    fuse each pair :func:`plan_pair` allows (a fused layer is consumed and
+    the walk goes on after it). ``fuse="off"`` returns the plan as it is;
+    ``"force"`` flattens any pairs first, so the pass is idempotent."""
+    if not check_fuse(fuse):
+        return plan
+    logical = tuple(plan)
+    entries = []
+    i = 0
+    while i < len(logical):
+        fp = None
+        if i + 1 < len(logical):
+            fp = plan_pair(logical[i], logical[i + 1], fuse=fuse)
+        entries.append(fp if fp is not None else logical[i])
+        i += 2 if fp is not None else 1
+    return TconvPlan(name=plan.name, layers=tuple(entries))
+
+
+def plan_follows_fuse(plan: TconvPlan, fuse) -> bool:
+    """Whether ``plan``'s pairs are what the pair pass makes under ``fuse``:
+    no pair for ``"off"``; for ``"force"``, no two adjacent per-layer
+    entries that :func:`pair_legal` allows (the pass would have fused
+    them)."""
+    entries = plan.entries
+    if not check_fuse(fuse):
+        return not any(isinstance(e, FusedPairPlan) for e in entries)
+    return not any(
+        isinstance(a, LayerPlan) and isinstance(b, LayerPlan)
+        and pair_legal(a, b)[0]
+        for a, b in zip(entries, entries[1:])
+    )
+
+
 def compile_plan(cfg, batch: int, dtype="float32", *, method: str = "auto",
-                 epilogues=None, bwd: str = "segregated") -> TconvPlan:
+                 epilogues=None, bwd: str = "segregated",
+                 fuse="off") -> TconvPlan:
     """A whole-generator :class:`TconvPlan`. ``cfg`` has ``layers`` as
     ``(input_hw, cin, cout)`` triples plus ``kernel``/``padding``/``name``;
-    ``epilogues`` is an optional per-layer tuple of :class:`Epilogue`."""
+    ``epilogues`` is an optional per-layer tuple of :class:`Epilogue`;
+    ``fuse`` runs the pair pass (:func:`fuse_pairs`)."""
     epis = _layer_epilogues(cfg, epilogues)
     layers = tuple(
         plan_layer(batch, hw, cfg.kernel, cin, cout, cfg.padding, dtype,
                    method=method, epilogue=epi, bwd=bwd)
         for (hw, cin, cout), epi in zip(cfg.layers, epis)
     )
-    return TconvPlan(name=getattr(cfg, "name", "tconv"), layers=layers)
+    return fuse_pairs(TconvPlan(name=getattr(cfg, "name", "tconv"),
+                                layers=layers), fuse=fuse)
 
 
 def compile_plan_buckets(cfg, batches, dtype="float32", *, method: str = "auto",
-                         epilogues=None) -> dict:
+                         epilogues=None, fuse="off") -> dict:
     """``{batch: TconvPlan}`` over a set of batch buckets, each layer
-    resolved through :func:`plan_layer_cached`."""
+    resolved through :func:`plan_layer_cached`, then the pair pass."""
     epis = _layer_epilogues(cfg, epilogues)
     name = getattr(cfg, "name", "tconv")
     plans = {}
     for batch in sorted({int(b) for b in batches}):
         if batch < 1:
             raise ValueError(f"batch buckets must be positive, got {batch}")
-        plans[batch] = TconvPlan(name=name, layers=tuple(
+        plans[batch] = fuse_pairs(TconvPlan(name=name, layers=tuple(
             plan_layer_cached(batch, hw, cfg.kernel, cin, cout, cfg.padding,
                               dtype, method=method, epilogue=epi)
             for (hw, cin, cout), epi in zip(cfg.layers, epis)
-        ))
+        )), fuse=fuse)
     return plans
 
 
@@ -199,6 +408,11 @@ def execute_layer(lp: LayerPlan, x, kernel, *, bias=None) -> torch.Tensor:
     """Run one resolved layer, the whole ``act(tconv + b)`` unit. The batch
     may differ from the plan's (a plan is resolved per bucket, and the
     methods are batch-generic); the rest of the signature must match."""
+    if isinstance(lp, FusedPairPlan):
+        raise TypeError(
+            "a FusedPairPlan spans two layers (two kernels, two biases): run "
+            "it with execute_pair, or its .first/.second LayerPlans alone"
+        )
     if (x.shape[1], kernel.shape[0], kernel.shape[2], kernel.shape[3]) != (
         lp.n_in, lp.n_k, lp.cin, lp.cout
     ) or _dtype_name(x.dtype) != lp.dtype:
@@ -212,12 +426,40 @@ def execute_layer(lp: LayerPlan, x, kernel, *, bias=None) -> torch.Tensor:
             f"LayerPlan epilogue mismatch: plan is for {lp.describe()!r}, "
             f"got bias={'set' if bias is not None else None}"
         )
-    if lp.method == "fused":
-        return TconvFusedFn.apply(x, kernel, bias, lp)
-    if lp.method == "gemm":
-        return TconvGemmFn.apply(x, kernel, bias, lp)
+    if lp.method in _KERNEL_FNS:
+        return _KERNEL_FNS[lp.method].apply(x, kernel, bias, lp)
     fn = tc.METHODS.get(lp.method)
     if fn is None:
         raise ValueError(f"LayerPlan resolved to unknown method {lp.method!r}")
     y = fn(x, kernel, lp.padding)
     return epi.apply(y, bias) if epi is not None else y
+
+
+def execute_pair(fp: FusedPairPlan, x, k1, k2, *, bias1=None,
+                 bias2=None) -> torch.Tensor:
+    """Run one resolved layer pair as one pair-kernel launch. ``k1``/
+    ``bias1`` belong to the producer (the interface epilogue), ``k2``/
+    ``bias2`` to the consumer. Differentiable through
+    :class:`~repro_torch.kernels.ops.TconvPairFn`."""
+    lp1, lp2 = fp.first, fp.second
+    if (x.shape[1], k1.shape[0], k1.shape[2], k1.shape[3]) != (
+        lp1.n_in, lp1.n_k, lp1.cin, lp1.cout
+    ) or _dtype_name(x.dtype) != lp1.dtype:
+        raise ValueError(
+            f"FusedPairPlan mismatch: pair is {fp.describe()!r}, got input "
+            f"{tuple(x.shape)}/{x.dtype} k1 {tuple(k1.shape)}"
+        )
+    if (k2.shape[0], k2.shape[2], k2.shape[3]) != (lp2.n_k, lp2.cin, lp2.cout):
+        raise ValueError(
+            f"FusedPairPlan mismatch: pair is {fp.describe()!r}, got k2 "
+            f"{tuple(k2.shape)}"
+        )
+    for name, epi, bias in (("interface", lp1.epilogue, bias1),
+                            ("output", lp2.epilogue, bias2)):
+        if (epi is not None and epi.bias) != (bias is not None):
+            raise ValueError(
+                f"FusedPairPlan {name} epilogue mismatch: pair is "
+                f"{fp.describe()!r}, got "
+                f"bias={'set' if bias is not None else None}"
+            )
+    return TconvPairFn.apply(x, k1, k2, bias1, bias2, fp)

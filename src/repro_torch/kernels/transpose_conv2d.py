@@ -1,6 +1,8 @@
-"""Phase-fused unified transpose convolution: CUDA kernel, its wrapper and
-its plain PyTorch version. Mirrors ``repro/kernels/transpose_conv2d.py``
-(``transpose_conv2d_pallas`` and its ``_fused_kernel``).
+"""Phase-fused and per-phase unified transpose convolution: CUDA kernels,
+their wrappers and their plain PyTorch versions. Mirrors
+``repro/kernels/transpose_conv2d.py`` (``transpose_conv2d_pallas`` and its
+``_fused_kernel``; ``transpose_conv2d_pallas_phase`` and its
+``_phase_kernel``).
 
 The kernel (``csrc/transpose_conv2d_fused.cu``) runs one block per (spatial
 tile of the ``(Hp, Hp)`` phase plane, Cout tile, batch item), loops over Cin
@@ -14,6 +16,13 @@ reach it.
 runs :func:`transpose_conv2d_fused_plain` for a CPU tensor; it never falls
 back from one to the other. ``transpose_conv2d_fused.launches`` counts
 kernel launches.
+
+The per-phase kernel (``csrc/transpose_conv2d_phase.cu``) computes the same
+function with one output parity per block, each block staging its own input
+window (:func:`phase_geometry`): the segregated form the paper's unified
+kernel is measured against. :func:`transpose_conv2d_phase` and
+:func:`transpose_conv2d_phase_plain` follow the same rules, with
+``transpose_conv2d_phase.launches``.
 """
 from __future__ import annotations
 
@@ -79,6 +88,17 @@ class FusedGeometry:
         return self.ct // 4 * 32
 
 
+def _cout_tile(cout: int, blocks_per_cout_tile: int) -> int:
+    """The smallest of 4/8/16/32 that covers Cout, halved (not below 8)
+    while the grid has fewer than two blocks per SM."""
+    ct = 4
+    while ct < min(cout, 32):
+        ct *= 2
+    while ct > 8 and blocks_per_cout_tile * _cdiv(cout, ct) < 2 * H100_SMS:
+        ct //= 2
+    return ct
+
+
 def _smem_bytes(ci: int, xh: int, xw: int, r: int, ct: int) -> int:
     xs = -(-ci * xh * xw // 4) * 4
     return 4 * (xs + 4 * r * r * ci * ct)
@@ -111,11 +131,7 @@ def fused_geometry(batch: int, n_in: int, n_k: int, padding: int, cin: int,
     n_h, n_w = _cdiv(hp, th), _cdiv(hp, tw)
     xh = th + max(roffs) + r - 1
     xw = tw + max(coffs) + r - 1
-    ct = 4
-    while ct < min(cout, 32):
-        ct *= 2
-    while ct > 8 and n_h * n_w * batch * _cdiv(cout, ct) < 2 * H100_SMS:
-        ct //= 2
+    ct = _cout_tile(cout, n_h * n_w * batch)
     return FusedGeometry(
         batch=batch, m=m, hp=hp, r=r, pad_lo=pad_lo, base_r=base_r, base_c=base_c,
         roffs=roffs, coffs=coffs, wsels=wsels, th=th, tw=tw, n_h=n_h, n_w=n_w,
@@ -244,3 +260,163 @@ def transpose_conv2d_fused(x, kernel, padding: int = 0, *, epilogue=None,
 
 
 transpose_conv2d_fused.launches = 0
+
+
+# ------------------------------------------------------------ per-phase form
+
+@dataclasses.dataclass(frozen=True)
+class PhaseGeometry:
+    """Launch geometry of the per-phase kernel for one layer shape."""
+
+    batch: int
+    m: int            # output extent 2N - n + 2P
+    hp: int           # phase-plane extent ceil(M / 2)
+    r: int            # stacked sub-kernel extent ceil(n / 2)
+    pad_lo: int       # floor(P / 2): zero rows before the input
+    row0s: tuple      # padded-input origin of each output row parity
+    col0s: tuple
+    wsels: tuple      # output parity 2*pr+pc -> stacked sub-kernel index
+    th: int           # phase-plane tile (rows x cols)
+    tw: int
+    n_h: int
+    n_w: int
+    xh: int           # staged input window th + R - 1 (likewise xw)
+    xw: int
+    ct: int           # Cout tile: 4, 8, 16 or 32
+    n_co: int
+    ci_chunk: int     # cin channels staged a step
+    smem_bytes: int
+
+    @property
+    def grid(self) -> tuple:
+        """``(spatial tiles, Cout tiles, 4 * batch)``: the last axis is
+        ``batch * 4 + output parity``."""
+        return (self.n_h * self.n_w, self.n_co, 4 * self.batch)
+
+    @property
+    def threads(self) -> int:
+        return self.ct // 4 * 32
+
+
+@functools.lru_cache(maxsize=None)
+def phase_geometry(batch: int, n_in: int, n_k: int, padding: int, cin: int,
+                   cout: int) -> PhaseGeometry:
+    """The per-phase kernel's launch geometry: the fused kernel's tiles
+    (at most 64 phase-plane positions, ``tw = min(Hp, 8)``) and Cout-tile
+    rule, counted over four times the blocks (one per output parity). A
+    block stages one ``(th + R - 1, tw + R - 1)`` window per cin chunk and
+    one sub-kernel: at ``R = 4`` and ``ct = 32`` that is 40 KB."""
+    m = seg.output_size(n_in, n_k, padding)
+    hp = (m + 1) // 2
+    r = seg.ceil_half(n_k)
+    row0s, col0s, pad_lo = _phase_offsets(n_in, n_k, padding)
+    wsels = tuple(
+        2 * seg.phase_params(pr, padding) + seg.phase_params(pc, padding)
+        for pr in range(2) for pc in range(2)
+    )
+    tw = min(hp, 8)
+    th = min(hp, POSITIONS_PER_BLOCK // tw)
+    n_h, n_w = _cdiv(hp, th), _cdiv(hp, tw)
+    xh, xw = th + r - 1, tw + r - 1
+    ct = _cout_tile(cout, 4 * n_h * n_w * batch)
+    xs = _cdiv(CIN_CHUNK * xh * xw, 4) * 4
+    return PhaseGeometry(
+        batch=batch, m=m, hp=hp, r=r, pad_lo=pad_lo, row0s=row0s,
+        col0s=col0s, wsels=wsels, th=th, tw=tw, n_h=n_h, n_w=n_w, xh=xh,
+        xw=xw, ct=ct, n_co=_cdiv(cout, ct), ci_chunk=CIN_CHUNK,
+        smem_bytes=4 * (xs + r * r * CIN_CHUNK * ct),
+    )
+
+
+def transpose_conv2d_phase_plain(x, kernel, padding: int = 0, *,
+                                 epilogue=None, bias=None) -> torch.Tensor:
+    """The per-phase kernel's function in plain PyTorch: each output parity
+    from its own window of the padded input and its own sub-kernel, one
+    matmul per tap, written into its strided slice of the output; then the
+    epilogue."""
+    epi = epilib.canonical(epilogue)
+    epilib.check_bias(epi, bias)
+    b, n_in, _, cin = x.shape
+    n_k, cout = kernel.shape[0], kernel.shape[3]
+    g = phase_geometry(b, n_in, n_k, padding, cin, cout)
+    hi = max(0, max(g.row0s + g.col0s) + g.hp + g.r - 1 - (n_in + g.pad_lo))
+    xp = F.pad(x, (0, 0, g.pad_lo, hi, g.pad_lo, hi))
+    y = phase_planes(xp, seg.stack_subkernels(kernel), g.hp, g.row0s, g.col0s,
+                     g.wsels)[:, : g.m, : g.m, :]
+    return epi.apply(y, bias) if epi is not None else y
+
+
+def phase_planes(xp, stacked, hp: int, row0s, col0s, wsels) -> torch.Tensor:
+    """All four phase planes of one layer over the zero-padded input ``xp``,
+    each from its own window and sub-kernel (one matmul per tap),
+    interleaved into a ``(B, 2 hp, 2 hp, Cout)`` map."""
+    b, cin, cout = xp.shape[0], xp.shape[3], stacked.shape[-1]
+    r = stacked.shape[1]
+    y = xp.new_zeros((b, 2 * hp, 2 * hp, cout))
+    for par in range(4):
+        pr, pc = par >> 1, par & 1
+        w = stacked[wsels[par]]
+        acc = xp.new_zeros((b * hp * hp, cout))
+        for p in range(r):
+            for q in range(r):
+                r0, c0 = row0s[pr] + p, col0s[pc] + q
+                win = xp[:, r0 : r0 + hp, c0 : c0 + hp, :]
+                acc = acc + win.reshape(-1, cin) @ w[p, q]
+        y[:, pr::2, pc::2, :] = acc.reshape(b, hp, hp, cout)
+    return y
+
+
+@functools.lru_cache(maxsize=None)
+def _phase_lib():
+    lib = _build.load("transpose_conv2d_phase")
+    fn = lib.tconv_phase_f32
+    fn.argtypes = (
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 25
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    )
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def transpose_conv2d_phase(x, kernel, padding: int = 0, *, epilogue=None,
+                           bias=None) -> torch.Tensor:
+    """``act(tconv(x, kernel) + bias)`` through the per-phase kernel; the
+    operands and result are those of :func:`transpose_conv2d_fused`. A CUDA
+    tensor launches the kernel (or raises); a CPU tensor runs
+    :func:`transpose_conv2d_phase_plain`."""
+    epi = epilib.canonical(epilogue)
+    epilib.check_bias(epi, bias)
+    check_operands(x, kernel, bias)
+    if x.device.type == "cpu":
+        return transpose_conv2d_phase_plain(
+            x, kernel, padding, epilogue=epi, bias=bias
+        )
+    check_cuda_operands(x, kernel, bias)
+    b, n_in, _, cin = x.shape
+    n_k, cout = kernel.shape[0], kernel.shape[3]
+    g = phase_geometry(b, n_in, n_k, padding, cin, cout)
+    if g.r > MAX_R:
+        raise ValueError(
+            f"the per-phase CUDA kernel takes kernels up to {2 * MAX_R}x"
+            f"{2 * MAX_R}, got {n_k}x{n_k}"
+        )
+    x = x.contiguous()
+    kernel = kernel.contiguous()
+    bias = bias.contiguous() if bias is not None else None
+    out = torch.empty((b, g.m, g.m, cout), device=x.device, dtype=torch.float32)
+    with torch.cuda.device(x.device):
+        err = _phase_lib()(
+            x.data_ptr(), kernel.data_ptr(),
+            bias.data_ptr() if bias is not None else None, out.data_ptr(),
+            b, n_in, cin, cout, n_k, g.m, g.r, g.pad_lo, *g.row0s, *g.col0s,
+            *g.wsels, g.th, g.tw, g.n_h, g.n_w, g.xh, g.xw, g.ct, g.n_co,
+            epi.code if epi else 0, epi.slope if epi else 0.0, g.smem_bytes,
+            torch.cuda.current_stream(x.device).cuda_stream,
+        )
+    if err:
+        raise RuntimeError(f"transpose_conv2d_phase launch failed: CUDA error {err}")
+    transpose_conv2d_phase.launches += 1
+    return out
+
+
+transpose_conv2d_phase.launches = 0

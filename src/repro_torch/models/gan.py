@@ -23,8 +23,8 @@ from repro_torch.core.segregation import (
     output_size,
 )
 from repro_torch.device import resolve_device
+from repro_torch.kernels import plan as planlib
 from repro_torch.kernels.epilogue import Epilogue
-from repro_torch.kernels.plan import compile_plan
 from repro_torch.models.layers import tconv_apply, tconv_init
 
 
@@ -88,14 +88,17 @@ def generator_epilogues(cfg: GANConfig) -> tuple:
 
 
 def generator_plan(cfg: GANConfig, batch: int, *, method: str = "auto",
-                   epilogues=None, bwd: str = "segregated"):
+                   epilogues=None, bwd: str = "segregated", fuse="off"):
     """The whole generator's :class:`~repro_torch.kernels.plan.TconvPlan`,
     with each layer's bias + activation baked in (:func:`generator_epilogues`).
-    ``bwd`` is the backward: ``segregated`` or ``autograd``."""
+    ``bwd`` is the backward: ``segregated`` or ``autograd``. ``fuse`` runs
+    the pair pass (:func:`~repro_torch.kernels.plan.fuse_pairs`):
+    ``"force"`` runs every legal adjacent pair as one pair-kernel launch,
+    ``"off"`` keeps the stack per layer."""
     if epilogues is None:
         epilogues = generator_epilogues(cfg)
-    return compile_plan(cfg, batch, method=method,
-                        epilogues=epilogues, bwd=bwd)
+    return planlib.compile_plan(cfg, batch, method=method,
+                                epilogues=epilogues, bwd=bwd, fuse=fuse)
 
 
 def generator_init(generator: torch.Generator, cfg: GANConfig, *,
@@ -130,9 +133,10 @@ def generator_apply(params: dict, cfg: GANConfig, z, *, method: str = "auto",
     there already, ``z`` (a tensor or array) is moved there.
 
     ``plan=`` (a compiled :class:`~repro_torch.kernels.plan.TconvPlan` from
-    :func:`generator_plan`) runs every layer as the plan resolved it;
-    without one each layer resolves a memoized plan for ``method``.
-    Differentiable in ``params``.
+    :func:`generator_plan`) runs every entry as the plan resolved it, a
+    fused pair as one pair-kernel launch
+    (:func:`~repro_torch.kernels.plan.execute_pair`); without one each layer
+    resolves a memoized plan for ``method``. Differentiable in ``params``.
     """
     dev = resolve_device(device)
     if plan is not None and len(plan) != len(cfg.layers):
@@ -145,11 +149,18 @@ def generator_apply(params: dict, cfg: GANConfig, z, *, method: str = "auto",
     z = torch.as_tensor(z, dtype=w.dtype).to(dev)
     h0, c0, _ = cfg.layers[0]
     x = torch.relu(project(z, w)).reshape(z.shape[0], h0, h0, c0)
-    for i in range(len(cfg.layers)):
-        x = tconv_apply(
-            params[f"tconv{i}"], x, cfg.padding, method=method,
-            plan=None if plan is None else plan[i], act=generator_act(cfg, i),
-        )
+    entries = plan.entries if plan is not None else (None,) * len(cfg.layers)
+    i = 0
+    for entry in entries:
+        if isinstance(entry, planlib.FusedPairPlan):
+            p1, p2 = params[f"tconv{i}"], params[f"tconv{i + 1}"]
+            x = planlib.execute_pair(entry, x, p1["w"], p2["w"],
+                                     bias1=p1["b"], bias2=p2["b"])
+            i += 2
+        else:
+            x = tconv_apply(params[f"tconv{i}"], x, cfg.padding, method=method,
+                            plan=entry, act=generator_act(cfg, i))
+            i += 1
     return x
 
 
@@ -168,11 +179,15 @@ def generator_flops(cfg: GANConfig, *, method: str,
 
 
 def generator_memory_savings(cfg: GANConfig, *,
-                             include_epilogue: bool = False) -> int:
+                             include_epilogue: bool = False,
+                             plan=None) -> int:
     """Bytes of avoidable traffic the unified method eliminates (Table 4:
     the whole padded upsampled buffer, EB-GAN ~35 MB). ``include_epilogue``
     adds the 2 reads + 2 writes of the fp32 output map that separate bias
-    and activation passes would cost."""
+    and activation passes would cost. ``plan=`` (a compiled, possibly
+    pair-fused plan) adds, for each fused pair, the fp32 interface plane the
+    pair kernel keeps on chip: its write and read back, ``2 * M1^2 * C1 * 4``
+    bytes a sample."""
     total = sum(
         memory_savings_bytes(hw, cin, 4, cfg.padding, mode="buffer")
         for hw, cin, _ in cfg.layers
@@ -181,6 +196,12 @@ def generator_memory_savings(cfg: GANConfig, *,
         for hw, _, cout in cfg.layers:
             m = output_size(hw, cfg.kernel, cfg.padding)
             total += 4 * m * m * cout * 4
+    if plan is not None:
+        for entry in plan.entries:
+            if isinstance(entry, planlib.FusedPairPlan):
+                lp1 = entry.first
+                m1 = output_size(lp1.n_in, lp1.n_k, lp1.padding)
+                total += 2 * m1 * m1 * lp1.cout * 4
     return total
 
 

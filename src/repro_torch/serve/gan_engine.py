@@ -6,9 +6,13 @@ precompiled :class:`~repro_torch.kernels.plan.TconvPlan`s. Mirrors
 1. **warmup** -- for every registered model and every policy bucket,
    resolve the whole-generator plan
    (:func:`~repro_torch.kernels.plan.compile_plan_buckets`, fused epilogues
-   included), build its executable and run it once on zero latents. Each
-   executable built increments the metrics recompile counter, so a flat
-   counter after warmup shows that steady-state serving builds nothing.
+   included, and adjacent layers fused into pair launches with
+   ``fuse="force"``) or adopt it from a plan registry
+   (:mod:`repro_torch.kernels.plan_registry`, written by
+   :meth:`GanEngine.save_plans`), build its executable and run it once on
+   zero latents. Each executable built increments the metrics recompile
+   counter, so a flat counter after warmup shows that steady-state serving
+   builds nothing.
 2. **admit** -- requests (``n`` latent rows for one model) enter a
    per-model FIFO queue, or are rejected with
    :class:`~repro_torch.serve.batching.QueueFull` past the queued-sample
@@ -20,8 +24,8 @@ precompiled :class:`~repro_torch.kernels.plan.TconvPlan`s. Mirrors
    tensor. A max-wait deadline flushes partial batches.
 
 The engine runs on the CUDA card unless constructed with another device.
-The reference's observability spans and request timelines, and its plan
-registry (``save_plans``/``registry_path``), wait for later slices.
+The reference's observability spans and request timelines wait for a later
+slice.
 """
 from __future__ import annotations
 
@@ -34,7 +38,15 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.kernels.plan import compile_plan_buckets
+from repro_torch.kernels.plan import (
+    check_fuse,
+    compile_plan_buckets,
+    plan_follows_fuse,
+)
+from repro_torch.kernels.plan_registry import (
+    load_plan_registry,
+    save_plan_registry,
+)
 from repro_torch.models.gan import generator_apply, generator_epilogues
 from repro_torch.serve.batching import BucketPolicy, QueueFull
 from repro_torch.serve.metrics import ServeMetrics
@@ -103,14 +115,18 @@ class GanEngine:
     """Bucketed dynamic-batching engine over plan-compiled generators.
 
     ``device`` is where the generators run (the CUDA card unless given);
-    registered parameters must live there. ``clock`` is injectable for
-    deterministic deadline tests.
+    registered parameters must live there. ``fuse`` is the plans' pair pass:
+    ``"off"`` (per layer) or ``"force"`` (every legal adjacent pair as one
+    pair-kernel launch). ``clock`` is injectable for deterministic deadline
+    tests.
     """
 
     def __init__(self, policy: BucketPolicy | None = None, *, device=None,
-                 clock=time.monotonic):
+                 fuse="off", clock=time.monotonic):
+        check_fuse(fuse)
         self.policy = policy or BucketPolicy()
         self.device = resolve_device(device)
+        self.fuse = fuse
         self.clock = clock
         self.metrics = ServeMetrics()
         self.registry: dict[str, _ModelSlot] = {}
@@ -134,10 +150,32 @@ class GanEngine:
         self.registry[name] = _ModelSlot(cfg=cfg, params=params)
         return name
 
-    def warmup(self) -> None:
+    def warmup(self, registry_path=None) -> None:
         """Build every (model, bucket) executable and run it once on zero
         latents. Afterwards the recompile counter is frozen at
-        :attr:`warmup_recompiles`."""
+        :attr:`warmup_recompiles`.
+
+        ``registry_path`` is the warm start: every ``"{model}:{bucket}"``
+        plan the registry file holds (written by :meth:`save_plans`) is
+        adopted as it is, without compiling; only the (model, bucket)
+        combinations it lacks compile the normal way. A registry plan whose
+        pairs do not follow the engine's ``fuse`` (one saved by a
+        ``fuse="force"`` engine, adopted by a ``fuse="off"`` one, or the
+        other way round) raises ``ValueError``."""
+        if registry_path is not None:
+            reg = load_plan_registry(registry_path)
+            for name, slot in self.registry.items():
+                for bucket in self.policy.buckets:
+                    plan = reg.get(f"{name}:{bucket}")
+                    if plan is None:
+                        continue
+                    if not plan_follows_fuse(plan, self.fuse):
+                        raise ValueError(
+                            f"registry plan {name}:{bucket} in "
+                            f"{registry_path} was not fused as "
+                            f"fuse={self.fuse!r} fuses"
+                        )
+                    slot.plans[bucket] = plan
         for name, slot in self.registry.items():
             for bucket in self.policy.buckets:
                 fn = self._executable(name, bucket)
@@ -145,6 +183,17 @@ class GanEngine:
                                             device=self.device))
         self._sync()
         self.warmup_recompiles = self.metrics.recompiles
+
+    def save_plans(self, path) -> None:
+        """Write every compiled (model, bucket) plan to ``path`` as a plan
+        registry under ``"{model}:{bucket}"`` keys: the file
+        :meth:`warmup` warm-starts from."""
+        save_plan_registry(
+            {f"{name}:{bucket}": plan
+             for name, slot in self.registry.items()
+             for bucket, plan in slot.plans.items()},
+            path,
+        )
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -160,6 +209,7 @@ class GanEngine:
             if bucket not in slot.plans:
                 slot.plans.update(compile_plan_buckets(
                     slot.cfg, [bucket], epilogues=generator_epilogues(slot.cfg),
+                    fuse=self.fuse,
                 ))
             plan, cfg, device = slot.plans[bucket], slot.cfg, self.device
 

@@ -1,6 +1,7 @@
 """Card tests of the port: each CUDA kernel against its plain version, the
-generator's batch invariance, and the generator's gradients through the
-backward kernels. Every test is marked ``cuda`` and skips
+generator's batch invariance (per layer and through fused pairs), and the
+generator's gradients through the backward kernels, fused pairs and the
+per-phase kernel. Every test is marked ``cuda`` and skips
 itself when no card is present. The file imports no JAX, so it runs on a
 machine that has only PyTorch:
 
@@ -14,6 +15,7 @@ from repro_torch.kernels import epilogue as epilib
 from repro_torch.kernels import transpose_conv2d as tcf
 from repro_torch.kernels import transpose_conv2d_bwd as bw
 from repro_torch.kernels import transpose_conv2d_gemm as tcg
+from repro_torch.kernels import transpose_conv2d_pair as tcp
 from repro_torch.models import gan
 
 pytestmark = pytest.mark.cuda
@@ -37,7 +39,14 @@ SHAPES = [  # (B, N, n, P, Cin, Cout)
 KERNELS = {
     "fused": (tcf.transpose_conv2d_fused, tcf.transpose_conv2d_fused_plain),
     "gemm": (tcg.transpose_conv2d_gemm, tcg.transpose_conv2d_gemm_plain),
+    "phase": (tcf.transpose_conv2d_phase, tcf.transpose_conv2d_phase_plain),
 }
+PAIR_SHAPES = [  # (B, N, n, P, C0, C1, C2)
+    (8, 4, 4, 2, 1024, 512, 256),   # DCGAN L0-1
+    (8, 16, 4, 2, 256, 128, 3),     # DCGAN L2-3
+    (2, 5, 3, 1, 13, 21, 7),        # n = 3, odd P, C2 not a tile multiple
+    (2, 7, 5, 3, 9, 12, 5),         # n = 5, odd P
+]
 
 
 @pytest.fixture
@@ -172,3 +181,75 @@ def test_generator_grads_segregated_match_autograd(card):
         grads[bwd] = {(k, n): t.grad for k, v in live.items() for n, t in v.items()}
     for key, want in grads["autograd"].items():
         _close(grads["segregated"][key], want)
+
+
+def _pair_case(seed, shape, device):
+    b, n_in, n_k, _, c0, c1, c2 = shape
+    rng = np.random.default_rng(seed)
+    arrays = [rng.standard_normal(s).astype(np.float32) for s in (
+        (b, n_in, n_in, c0), (n_k, n_k, c0, c1), (n_k, n_k, c1, c2), (c1,), (c2,))]
+    arrays[1] *= (n_k * n_k * c0) ** -0.5
+    arrays[2] *= (n_k * n_k * c1) ** -0.5
+    arrays[3] *= 0.1
+    arrays[4] *= 0.1
+    return tuple(torch.from_numpy(a).to(device) for a in arrays)
+
+
+@pytest.mark.parametrize("shape", PAIR_SHAPES, ids=str)
+def test_pair_kernel_matches_plain_and_is_batch_invariant(card, shape):
+    x, k1, k2, b1, b2 = _pair_case(sum(shape), shape, card)
+    kw = dict(epilogue1=EPILOGUES[2], bias1=b1, epilogue2=EPILOGUES[3], bias2=b2)
+    pad = shape[3]
+    before = tcp.transpose_conv2d_pair.launches
+    got = tcp.transpose_conv2d_pair(x, k1, k2, pad, **kw)
+    want = tcp.transpose_conv2d_pair_plain(x, k1, k2, pad, **kw)
+    one = tcp.transpose_conv2d_pair(x[:1], k1, k2, pad, **kw)
+    torch.cuda.synchronize()
+    assert tcp.transpose_conv2d_pair.launches == before + 2
+    _close(got, want)
+    assert torch.equal(one[0], got[0])
+
+
+def test_pair_kernel_refuses_a_pair_over_budget(card):
+    """EB-GAN's 64x64x128->64->64 tail pair needs more shared memory a
+    block than an H100 block may have."""
+    x, k1, k2, b1, b2 = _pair_case(0, (1, 64, 4, 2, 128, 64, 64), card)
+    with pytest.raises(ValueError, match="shared memory"):
+        tcp.transpose_conv2d_pair(x, k1, k2, 2, epilogue1=EPILOGUES[2],
+                                  bias1=b1, epilogue2=EPILOGUES[2], bias2=b2)
+
+
+def test_fused_generator_batch_invariant_and_close_to_per_layer(card):
+    cfg = gan.reduced_config(gan.DCGAN, 4)
+    params = gan.generator_init(torch.Generator().manual_seed(0), cfg,
+                                device=card)
+    z = torch.randn((8, cfg.z_dim), generator=torch.Generator().manual_seed(1))
+    batched = gan.generator_apply(params, cfg, z, device=card,
+                                  plan=gan.generator_plan(cfg, 8, fuse="force"))
+    one_plan = gan.generator_plan(cfg, 1, fuse="force")
+    for i in range(8):
+        one = gan.generator_apply(params, cfg, z[i : i + 1], device=card,
+                                  plan=one_plan)
+        assert torch.equal(one[0], batched[i])
+    _close(batched, gan.generator_apply(params, cfg, z, device=card))
+
+
+def test_generator_grads_through_pairs_and_phase_match_per_layer(card):
+    cfg = gan.reduced_config(gan.DCGAN, 4)
+    params = gan.generator_init(torch.Generator().manual_seed(0), cfg,
+                                device=card)
+    z = torch.randn((4, cfg.z_dim), generator=torch.Generator().manual_seed(1))
+    r = torch.randn((4, 64, 64, cfg.layers[-1][2]),
+                    generator=torch.Generator().manual_seed(2)).to(card)
+    plans = {"per_layer": gan.generator_plan(cfg, 4),
+             "pair": gan.generator_plan(cfg, 4, fuse="force"),
+             "phase": gan.generator_plan(cfg, 4, method="phase")}
+    grads = {}
+    for name, plan in plans.items():
+        live = {k: {n: t.detach().requires_grad_(True) for n, t in v.items()}
+                for k, v in params.items()}
+        (gan.generator_apply(live, cfg, z, plan=plan, device=card) * r).sum().backward()
+        grads[name] = {(k, n): t.grad for k, v in live.items() for n, t in v.items()}
+    for name in ("pair", "phase"):
+        for key, want in grads["per_layer"].items():
+            _close(grads[name][key], want)

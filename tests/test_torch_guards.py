@@ -50,6 +50,7 @@ def test_module_list_covers_the_slice():
                  "kernels.epilogue", "kernels._build", "kernels.plan",
                  "kernels.transpose_conv2d", "kernels.transpose_conv2d_gemm",
                  "kernels.transpose_conv2d_bwd", "kernels.ops",
+                 "kernels.transpose_conv2d_pair", "kernels.plan_registry",
                  "models.layers", "models.gan", "serve.batching",
                  "serve.metrics", "serve.gan_engine", "timing", "weights",
                  "tree", "optim.adamw", "optim.compression", "data.pipeline",
