@@ -10,7 +10,7 @@ Phases, in order; any failure raises and the script exits non-zero:
 1. device  -- the card's name, count and power limit; TF32 off for matmul
               and cuDNN, so every fp32 comparison is fp32; cudnn.benchmark
               off; CUBLAS_WORKSPACE_CONFIG set before torch is imported.
-2. build   -- the five CUDA sources compiled from src/repro_torch/kernels/csrc
+2. build   -- the six CUDA sources compiled from src/repro_torch/kernels/csrc
               (in parallel), with nvcc's -Xptxas -v report.
 3. check   -- each forward kernel against its plain PyTorch version at the
               four DCGAN layer shapes at batch 8 and at odd geometries, with
@@ -68,8 +68,34 @@ Phases, in order; any failure raises and the script exits non-zero:
               a fused-pair plan and through a plan pinned to method="phase",
               each against the per-layer plan, same tolerance; the launches
               of each run.
-14. train  -- deterministic algorithms on (a bit-exact resume needs them;
-              phases 3-13 run and are timed without them), then GanTrainer on
+14. decode check -- the decode attention kernel against its plain version
+              at the Llama-3-8B (S = 1024 as phase 16 serves it, 4096, and
+              32768 as phase 16's long step runs it), Qwen2-0.5B, Yi-9B,
+              CodeQwen1.5 (MHA) and an odd shape (DECODE_CHECKS), fp32 and
+              bf16, kv_len holding 1, S and lengths off the split grid (one
+              past 32 splits among them), within 1e-4 * max|ref| + 1e-5.
+15. decode times -- at DECODE_TIMES (Llama-3-8B at S = 4096 and 32768,
+              Qwen2-0.5B at 32768; bf16, kv_len = S): the kernel, its plain
+              version and a one-call library yardstick
+              (F.scaled_dot_product_attention with enable_gqa and a kv_len
+              mask, which the port never calls), each by CUDA events and by
+              a CUDA graph's replay (host taken out), and the bytes bound;
+              a yardstick that SDPA refuses fails the run.
+16. LM serve -- full-width Llama-3-8B, bf16, random weights from a seed on
+              the card, ServeEngine(slots=8, max_len=1024) serving 16
+              requests (prompts of 16-256 tokens, 16-64 new tokens, from a
+              seed): every request done at its length, every token in the
+              vocabulary, every step's logits finite, decode-kernel launches
+              n_layers x engine steps; tokens/s, a decode step's ms at 8
+              slots, one profiled step; then one decode step at kv_len
+              32768 over a (8, 32768) cache of random K/V (34.4 GB), its
+              logits finite.
+17. LM parity -- the same architecture in fp32 (32 GB of weights):
+              teacher-forced decode_step logits, through the kernel, against
+              the full-sequence apply logits (plain direct attention) at
+              batch 2, 40 tokens prefilled and 8 decoded, rtol/atol 2e-3.
+18. train  -- deterministic algorithms on (a bit-exact resume needs them;
+              phases 3-17 run and are timed without them), then GanTrainer on
               full-width DCGAN (GanTrainerConfig defaults, global batch 8):
               6 steps checkpointing every 3 with every kernel launched; a
               resume from step 3 bitwise equal to the uninterrupted run
@@ -78,7 +104,7 @@ Phases, in order; any failure raises and the script exits non-zero:
               TRAIN_WINDOWS alternating windows of 30 timed steps through
               the kernels and with the plan pinned to bwd="autograd"; one
               profiled step.
-15. result -- a JSON line of per-kernel numbers, then the last line
+19. result -- a JSON line of per-kernel numbers, then the last line
               {"ok": true, "device": {...}}.
 
 Full results also go to chiprun_out/chip_smoke.json.
@@ -124,6 +150,8 @@ SOURCES = {
               "src/repro/kernels/transpose_conv2d.py:395"),
     "pair": ("src/repro_torch/kernels/csrc/transpose_conv2d_pair.cu",
              "src/repro/kernels/transpose_conv2d_pair.py:348"),
+    "decode_attention": ("src/repro_torch/kernels/csrc/decode_attention.cu",
+                         "src/repro/kernels/decode_attention.py:84"),
 }
 FORWARD = ("fused", "gemm")
 TRAINING = ("fused", "gemm", "epilogue_grad", "dx", "dw")
@@ -138,6 +166,21 @@ PAIR_CHECKS = DCGAN_PAIRS + [
     (1, 6, 3, 0, 17, 35, 6),         # n = 3, P = 0, 5 cluster blocks
 ]
 PAIR_OVER_BUDGET = (1, 64, 4, 2, 128, 64, 64)   # EB-GAN L4-5
+DECODE_CHECKS = [  # (B, S, KV, G, hd) of the decode kernel's check
+    (8, 1024, 8, 4, 128),    # Llama-3-8B as phase 16 serves it (max_len 1024)
+    (8, 4096, 8, 4, 128),    # Llama-3-8B
+    (8, 32768, 8, 4, 128),   # Llama-3-8B at decode_32k: 128 splits to combine
+    (8, 4096, 2, 7, 64),     # Qwen2-0.5B
+    (8, 4096, 4, 8, 128),    # Yi-9B
+    (2, 1024, 32, 1, 128),   # CodeQwen1.5-7B (MHA)
+    (3, 1000, 2, 3, 64),     # S not a multiple of the split, odd G
+]
+DECODE_TIMES = [(8, 4096, 8, 4, 128), (8, 32768, 8, 4, 128), (8, 32768, 2, 7, 64)]
+LM_ARCH = "llama3-8b"
+LM_SLOTS, LM_MAX_LEN, LM_REQUESTS = 8, 1024, 16
+LM_LONG = 32768          # the decode_32k cache length of one timed step
+LM_PARITY = (2, 48, 40)  # batch, tokens, of which prefilled
+LM_RTOL = LM_ATOL = 2e-3  # tests/test_consistency.py's prefill-then-decode tolerance
 
 
 def log(*args) -> None:
@@ -182,8 +225,8 @@ def phase_build() -> dict:
     t0 = time.perf_counter()
     logs = _build.build("transpose_conv2d_fused", "transpose_conv2d_gemm",
                         "transpose_conv2d_bwd", "transpose_conv2d_phase",
-                        "transpose_conv2d_pair")
-    log(f"[build] five sources in {time.perf_counter() - t0:.1f} s")
+                        "transpose_conv2d_pair", "decode_attention")
+    log(f"[build] six sources in {time.perf_counter() - t0:.1f} s")
     for name, text in logs.items():   # registers, shared memory, spills
         for line in text.splitlines():
             if line.strip():
@@ -203,6 +246,7 @@ def _inputs(torch, shape, seed):
 
 def kernels(names=tuple(SOURCES)):
     """``{name: (wrapper, plain version)}`` of the kernels ``names``."""
+    from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import transpose_conv2d as tcf
     from repro_torch.kernels import transpose_conv2d_bwd as bw
     from repro_torch.kernels import transpose_conv2d_gemm as tcg
@@ -216,6 +260,7 @@ def kernels(names=tuple(SOURCES)):
         "dw": (bw.transpose_conv2d_dw, bw.transpose_conv2d_dw_plain),
         "phase": (tcf.transpose_conv2d_phase, tcf.transpose_conv2d_phase_plain),
         "pair": (tcp.transpose_conv2d_pair, tcp.transpose_conv2d_pair_plain),
+        "decode_attention": (da.decode_attention, da.decode_attention_ref),
     }
     return {name: every[name] for name in names}
 
@@ -339,8 +384,6 @@ def phase_profile(torch) -> dict:
     """Device busy time of the generator through the kernels, from
     torch.profiler over 10 calls at batch 1 and 8: per-call device time,
     the share of the (profiled) wall the device sat idle, top kernels."""
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch.models import gan
 
     cfg = gan.DCGAN
@@ -349,28 +392,9 @@ def phase_profile(torch) -> dict:
     for bucket in (1, BATCH):
         z = torch.randn((bucket, cfg.z_dim), device="cuda")
         plan = gan.generator_plan(cfg, bucket)
-        gan.generator_apply(params, cfg, z, plan=plan)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(10):
-                gan.generator_apply(params, cfg, z, plan=plan)
-            torch.cuda.synchronize()
-            wall_us = (time.perf_counter() - t0) * 1e6
-        dev = _kernel_times(prof)
-        busy = sum(dev.values())
-        top = sorted(dev.items(), key=lambda kv: -kv[1])[:6]
-        out[bucket] = {
-            "wall_us_per_call": wall_us / 10, "device_us_per_call": busy / 10,
-            "idle_share": 1 - busy / wall_us,
-            "top": [[name[:90], us / 10] for name, us in top],
-        }
-        log(f"[profile] b{bucket}: device {busy / 10:.1f} us per call of "
-            f"{wall_us / 10:.1f} us profiled wall, idle share "
-            f"{1 - busy / wall_us:.3f}")
-        for name, us in out[bucket]["top"]:
-            log(f"[profile]   {us:9.1f} us  {name}")
+        out[bucket] = _profile_step(torch, gan.generator_apply, params, cfg, z,
+                                    plan=plan, calls=10, top=6)
+        _log_profile(f"profile b{bucket}", out[bucket])
     return out
 
 
@@ -658,7 +682,7 @@ def phase_bwd_times(torch) -> list:
                "geometry": {"dx_splits": bw.bwd_geometry(*shape).dx_splits,
                             "dw_splits": bw.bwd_geometry(*shape).dw_splits}}
         # the events above also hold each call's host cost where that
-        # exceeds the kernel's; the profiler gives the device's own time
+        # exceeds the kernel's; a graph replay gives the device's own time
         row["device_us"] = {
             "epilogue_grad": _device_us(torch, bw.epilogue_grad, g, y, epi),
             "dx": _device_us(torch, bw.transpose_conv2d_dx, gm, k, n_in, pad),
@@ -674,30 +698,36 @@ def phase_bwd_times(torch) -> list:
             f" library {row[n + '_library_ms'] * 1e3:.2f}, bound "
             f"{row['bounds'][n]['bound_ms'] * 1e3:.2f} {row['bounds'][n]['bound_by']})"
             for n in ("epilogue_grad", "dx", "dw")) + f" splits {row['geometry']}")
-        log(f"[bwd-times] L{i} device-only us by the profiler: {row['device_us']}")
+        log(f"[bwd-times] L{i} device-only us (graph replay): {row['device_us']}")
     return rows
 
 
-def _device_us(torch, fn, *args, calls: int = 5, **kwargs) -> float | None:
-    """Device microseconds per call of ``fn`` (every kernel it launches,
-    the reduce pass included), from torch.profiler over ``calls`` calls.
-    A trace that holds no kernel at all (the profiler lost its events) is
-    taken again, up to three times in all; ``None`` (not measured) if every
-    one came back empty."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn(*args, **kwargs)
+def _device_us(torch, fn, *args, calls: int = 20, **kwargs) -> float:
+    """Device microseconds per call of ``fn`` (every kernel it launches, a
+    reduce pass included) with the host taken out: one CUDA graph of
+    ``calls`` calls, timed by CUDA events around its replay, after a
+    warm-up on a side stream and one untimed replay. (torch.profiler's
+    per-kernel sums can come up short: one H100 run's trace held 3 of 5
+    calls of the decode kernel.)"""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn(*args, **kwargs)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn(*args, **kwargs)
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
-                fn(*args, **kwargs)
-            torch.cuda.synchronize()
-        busy = sum(_kernel_times(prof).values())
-        if busy > 0:
-            return busy / calls
-    return None
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) * 1e3 / calls
 
 
 class _NanAt:
@@ -712,11 +742,13 @@ class _NanAt:
 
 
 def _counters():
+    from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import transpose_conv2d_bwd as bw
 
     wrappers = {name: fns[0] for name, fns in kernels().items()}
     return wrappers, {"dx_reduce": bw.transpose_conv2d_dx,
-                      "dw_reduce": bw.transpose_conv2d_dw}
+                      "dw_reduce": bw.transpose_conv2d_dw,
+                      "decode_reduce": da.decode_attention}
 
 
 def _reset_counts() -> None:
@@ -752,7 +784,6 @@ def phase_train(torch) -> dict:
     import tempfile
 
     import numpy as np
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.data import SyntheticImages
     from repro_torch.models import gan
@@ -844,23 +875,9 @@ def phase_train(torch) -> dict:
                 f"{windows[bwd][-1]['launches_per_step']}")
             if bwd == "segregated" and w == 0:   # one profiled step
                 reals, zs = tr._batches(steps)
-                torch.cuda.synchronize()
-                with profile(activities=[ProfilerActivity.CPU,
-                                         ProfilerActivity.CUDA]) as prof:
-                    t0 = time.perf_counter()
-                    tr._step_fn(state, reals, zs)
-                    torch.cuda.synchronize()
-                    wall_us = (time.perf_counter() - t0) * 1e6
-                dev = _kernel_times(prof)
-                busy = sum(dev.values())
-                top = sorted(dev.items(), key=lambda kv: -kv[1])[:15]
-                out["profile"] = {"wall_us": wall_us, "device_us": busy,
-                                  "idle_share": 1 - busy / wall_us,
-                                  "top": [[n[:90], us] for n, us in top]}
-                log(f"[train] profiled step: device {busy:.1f} us of "
-                    f"{wall_us:.1f} us wall, idle share {1 - busy / wall_us:.3f}")
-                for name, us in top:
-                    log(f"[train]   {us:9.1f} us  {name[:90]}")
+                out["profile"] = _profile_step(torch, tr._step_fn, state, reals, zs,
+                                               top=15)
+                _log_profile("train", out["profile"])
     out["windows"] = windows
     return out
 
@@ -955,7 +972,6 @@ def phase_pair_times(torch) -> dict:
     versions, library yardsticks and bounds; then the whole generator per
     bucket through fused pairs and per layer, and a profiled fused call."""
     import torch.nn.functional as F
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.kernels import plan as planlib
     from repro_torch.kernels.epilogue import Epilogue
@@ -1074,25 +1090,9 @@ def phase_pair_times(torch) -> dict:
 
     z = torch.randn((BATCH, cfg.z_dim), device="cuda")
     plan = gan.generator_plan(cfg, BATCH, fuse="force")
-    gan.generator_apply(params, cfg, z, plan=plan)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(10):
-            gan.generator_apply(params, cfg, z, plan=plan)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    dev = _kernel_times(prof)
-    busy = sum(dev.values())
-    top = sorted(dev.items(), key=lambda kv: -kv[1])[:6]
-    profiled = {"wall_us_per_call": wall_us / 10, "device_us_per_call": busy / 10,
-                "idle_share": 1 - busy / wall_us,
-                "top": [[name[:90], us / 10] for name, us in top]}
-    log(f"[pair-times] profiled fused generator b{BATCH}: device {busy / 10:.1f} us "
-        f"per call of {wall_us / 10:.1f} us profiled wall, idle share "
-        f"{1 - busy / wall_us:.3f}")
-    for name, us in profiled["top"]:
-        log(f"[pair-times]   {us:9.1f} us  {name}")
+    profiled = _profile_step(torch, gan.generator_apply, params, cfg, z, plan=plan,
+                             calls=10, top=6)
+    _log_profile(f"pair-times fused generator b{BATCH}", profiled)
     return {"pairs": pairs, "layers": layers, "generator": generator,
             "profile": profiled}
 
@@ -1230,6 +1230,311 @@ def phase_pair_autograd(torch) -> dict:
     return out
 
 
+def _decode_inputs(torch, shape, dtype, seed):
+    """q, k, v of a decode shape ``(B, S, KV, G, hd)`` in ``dtype``, and a
+    kv_len (int32) holding 1, S and, from three rows on, a length just past
+    a split boundary and, from four rows on, one just past 32 splits (where
+    a lane of the combine pass takes two splits); the other rows random."""
+    import numpy as np
+
+    from repro_torch.kernels.decode_attention import SPLIT_LEN
+
+    b, s_len, kvh, g, hd = shape
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v = (torch.randn(sh, device="cuda", generator=gen).to(dtype)
+               for sh in ((b, kvh, g, hd), (b, s_len, kvh, hd), (b, s_len, kvh, hd)))
+    lens = np.random.default_rng(seed).integers(1, s_len + 1, size=b)
+    lens[0], lens[-1] = 1, s_len
+    if b > 2:
+        lens[1] = min(SPLIT_LEN + 3, s_len)
+    if b > 3:
+        lens[2] = min(32 * SPLIT_LEN + 5, s_len)
+    return q, k, v, torch.tensor(lens, dtype=torch.int32, device="cuda")
+
+
+def phase_decode_check(torch) -> dict:
+    """The decode kernel against its plain version at DECODE_CHECKS, fp32
+    and bf16. Both compute in fp32 from the same inputs, so bf16 inputs keep
+    the fp32 tolerance."""
+    launch, plain = kernels(("decode_attention",))["decode_attention"]
+    rows = []
+    for i, shape in enumerate(DECODE_CHECKS):
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, kv_len = _decode_inputs(torch, shape, dtype, seed=800 + i)
+            got, want = launch(q, k, v, kv_len), plain(q, k, v, kv_len)
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            tol = TOL_REL * want.abs().max().item() + TOL_ABS
+            log(f"[decode-check] {shape} {str(dtype)[6:]} kv_len {kv_len.tolist()}: "
+                f"max abs err {err:.3e} (tol {tol:.3e})")
+            if not (got.shape == want.shape and err <= tol):
+                raise AssertionError(f"decode kernel disagrees with its plain version "
+                                     f"at {shape} {dtype}: {err} > {tol}")
+            rows.append({"shape": shape, "dtype": str(dtype)[6:], "max_abs_err": err,
+                         "tol": tol})
+            del q, k, v, got, want
+    torch.cuda.empty_cache()
+    return {"rows": rows, "worst": max(r["max_abs_err"] for r in rows),
+            "llama_4k": max(r["max_abs_err"] for r in rows
+                            if r["shape"] == DECODE_TIMES[0])}
+
+
+def _decode_bound(shape, kv_len, elem) -> dict:
+    """Bytes: q, the K and V rows up to kv_len and the fp32 output, each
+    once (and kv_len); operations: the two fp32 dot products a position."""
+    b, _, kvh, g, hd = shape
+    rows = int(sum(kv_len)) * kvh
+    nbytes = elem * b * kvh * g * hd + 2 * elem * rows * hd + 4 * b * kvh * g * hd + 4 * b
+    return _limits(4 * rows * g * hd, nbytes)
+
+
+def phase_decode_times(torch) -> list:
+    """The decode kernel at DECODE_TIMES (bf16, kv_len = S): the kernel,
+    its plain version and the one-call library yardstick, each by CUDA
+    events over back-to-back calls and by a CUDA graph's replay (the device
+    time with the host taken out, :func:`_device_us`), and the bound. The
+    kernels line takes the device-only times: at S 4096 SDPA's call is
+    host-bound, so its events time the host. A yardstick that no SDPA
+    backend takes fails the run."""
+    import torch.nn.functional as F
+
+    from repro_torch.timing import time_cuda
+
+    launch, plain = kernels(("decode_attention",))["decode_attention"]
+
+    def library(qq, kk, vv, mask):
+        return F.scaled_dot_product_attention(qq, kk, vv, attn_mask=mask,
+                                              enable_gqa=True)
+
+    rows = []
+    for i, shape in enumerate(DECODE_TIMES):
+        b, s_len, kvh, g, hd = shape
+        q, k, v, _ = _decode_inputs(torch, shape, torch.bfloat16, seed=900 + i)
+        kv_len = torch.full((b,), s_len, dtype=torch.int32, device="cuda")
+        # SDPA's layout: (B, H, 1, hd) queries, (B, KV, S, hd) views of the cache
+        lib_args = (q.reshape(b, kvh * g, 1, hd), k.permute(0, 2, 1, 3),
+                    v.permute(0, 2, 1, 3),
+                    (torch.arange(s_len, device="cuda") < kv_len[:, None])[:, None, None])
+        row = {"shape": shape, "dtype": "bfloat16", **_decode_bound(shape, [s_len] * b, 2),
+               "events_ms": time_cuda(launch, q, k, v, kv_len),
+               "plain_events_ms": time_cuda(plain, q, k, v, kv_len, iters=5),
+               "library_events_ms": time_cuda(library, *lib_args),
+               "device_us": _device_us(torch, launch, q, k, v, kv_len),
+               "plain_device_us": _device_us(torch, plain, q, k, v, kv_len, calls=5),
+               "library_device_us": _device_us(torch, library, *lib_args)}
+        for key in ("", "plain_", "library_"):
+            row[f"{key}ms"] = row[f"{key}device_us"] * 1e-3
+        row["library_vs_kernel_max_abs"] = (
+            library(*lib_args).reshape(b, kvh, g, hd).float()
+            - launch(q, k, v, kv_len)).abs().max().item()
+        row["bytes_per_s"] = row["bytes"] / (row["ms"] * 1e-3)
+        rows.append(row)
+        log(f"[decode-times] {shape} bf16 kv_len=S, device-only (events): kernel "
+            f"{row['device_us']:.2f} ({row['events_ms'] * 1e3:.2f}) us, "
+            f"{row['bytes_per_s'] / 1e12:.3f} TB/s; plain {row['plain_device_us']:.2f} "
+            f"({row['plain_events_ms'] * 1e3:.2f}) us; library "
+            f"{row['library_device_us']:.2f} ({row['library_events_ms'] * 1e3:.2f}) us, "
+            f"max abs diff {row['library_vs_kernel_max_abs']:.3e}; bound "
+            f"{row['bound_ms'] * 1e3:.2f} us ({row['bound_by']})")
+    return rows
+
+
+def _profile_step(torch, step, *args, calls: int = 1, top: int = 10, **kwargs) -> dict:
+    """``calls`` profiled calls of ``step`` after one unprofiled call, per
+    call: wall, device busy time, the share of the (profiled) wall the
+    device sat idle, and the top kernels by device time and host ops by
+    host time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    step(*args, **kwargs)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            step(*args, **kwargs)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    dev = _kernel_times(prof)
+    busy = sum(dev.values())
+    kernels_top = sorted(dev.items(), key=lambda kv: -kv[1])[:top]
+    host = sorted(((e.key, e.self_cpu_time_total, e.count) for e in prof.key_averages()
+                   if e.device_type == DeviceType.CPU), key=lambda r: -r[1])[:top]
+    return {"calls": calls, "wall_us": wall_us / calls, "device_us": busy / calls,
+            "idle_share": 1 - busy / wall_us,
+            "top": [[name[:90], us / calls] for name, us in kernels_top],
+            "host_top": [[name[:60], us / calls, n / calls] for name, us, n in host]}
+
+
+def _log_profile(tag, prof) -> None:
+    log(f"[{tag}] profiled: device {prof['device_us']:.1f} us a call of "
+        f"{prof['wall_us']:.1f} us wall ({prof['calls']} calls), idle share "
+        f"{prof['idle_share']:.3f}")
+    for name, us in prof["top"]:
+        log(f"[{tag}]   {us:9.1f} us  {name}")
+    for name, us, n in prof["host_top"]:
+        log(f"[{tag}]   host {us:9.1f} us in {n:g} calls  {name}")
+
+
+def phase_lm_serve(torch) -> dict:
+    """Full-width Llama-3-8B in bf16 served by ServeEngine: the requests'
+    checks, tokens/s, a decode step's time and profile at 8 slots, then one
+    decode step over a full 32k cache."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import build_model
+    from repro_torch.serve import Request, ServeEngine
+    from repro_torch.timing import time_cuda
+    from repro_torch.tree import tree_leaves
+
+    torch.cuda.empty_cache()
+    cfg = get_config(LM_ARCH)
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    out = {"arch": LM_ARCH, "dtype": cfg.dtype, "init_s": time.perf_counter() - t0,
+           "params": sum(t.numel() for t in tree_leaves(params)),
+           "param_bytes": sum(t.numel() * t.element_size() for t in tree_leaves(params))}
+    eng = ServeEngine(model, params, slots=LM_SLOTS, max_len=LM_MAX_LEN)
+    rng = np.random.default_rng(0)
+    reqs = [Request(prompt=rng.integers(0, cfg.vocab_size,
+                                        size=int(rng.integers(16, 257))).tolist(),
+                    max_new_tokens=int(rng.integers(16, 65)))
+            for _ in range(LM_REQUESTS)]
+    finite = torch.ones((), dtype=torch.bool, device="cuda")
+    decode = eng._decode
+
+    def checked(*args):   # every step's logits finite, kept on the card
+        logits, cache = decode(*args)
+        finite.logical_and_(torch.isfinite(logits).all())
+        return logits, cache
+
+    eng._decode = checked
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _read_counts()
+    eng._decode = decode
+    generated = sum(len(r.output) for r in reqs)
+    fed = sum(len(r.prompt) for r in reqs) + generated
+    if not all(r.done and len(r.output) == r.max_new_tokens for r in reqs):
+        raise AssertionError("LM serve: a request was not served to its length")
+    if not all(0 <= t < cfg.vocab_size for r in reqs for t in r.output):
+        raise AssertionError("LM serve: a token outside the vocabulary")
+    if not bool(finite):
+        raise AssertionError("LM serve: non-finite logits")
+    if counts["decode_attention"] != cfg.n_layers * eng.steps:
+        raise AssertionError(f"LM serve: {counts['decode_attention']} decode launches "
+                             f"in {eng.steps} steps of {cfg.n_layers} layers")
+    out.update({"requests": len(reqs), "steps": eng.steps, "generated_tokens": generated,
+                "fed_tokens": fed, "wall_s": wall, "tokens_per_s": generated / wall,
+                "fed_tokens_per_s": fed / wall, "launches": counts,
+                "prompt_lens": [len(r.prompt) for r in reqs],
+                "new_tokens": [r.max_new_tokens for r in reqs]})
+    log(f"[lm-serve] {LM_ARCH} {cfg.dtype}, {out['params']} params "
+        f"({out['param_bytes'] / 1e9:.2f} GB, init {out['init_s']:.1f} s): "
+        f"{len(reqs)} requests, {eng.steps} engine steps, {generated} tokens generated"
+        f" ({fed} fed) in {wall:.3f} s: {generated / wall:.1f} generated tokens/s, "
+        f"{fed / wall:.1f} fed tokens/s (host clock); launches {counts}")
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    tok = torch.randint(0, cfg.vocab_size, (LM_SLOTS, 1), device="cuda", generator=gen)
+
+    def step(tokens, pos, cache):
+        return model.decode_step(params, cache, {"tokens": tokens, "pos": pos})
+
+    pos = torch.full((LM_SLOTS,), 320, device="cuda")   # about the longest request
+    out["step_ms"] = time_cuda(step, tok, pos, eng.cache)
+    out["step_profile"] = _profile_step(torch, step, tok, pos, eng.cache)
+    log(f"[lm-serve] decode step at {LM_SLOTS} slots, pos 320, max_len {LM_MAX_LEN}: "
+        f"{out['step_ms']:.4f} ms (CUDA events, 20 steps)")
+    _log_profile("lm-serve", out["step_profile"])
+
+    del eng, reqs
+    torch.cuda.empty_cache()
+    cache = model.init_cache(LM_SLOTS, LM_LONG)
+    for c in cache:
+        for t in c:
+            t.normal_(generator=gen)
+    torch.cuda.synchronize()
+    pos = torch.full((LM_SLOTS,), LM_LONG - 1, device="cuda")
+    out["long_cache_bytes"] = sum(t.numel() * t.element_size() for c in cache for t in c)
+    out["long_step_ms"] = time_cuda(step, tok, pos, cache, iters=5, warmup=1)
+    logits, _ = step(tok, pos, cache)
+    if logits.shape != (LM_SLOTS, 1, cfg.vocab_size) or not bool(
+            torch.isfinite(logits).all()):
+        raise AssertionError(f"LM serve: the {LM_LONG}-position step's logits are "
+                             f"not finite or of shape {tuple(logits.shape)}")
+    del logits
+    out["long_step_profile"] = _profile_step(torch, step, tok, pos, cache)
+    log(f"[lm-serve] decode step at {LM_SLOTS} slots, kv_len {LM_LONG} "
+        f"({out['long_cache_bytes'] / 1e9:.1f} GB of random K/V): "
+        f"{out['long_step_ms']:.4f} ms (CUDA events, 5 steps); peak memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
+    _log_profile("lm-serve 32k", out["long_step_profile"])
+    del cache, params
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_lm_parity(torch) -> dict:
+    """Full-width Llama-3-8B in fp32: teacher-forced decode_step logits
+    (through the decode kernel) against the full-sequence apply logits."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers as L
+    from repro_torch.models.lm import build_model
+
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(get_config(LM_ARCH), dtype="float32")
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(1))
+    batch, n_tok, n_pre = LM_PARITY
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    toks = torch.randint(0, cfg.vocab_size, (batch, n_tok), device="cuda", generator=gen)
+    full, _ = model.apply(params, {"tokens": toks})
+    worst = {"err": 0.0, "excess": 0.0}
+
+    def compare(got, want, where):
+        err = (got - want).abs()
+        excess = (err - (LM_ATOL + LM_RTOL * want.abs())).max().item()
+        worst["err"] = max(worst["err"], err.max().item())
+        worst["excess"] = max(worst["excess"], excess)
+        if excess > 0:
+            raise AssertionError(f"LM parity at {where}: decode logits off the full "
+                                 f"forward by {err.max().item()} (rtol/atol {LM_RTOL})")
+
+    logits, cache = model.prefill(params, {"tokens": toks[:, :n_pre]})
+    compare(logits[:, 0], full[:, n_pre - 1], "the prefill")
+    cache = [L.KVCache(*(torch.nn.functional.pad(t, (0, 0, 0, 0, 0, n_tok - n_pre))
+                         for t in c)) for c in cache]
+    _reset_counts()
+    for t in range(n_pre, n_tok):
+        logits, cache = model.decode_step(params, cache, {
+            "tokens": toks[:, t : t + 1],
+            "pos": torch.full((batch,), t, device="cuda")})
+        compare(logits[:, 0], full[:, t], f"position {t}")
+    launches = _read_counts()["decode_attention"]
+    if launches != cfg.n_layers * (n_tok - n_pre):
+        raise AssertionError(f"LM parity: {launches} decode launches")
+    out = {"arch": LM_ARCH, "dtype": "float32", "batch": batch, "tokens": n_tok,
+           "prefill": n_pre, "max_abs_err": worst["err"],
+           "max_logit": full.abs().max().item(), "rtol": LM_RTOL, "atol": LM_ATOL,
+           "decode_launches": launches}
+    log(f"[lm-parity] {LM_ARCH} fp32 full width: prefill {n_pre} + {n_tok - n_pre} "
+        f"decoded at batch {batch} vs apply: max abs err {worst['err']:.3e} (max "
+        f"|logit| {out['max_logit']:.3f}; rtol/atol {LM_RTOL}); decode launches {launches}")
+    del params, cache
+    torch.cuda.empty_cache()
+    return out
+
+
 def _entry(name, launches, err, rows, times_of, bound_of) -> dict:
     """One kernel's line of the result: times summed over the DCGAN layers
     it runs at batch 8 (``rows``; ``times_of(row, suffix)`` and
@@ -1282,6 +1587,11 @@ def main() -> int:
     fused_engine = phase_fused_engine(torch)
     fused_serving = phase_serving(torch, fuse="force")
     pair_grads = phase_pair_autograd(torch)
+    decode_check = phase_decode_check(torch)
+    worst["decode_attention"] = decode_check["worst"]
+    decode_times = phase_decode_times(torch)
+    lm_serve = phase_lm_serve(torch)
+    lm_parity = phase_lm_parity(torch)
     train = phase_train(torch)
 
     entries = []
@@ -1304,6 +1614,15 @@ def main() -> int:
         entries.append(_entry(name, train["launches_6_steps"][name], worst[name],
                               bwd_times, lambda r, k, n=name: r[n + k],
                               lambda r, n=name: r["bounds"][n]))
+    # launches: the LM serving run; numbers: Llama-3-8B, S 4096, device-only
+    d4k = decode_times[0]
+    source, replaces = SOURCES["decode_attention"]
+    entries.append({"name": "decode_attention", "route": "cuda", "source": source,
+                    "replaces": replaces,
+                    "launches": lm_serve["launches"]["decode_attention"],
+                    "max_abs_err": decode_check["llama_4k"], "ms": d4k["ms"],
+                    "plain_ms": d4k["plain_ms"], "bound_ms": d4k["bound_ms"],
+                    "bound_by": d4k["bound_by"], "library_ms": d4k["library_ms"]})
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"device": dev, "kernels": entries, "times": times,
@@ -1311,7 +1630,9 @@ def main() -> int:
                    "serving": serving, "max_abs_err": worst, "grads": grads,
                    "bwd_times": bwd_times, "pair_times": pair_times,
                    "fused_engine": fused_engine, "fused_serving": fused_serving,
-                   "pair_grads": pair_grads, "train": train,
+                   "pair_grads": pair_grads, "decode_check": decode_check,
+                   "decode_times": decode_times, "lm_serve": lm_serve,
+                   "lm_parity": lm_parity, "train": train,
                    "seconds": time.perf_counter() - t_start}, f, indent=1)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": entries}))

@@ -1,1 +1,2 @@
-"""Models built on the transpose convolution: the Table-4 GAN generators."""
+"""Models: the Table-4 GAN generators built on the transpose convolution,
+and the dense decoder LM."""

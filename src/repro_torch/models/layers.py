@@ -1,11 +1,30 @@
-"""Transpose-conv layers of the GAN generators. Mirrors ``tconv_init`` and
-``tconv_apply`` of ``repro/models/layers.py``."""
+"""Shared layers. Mirrors ``repro/models/layers.py``: the transpose-conv
+layers of the GAN generators (``tconv_init``, ``tconv_apply``) and the LM
+layers of the dense decoder (RMSNorm, RoPE, GQA attention with a KV cache,
+SwiGLU MLP).
+
+Parameters are plain dicts of tensors with the reference's names and
+layouts (a dense weight is ``(d_in, d_out)``, applied as ``x @ w``). The
+reference's sharding hints (``constrain``) are no-ops without a mesh and
+are dropped. The decode branch of :func:`attention` runs the hand-written
+flash-decode kernel (:mod:`repro_torch.kernels.decode_attention`) where
+the reference calls its jnp oracle ``_grouped_decode_attention``; the two
+compute the same function (the reference's tests hold its Pallas kernel,
+which the CUDA kernel replaces, to the oracle at 2e-4/2e-5), except that
+the kernel keeps scores and probabilities in fp32 where the oracle rounds
+them to a bf16 model's dtype.
+"""
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
 from repro_torch.kernels import epilogue as epilib
 from repro_torch.kernels import plan as planlib
+from repro_torch.kernels.decode_attention import decode_attention
+
+NEG_INF = -1e30
 
 
 def tconv_init(generator: torch.Generator, n: int, cin: int, cout: int, *,
@@ -47,3 +66,215 @@ def tconv_apply(p: dict, x: torch.Tensor, padding: int, *,
             f"{plan.epilogue.tag() if plan.epilogue else None}, got {epi.tag()}"
         )
     return planlib.execute_layer(plan, x, w, bias=b)
+
+
+# ------------------------------------------------------------ dense layers
+
+def _dtype(cfg) -> torch.dtype:
+    return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+
+
+def _normal(generator: torch.Generator, shape, std: float, dtype, device):
+    """A normal draw from ``generator`` in fp32, scaled, then cast: one
+    tensor at a time, on the generator's device, then moved to ``device``.
+    On the meta device nothing is drawn (shapes only; ``generator`` may be
+    None)."""
+    if torch.device(device).type == "meta":
+        return torch.empty(shape, dtype=dtype, device=device)
+    w = torch.randn(shape, generator=generator, device=generator.device) * std
+    return w.to(device=device, dtype=dtype)
+
+
+def dense_init(generator, d_in, d_out, dtype, *, bias=False, std=None,
+               device) -> dict:
+    std = std if std is not None else d_in ** -0.5
+    p = {"w": _normal(generator, (d_in, d_out), std, dtype, device)}
+    if bias:
+        p["b"] = torch.zeros((d_out,), dtype=dtype, device=device)
+    return p
+
+
+def dense(p, x):
+    y = x @ p["w"]
+    if "b" in p:
+        y = y + p["b"]
+    return y
+
+
+def rmsnorm_init(d: int, *, device) -> dict:
+    return {"scale": torch.ones((d,), dtype=torch.float32, device=device)}
+
+
+def rmsnorm(p, x, eps=1e-5):
+    h = x.float()
+    h = h * torch.rsqrt(torch.mean(h * h, dim=-1, keepdim=True) + eps)
+    return (h * p["scale"]).to(x.dtype)
+
+
+def rope(x, positions, theta):
+    """x: (..., S, n, hd); positions: (S,) or broadcastable to x[..., S]."""
+    hd = x.shape[-1]
+    half = hd // 2
+    freq = 1.0 / (theta ** (torch.arange(half, dtype=torch.float32,
+                                         device=x.device) / half))
+    ang = positions[..., None].to(device=x.device, dtype=torch.float32) * freq
+    cos = torch.cos(ang)[..., None, :]
+    sin = torch.sin(ang)[..., None, :]
+    x1, x2 = x[..., :half], x[..., half : 2 * half]
+    rot = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    if 2 * half < hd:  # odd head_dim tail passes through
+        rot = torch.cat([rot, x[..., 2 * half :].to(rot.dtype)], dim=-1)
+    return rot.to(x.dtype)
+
+
+# --------------------------------------------------------------- attention
+
+class KVCache(NamedTuple):
+    k: torch.Tensor  # (B, S_max, KV, hd); stacked over periods in an LM cache
+    v: torch.Tensor
+
+
+def attn_init(generator, cfg, *, device) -> dict:
+    d, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    dt = _dtype(cfg)
+    return {
+        "wq": dense_init(generator, d, H * hd, dt, bias=cfg.qkv_bias, device=device),
+        "wk": dense_init(generator, d, KV * hd, dt, bias=cfg.qkv_bias, device=device),
+        "wv": dense_init(generator, d, KV * hd, dt, bias=cfg.qkv_bias, device=device),
+        "wo": dense_init(generator, H * hd, d, dt, std=(H * hd) ** -0.5,
+                         device=device),
+    }
+
+
+def _direct_attention(q, k, v, *, causal, q_positions):
+    """q: (B,Sq,H,hd); k,v: (B,Skv,H,hd) (KV heads pre-expanded). fp32 softmax.
+
+    q_positions: (Sq,) or (B,Sq) absolute positions.
+    """
+    B, Sq = q.shape[:2]
+    hd = q.shape[-1]
+    Skv = k.shape[1]
+    s = torch.einsum("bqhd,bthd->bhqt", q, k).float() * hd ** -0.5
+    kv_pos = torch.arange(Skv, device=q.device)
+    qp = (q_positions.expand(B, Sq) if q_positions.ndim == 1 else q_positions)
+    mask = torch.ones((B, 1, Sq, Skv), dtype=torch.bool, device=q.device)
+    if causal:
+        mask = mask & (qp[:, None, :, None] >= kv_pos)
+    s = torch.where(mask, s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqt,bthd->bqhd", p.to(v.dtype), v)
+
+
+def _chunked_attention(q, k, v, *, causal, q_positions, chunk):
+    """Flash-style online-softmax attention, blocked over q and kv chunks.
+
+    q: (B,Sq,H,hd); k,v: (B,Skv,H,hd). The reference's two ``lax.scan``
+    loops become Python loops over the chunks, in the same order.
+    """
+    B, Sq, H, hd = q.shape
+    Skv = k.shape[1]
+    cq = min(chunk, Sq)
+    ck = min(chunk, Skv)
+    if Sq % cq or Skv % ck:
+        raise ValueError(f"chunk {chunk} does not divide Sq={Sq} and Skv={Skv}")
+    scale = hd ** -0.5
+    outs = []
+    for qi in range(Sq // cq):
+        qc = q[:, qi * cq : (qi + 1) * cq]
+        qp = q_positions[qi * cq : (qi + 1) * cq]
+        m = torch.full((B, H, cq), NEG_INF, dtype=torch.float32, device=q.device)
+        lsum = torch.zeros((B, H, cq), dtype=torch.float32, device=q.device)
+        acc = torch.zeros((B, H, cq, hd), dtype=torch.float32, device=q.device)
+        for kj in range(Skv // ck):
+            kc = k[:, kj * ck : (kj + 1) * ck]
+            vc = v[:, kj * ck : (kj + 1) * ck]
+            s = torch.einsum("bqhd,bthd->bhqt", qc, kc).float() * scale
+            if causal:
+                kp = kj * ck + torch.arange(ck, device=q.device)
+                s = torch.where(qp[None, None, :, None] >= kp, s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(-1))
+            corr = torch.exp(m - m_new)
+            p = torch.exp(s - m_new[..., None])
+            lsum = lsum * corr + p.sum(-1)
+            acc = acc * corr[..., None] + torch.einsum("bhqt,bthd->bhqd", p, vc.float())
+            m = m_new
+        o = acc / torch.clamp(lsum, min=1e-30)[..., None]
+        outs.append(o.transpose(1, 2))  # (B,cq,H,hd)
+    return torch.cat(outs, dim=1)
+
+
+def _scatter_kv(cache, kv, pos):
+    """Write this step's row in place: ``cache[b, pos[b]] = kv[b, 0]``.
+
+    cache: (B,Smax,KV,hd); kv: (B,1,KV,hd); pos: (B,) int. The reference
+    rewrites the whole cache with a one-hot ``where`` (JAX arrays are
+    immutable); the values are the same.
+    """
+    b = torch.arange(cache.shape[0], device=cache.device)
+    cache[b, pos] = kv[:, 0].to(cache.dtype)
+
+
+def attention(p, cfg, x, *, positions, causal=True, cache: KVCache | None = None,
+              cache_pos=None, prefill=False):
+    """GQA attention. Returns (out, new_cache).
+
+    cache + cache_pos: decode mode -- writes this step's K/V into the cache
+    at cache_pos, in place, and attends over the cache through the decode
+    kernel. prefill: also return this call's full K/V as a KVCache.
+    Cross-attention (the reference's ``kv_override``) is not ported yet.
+    """
+    B, S, _ = x.shape
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    G = H // KV
+    q = dense(p["wq"], x).reshape(B, S, H, hd)
+    k = dense(p["wk"], x).reshape(B, S, KV, hd)
+    v = dense(p["wv"], x).reshape(B, S, KV, hd)
+    if cfg.rope_theta:
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
+    if cache is not None:
+        _scatter_kv(cache.k, k, cache_pos)
+        _scatter_kv(cache.v, v, cache_pos)
+        kv_len = (cache_pos + 1).to(torch.int32)
+        o = decode_attention(q.reshape(B, KV, G, hd).contiguous(), cache.k,
+                             cache.v, kv_len)
+        o = o.to(x.dtype).reshape(B, S, H * hd)
+        return dense(p["wo"], o), cache
+    new_cache = KVCache(k, v) if prefill else None
+
+    if KV != H:  # expand KV -> H heads (no-op for MHA)
+        k = torch.repeat_interleave(k, G, dim=2)
+        v = torch.repeat_interleave(v, G, dim=2)
+    Skv = k.shape[1]
+    if (S * Skv > cfg.attn_chunk ** 2 and S > 1
+            and S % min(cfg.attn_chunk, S) == 0
+            and Skv % min(cfg.attn_chunk, Skv) == 0):
+        o = _chunked_attention(q, k, v, causal=causal, q_positions=positions,
+                               chunk=cfg.attn_chunk)
+    else:
+        o = _direct_attention(q, k, v, causal=causal, q_positions=positions)
+    o = o.to(x.dtype).reshape(B, S, H * hd)
+    return dense(p["wo"], o), new_cache
+
+
+def init_kv_cache(cfg, batch: int, seq_len: int, *, device) -> KVCache:
+    shape = (batch, seq_len, cfg.n_kv_heads, cfg.head_dim)
+    dt = _dtype(cfg)
+    return KVCache(torch.zeros(shape, dtype=dt, device=device),
+                   torch.zeros(shape, dtype=dt, device=device))
+
+
+# ------------------------------------------------------------- dense SwiGLU
+
+def mlp_init(generator, cfg, *, device) -> dict:
+    d, ff, dt = cfg.d_model, cfg.d_ff, _dtype(cfg)
+    return {
+        "w_gate": dense_init(generator, d, ff, dt, device=device),
+        "w_up": dense_init(generator, d, ff, dt, device=device),
+        "w_down": dense_init(generator, ff, d, dt, std=ff ** -0.5, device=device),
+    }
+
+
+def mlp(p, x):
+    h = torch.nn.functional.silu(dense(p["w_gate"], x)) * dense(p["w_up"], x)
+    return dense(p["w_down"], h)

@@ -1,0 +1,151 @@
+"""Continuous-batching serving engine over the KV-cache decode step.
+Mirrors ``repro/serve/engine.py``.
+
+A fixed pool of B slots shares one decode step. Requests are admitted into
+free slots as they arrive; each slot tracks its own position, so sequences
+of different lengths decode in the same batched step (per-sequence ``pos``
+and ``kv_len`` masking). A prompt is fed token by token through the decode
+step. Finished slots are recycled without touching the others' cache rows;
+an idle slot runs through the step with token 0 at its stale position, as
+in the reference, and its rows are masked by ``kv_len`` once it is reused.
+Every step's attention runs the hand-written flash-decode kernel on the
+card (:mod:`repro_torch.kernels.decode_attention`).
+"""
+from __future__ import annotations
+
+import dataclasses
+import itertools
+from collections import deque
+from typing import Callable
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
+
+
+@dataclasses.dataclass
+class Request:
+    prompt: list          # token ids
+    max_new_tokens: int = 16
+    eos_id: int | None = None
+    # filled by the engine:
+    rid: int = -1
+    output: list = dataclasses.field(default_factory=list)
+    done: bool = False
+
+
+class ServeEngine:
+    """``sampler(logits_row, rid) -> token`` takes a numpy fp32 row of
+    logits; the default is greedy argmax, taken on the device for the whole
+    batch with one copy of ``B`` ids to the host a step (a custom sampler
+    costs one copy of the ``(B, V)`` logits a step). ``device=None`` means
+    the CUDA card; ``params`` must live on the engine's device."""
+
+    def __init__(self, model, params, *, slots: int = 4, max_len: int = 256,
+                 sampler: Callable | None = None, device=None):
+        self.device = resolve_device(device)
+        where = params["embed"]["w"].device
+        if where != self.device:
+            raise ValueError(f"params live on {where}, the engine on {self.device}")
+        self.model = model
+        self.params = params
+        self.B = slots
+        self.max_len = max_len
+        self.sampler = sampler
+        self._rid = itertools.count()
+        self.queue: deque[Request] = deque()
+        self.active: list[Request | None] = [None] * slots
+        self.pos = np.zeros(slots, np.int32)       # next position per slot
+        self.cache = model.init_cache(slots, max_len, device=self.device)
+        self._decode = model.decode_step
+        self._next_tok = np.zeros((slots, 1), np.int32)
+        self._pending_prompt: dict[int, list] = {}
+        self.steps = 0
+
+    # ------------------------------------------------------------- intake
+
+    def submit(self, req: Request) -> int:
+        req.rid = next(self._rid)
+        self.queue.append(req)
+        return req.rid
+
+    def _admit(self):
+        """Fill free slots; the prompt is fed token-by-token through the
+        decode step."""
+        for slot in range(self.B):
+            if self.active[slot] is not None or not self.queue:
+                continue
+            req = self.queue.popleft()
+            if len(req.prompt) + req.max_new_tokens > self.max_len:
+                raise ValueError("request exceeds engine max_len")
+            self.active[slot] = req
+            self.pos[slot] = 0
+            self._pending_prompt[slot] = list(req.prompt)
+
+    # -------------------------------------------------------------- step
+
+    def _sampler(self, logits) -> Callable:
+        """``pick(slot, req)``: the token of an active slot from the step's
+        ``(B, 1, V)`` fp32 logits, copied to the host once a step."""
+        if self.sampler is None:
+            greedy = logits[:, 0].argmax(dim=-1).cpu().tolist()
+            return lambda slot, req: greedy[slot]
+        rows = logits[:, 0].cpu().numpy()
+        return lambda slot, req: self.sampler(rows[slot], req.rid)
+
+    def step(self):
+        """One batched decode step across all active slots."""
+        self._admit()
+        if not any(a is not None for a in self.active):
+            return False
+        # the decode kernel reads kv_len = pos + 1 without a sync: the
+        # positions are checked here, where they already are
+        if self.pos.min() < 0 or self.pos.max() >= self.max_len:
+            raise RuntimeError(f"slot positions {self.pos} outside [0, {self.max_len})")
+        pending = self._pending_prompt
+        tokens = np.zeros((self.B, 1), np.int32)
+        for slot, req in enumerate(self.active):
+            if req is None:
+                continue
+            if pending.get(slot):
+                tokens[slot, 0] = pending[slot].pop(0)
+            else:
+                tokens[slot, 0] = self._next_tok[slot, 0]
+        logits, self.cache = self._decode(
+            self.params, self.cache,
+            {"tokens": torch.from_numpy(tokens).to(self.device),
+             "pos": torch.from_numpy(self.pos).to(self.device)},
+        )
+        pick = self._sampler(logits)
+        for slot, req in enumerate(self.active):
+            if req is None:
+                continue
+            self.pos[slot] += 1
+            still_prompt = bool(pending.get(slot))
+            if still_prompt:
+                continue
+            tok = int(pick(slot, req))
+            self._next_tok[slot, 0] = tok
+            req.output.append(tok)
+            hit_eos = req.eos_id is not None and tok == req.eos_id
+            if hit_eos or len(req.output) >= req.max_new_tokens:
+                req.done = True
+                self.active[slot] = None   # recycle the slot
+        self.steps += 1
+        return True
+
+    # -------------------------------------------------------------- run
+
+    def run(self, requests, *, max_steps: int | None = None):
+        """Serve a list of requests to completion; returns them (done)."""
+        for r in requests:
+            self.submit(r)
+        budget = max_steps if max_steps is not None else 10_000
+        while budget and (self.queue or any(
+            a is not None for a in self.active
+        )):
+            if not self.step():
+                break
+            budget -= 1
+        return requests

@@ -8,6 +8,9 @@ tensors with every layout kept: ``proj.w`` stays ``(z_dim, h0*h0*c0)``
 packages then compute the same function. :func:`from_jax_state` does the
 same for the reference trainer's whole state (both nets and both optimizer
 states), so both packages can start a step from one state.
+:func:`from_jax_lm_params` and :func:`from_jax_lm_cache` carry the
+reference LM's parameters (per-period stacking kept) and its serving cache
+over the same way.
 """
 from __future__ import annotations
 
@@ -65,3 +68,53 @@ def from_jax_state(state_np: dict, cfg, device) -> dict:
         "g_opt": _tree(state_np["g_opt"], dev),
         "d_opt": _tree(state_np["d_opt"], dev),
     }
+
+
+def from_jax_lm_params(params_np: dict, cfg, device) -> dict:
+    """The port LM's parameters from numpy copies of the reference LM's for
+    config ``cfg`` (bfloat16 arrays carried by their bits), each leaf in the
+    dtype the port's layout gives it (an fp32 array for a bf16 leaf is
+    rounded to nearest even), on ``device`` (``None`` means the CUDA card).
+    Raises ``ValueError`` on a missing leaf or a shape that does not match
+    ``cfg``."""
+    from repro_torch.models.lm import build_model
+
+    dev = resolve_device(device)
+
+    def leaf(want, a, path):
+        if tuple(np.shape(a)) != tuple(want.shape):
+            raise ValueError(f"{path} has shape {tuple(np.shape(a))}, want "
+                             f"{tuple(want.shape)}")
+        return _tensor(a, dev).to(want.dtype)
+
+    def walk(shapes, tree, path):
+        if tree is None:
+            raise ValueError(f"missing parameter {path}")
+        if isinstance(shapes, dict):
+            if not isinstance(tree, dict):
+                raise ValueError(f"{path or 'params'} is not a dict")
+            return {k: walk(v, tree.get(k), f"{path}.{k}" if path else k)
+                    for k, v in shapes.items()}
+        if isinstance(shapes, list):
+            if not isinstance(tree, (list, tuple)) or len(tree) != len(shapes):
+                raise ValueError(f"{path} must hold {len(shapes)} period positions")
+            return [walk(s, t, f"{path}[{i}]") for i, (s, t) in enumerate(zip(shapes, tree))]
+        return leaf(shapes, tree, path)
+
+    return walk(build_model(cfg).abstract_params(), params_np, "")
+
+
+def from_jax_lm_cache(cache_np, device) -> list:
+    """The port LM's serving cache from numpy copies of the reference's: a
+    sequence (per period position) of ``(k, v)`` pairs ``(n_periods, B, S,
+    KV, hd)``, on ``device`` (``None`` means the CUDA card)."""
+    from repro_torch.models.layers import KVCache
+
+    dev = resolve_device(device)
+    out = []
+    for k, v in cache_np:
+        if np.shape(k) != np.shape(v) or np.ndim(k) != 5:
+            raise ValueError(f"expected k and v (n_periods, B, S, KV, hd), got "
+                             f"{np.shape(k)} and {np.shape(v)}")
+        out.append(KVCache(_tensor(k, dev), _tensor(v, dev)))
+    return out

@@ -1,7 +1,9 @@
 """Card tests of the port: each CUDA kernel against its plain version, the
 generator's batch invariance (per layer and through fused pairs), and the
 generator's gradients through the backward kernels, fused pairs and the
-per-phase kernel. Every test is marked ``cuda`` and skips
+per-phase kernel, the decode attention kernel at the LM shapes, and a
+decode step's independence of the other slots. Every test is marked
+``cuda`` and skips
 itself when no card is present. The file imports no JAX, so it runs on a
 machine that has only PyTorch:
 
@@ -11,12 +13,15 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import get_config, reduced
+from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import epilogue as epilib
 from repro_torch.kernels import transpose_conv2d as tcf
 from repro_torch.kernels import transpose_conv2d_bwd as bw
 from repro_torch.kernels import transpose_conv2d_gemm as tcg
 from repro_torch.kernels import transpose_conv2d_pair as tcp
 from repro_torch.models import gan
+from repro_torch.models.lm import build_model
 
 pytestmark = pytest.mark.cuda
 
@@ -253,3 +258,91 @@ def test_generator_grads_through_pairs_and_phase_match_per_layer(card):
     for name in ("pair", "phase"):
         for key, want in grads["per_layer"].items():
             _close(grads[name][key], want)
+
+
+DECODE_SHAPES = [  # (B, S, KV, G, hd): chip_smoke.py's decode check
+    (8, 1024, 8, 4, 128),    # Llama-3-8B as chip_smoke.py serves it
+    (8, 4096, 8, 4, 128),    # Llama-3-8B
+    (8, 32768, 8, 4, 128),   # Llama-3-8B at decode_32k: 128 splits to combine
+    (8, 4096, 2, 7, 64),     # Qwen2-0.5B
+    (8, 4096, 4, 8, 128),    # Yi-9B
+    (2, 1024, 32, 1, 128),   # CodeQwen1.5 (MHA)
+    (3, 1000, 2, 3, 64),     # S not a multiple of the split
+]
+
+
+def _decode_case(seed, shape, dtype, device):
+    """q, k, v and a kv_len holding 1, S and lengths off the split grid,
+    one of them just past 32 splits (a lane of the combine takes two)."""
+    b, s_len, kvh, g, hd = shape
+    gen = torch.Generator().manual_seed(seed)
+    q, k, v = (torch.randn(sh, generator=gen).to(device=device, dtype=dtype)
+               for sh in ((b, kvh, g, hd), (b, s_len, kvh, hd), (b, s_len, kvh, hd)))
+    lens = torch.randint(1, s_len + 1, (b,), generator=gen)
+    lens[0] = 1
+    lens[-1] = s_len
+    if b > 2:
+        lens[1] = da.SPLIT_LEN + 3
+    if b > 3:
+        lens[2] = min(32 * da.SPLIT_LEN + 5, s_len)
+    return q, k, v, lens.to(device=device, dtype=torch.int32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", DECODE_SHAPES, ids=str)
+def test_decode_kernel_matches_plain(card, shape, dtype):
+    """Within 1e-4 * max|ref| + 1e-5 for both dtypes: kernel and plain
+    version compute in fp32 from the same inputs. One launch, and one
+    combine launch when the cache spans more than one split."""
+    q, k, v, kv_len = _decode_case(sum(shape), shape, dtype, card)
+    launches = (da.decode_attention.launches, da.decode_attention.reduce_launches)
+    got = da.decode_attention(q, k, v, kv_len)
+    torch.cuda.synchronize()
+    splits = da.decode_geometry(shape[1], shape[4], shape[3], dtype).n_splits
+    assert (da.decode_attention.launches - launches[0],
+            da.decode_attention.reduce_launches - launches[1]) == (1, int(splits > 1))
+    _close(got, da.decode_attention_ref(q, k, v, kv_len))
+
+
+def test_decode_kernel_refuses_what_it_does_not_take(card):
+    q, k, v, kv_len = _decode_case(0, (2, 300, 2, 4, 64), torch.bfloat16, card)
+    with pytest.raises(TypeError, match="int32"):
+        da.decode_attention(q, k, v, kv_len.long())
+    with pytest.raises(TypeError, match="one dtype"):
+        da.decode_attention(q.float(), k, v, kv_len)
+    with pytest.raises(ValueError, match="contiguous"):
+        da.decode_attention(q, k.transpose(0, 1).contiguous().transpose(0, 1), v, kv_len)
+    with pytest.raises(ValueError, match="grouped queries"):
+        da.decode_attention(q.repeat(1, 1, 3, 1), k, v, kv_len)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        da.decode_attention(q, k, v, kv_len.cpu())
+
+
+def test_decode_step_of_a_slot_ignores_the_other_slots(card):
+    """A slot's logits and cache rows from one decode step are bitwise the
+    same whatever the other slots hold (their cache rows, tokens and
+    positions): the decode kernel's split count depends on S alone and
+    every product has the same shape."""
+    cfg = reduced(get_config("llama3-8b"))   # bf16, 2 layers
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=card).manual_seed(0), device=card)
+    gen = torch.Generator(device=card).manual_seed(1)
+    runs = []
+    for other in range(2):
+        cache = model.init_cache(4, 600, device=card)
+        for c in cache:
+            for t in c:
+                t.copy_(torch.randn(t.shape, generator=gen, device=card))
+        if other == 0:
+            first = [[t[:, 0].clone() for t in c] for c in cache]
+        else:
+            for c, f in zip(cache, first):
+                for t, f0 in zip(c, f):
+                    t[:, 0] = f0
+        tokens = torch.tensor([[5], [1 + other], [7 * other], [3]], device=card)
+        pos = torch.tensor([520, 3 + other, 599 - 100 * other, 0], device=card)
+        logits, cache = model.decode_step(params, cache, {"tokens": tokens, "pos": pos})
+        runs.append((logits[0].clone(), [[t[:, 0].clone() for t in c] for c in cache]))
+    assert torch.equal(runs[0][0], runs[1][0])
+    for a, b in zip(runs[0][1], runs[1][1]):
+        assert all(torch.equal(x, y) for x, y in zip(a, b))

@@ -10,12 +10,15 @@ import pytest
 import torch
 
 import repro_torch
+from repro_torch.configs import get_config, reduced
 from repro_torch.data import SyntheticImages
 from repro_torch.device import resolve_device
 from repro_torch.models import gan
-from repro_torch.serve import GanEngine
+from repro_torch.models.lm import build_model
+from repro_torch.serve import GanEngine, ServeEngine
 from repro_torch.train.gan_trainer import GanTrainer, GanTrainerConfig
-from repro_torch.weights import from_jax_params, from_jax_state
+from repro_torch.tree import tree_map
+from repro_torch.weights import from_jax_lm_params, from_jax_params, from_jax_state
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 MODULES = sorted(m.name for m in pkgutil.walk_packages(
@@ -55,7 +58,10 @@ def test_module_list_covers_the_slice():
                  "serve.metrics", "serve.gan_engine", "timing", "weights",
                  "tree", "optim.adamw", "optim.compression", "data.pipeline",
                  "distributed.fault_tolerance", "train.checkpoint",
-                 "train.gan_trainer"):
+                 "train.gan_trainer", "configs.base", "configs.registry",
+                 "configs.llama3_8b", "configs.qwen2_0_5b", "configs.yi_9b",
+                 "configs.codeqwen1_5_7b", "kernels.decode_attention",
+                 "models.lm", "serve.engine"):
         assert f"repro_torch.{name}" in MODULES
 
 
@@ -64,6 +70,10 @@ def _entry_points(cfg, params_cpu):
     np_params = {k: {n: t.numpy() for n, t in v.items()}
                  for k, v in params_cpu.items()}
     data = SyntheticImages(64, cfg.layers[-1][2], 1, device="cpu")
+    lm_cfg = reduced(get_config("llama3-8b"))
+    lm = build_model(lm_cfg)
+    lm_cpu = lm.init(torch.Generator().manual_seed(0), device="cpu")
+    lm_np = tree_map(lambda t: t.float().numpy(), lm_cpu)
     return {
         "resolve_device": lambda: resolve_device(None),
         "GanEngine": lambda: GanEngine(),
@@ -79,6 +89,9 @@ def _entry_points(cfg, params_cpu):
         "from_jax_state": lambda: from_jax_state(
             {"g_params": np_params, "d_params": {}, "g_opt": {}, "d_opt": {}},
             cfg, None),
+        "LM.init": lambda: lm.init(torch.Generator().manual_seed(0)),
+        "ServeEngine": lambda: ServeEngine(lm, lm_cpu),
+        "from_jax_lm_params": lambda: from_jax_lm_params(lm_np, lm_cfg, None),
     }
 
 
@@ -86,7 +99,8 @@ def _entry_points(cfg, params_cpu):
                                    "generator_init", "generator_apply",
                                    "from_jax_params", "discriminator_init",
                                    "SyntheticImages", "GanTrainer",
-                                   "from_jax_state"])
+                                   "from_jax_state", "LM.init", "ServeEngine",
+                                   "from_jax_lm_params"])
 def test_entry_points_default_to_the_card(entry):
     """Without ``device=`` an entry point runs on the card; with no card it
     raises instead of falling back to the CPU."""
@@ -95,7 +109,7 @@ def test_entry_points_default_to_the_card(entry):
                                 device="cpu")
     fn = _entry_points(cfg, params)[entry]
     if torch.cuda.is_available():
-        if entry == "generator_apply":   # CPU params, card by default
+        if entry in ("generator_apply", "ServeEngine"):   # CPU params, card by default
             with pytest.raises(ValueError, match="params live on"):
                 fn()
         else:
