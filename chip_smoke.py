@@ -11,17 +11,25 @@ Phases, in order; any failure raises and the script exits non-zero:
               and cuDNN, so every fp32 comparison is fp32; cudnn.benchmark
               off; CUBLAS_WORKSPACE_CONFIG set before torch is imported.
 2. build   -- the six CUDA sources compiled from src/repro_torch/kernels/csrc
-              (in parallel), with nvcc's -Xptxas -v report.
+              (in parallel), with nvcc's -Xptxas -v report; the registers
+              and spills of each instance of the fused kernel, which must
+              spill nothing.
 3. check   -- each forward kernel against its plain PyTorch version at the
-              four DCGAN layer shapes at batch 8 and at odd geometries, with
-              every epilogue, within 1e-4 * max|ref| + 1e-5.
-4. times   -- per DCGAN layer at batch 8, by CUDA events after warm-up:
-              kernel, plain version, one-call library yardstick
-              (F.conv_transpose2d + activation, which the port never calls)
-              and the roofline bound; then the whole generator per bucket
-              through the kernels and through two PyTorch baselines, and
-              a torch.profiler pass giving the device's busy time and idle
-              share per generator call.
+              four DCGAN layer shapes at batch 8 and at odd geometries, and
+              the fused kernel also at FUSED_SHAPES (DCGAN L1 and L3 at
+              batch 1, EB-GAN L4 and L5, a shape of uneven Cin splits) and at
+              VARIANT_SHAPES, which launch every instance the geometry can
+              choose with every copy width, with every epilogue, within
+              1e-4 * max|ref| + 1e-5.
+4. times   -- per DCGAN layer at batch 8 and at batch 1, by
+              CUDA events after warm-up and by a CUDA graph's replay (host
+              taken out): the fused and GEMM kernels, their plain versions
+              (batch 8), a one-call library yardstick (F.conv_transpose2d +
+              activation, which the port never calls) and the roofline
+              bound; then the whole generator per bucket through the kernels
+              and through two PyTorch baselines, and a torch.profiler pass
+              giving the device's busy time and idle share per generator
+              call.
 5. engine  -- GanEngine serving full-width DCGAN (random weights from a
               seed, buckets 1/2/4/8): warm-up, a replayed trace of 32
               requests of 1-4 samples, then the serving checks (every
@@ -53,8 +61,10 @@ Phases, in order; any failure raises and the script exits non-zero:
               own back-to-back kernels in turns (and both at batch 1), its
               plain version, a library yardstick (two F.conv_transpose2d +
               activation) and the bound; per DCGAN layer: the per-phase kernel and the fused
-              kernel in turns (the paper's unified-versus-segregated
-              comparison, recorded, not claimed), the plain version, the
+              kernel in turns (recorded, not claimed: the per-phase kernel
+              keeps the simple tiles the fused kernel had before its
+              register-tiled redesign, so the pair no longer reads on the
+              paper's unified-versus-segregated claim), the plain version, the
               library call and the bound; the whole generator per bucket
               through fused pairs and per layer, in turns; a profiled fused
               generator call.
@@ -134,6 +144,19 @@ ODD_SHAPES = [
     (1, 9, 3, 3, 33, 5),     # n = 3, odd P: M = 21
     (2, 5, 5, 3, 9, 130),    # n = 5, P = 3: M = 11, Cout = 130
 ]
+FUSED_SHAPES = [  # beside DCGAN_SHAPES and ODD_SHAPES, the fused kernel's own
+    (1, 8, 4, 2, 512, 256),  # DCGAN L1 at batch 1: Cin in 4 splits
+    (1, 32, 4, 2, 128, 3),   # DCGAN L3 at batch 1: the poor layout, 8 splits
+    (1, 64, 4, 2, 128, 64),  # EB-GAN L4
+    (1, 128, 4, 2, 64, 64),  # EB-GAN L5
+    (3, 6, 3, 1, 100, 70),   # 13 chunks in 8 uneven splits, 4-byte copies
+]
+# Two shapes per compiled instance (layout, R, d) of the fused kernel: n = 2R
+# or 2R - 1, an odd and an even P, Cout <= 4 for the poor layout; Cin and
+# Cout multiples of 4 or not, for each copy width.
+VARIANT_SHAPES = [(2, 3 + n, n, pad, cin, cout)
+                  for n in (2, 4, 5, 7) for pad in (n - 1, n - 2)
+                  for cin, cout in ((12, 6), (10, 8), (8, 4), (5, 3))]
 SERVE_RATES = (250.0, 1000.0, 2000.0)   # offered requests/s, open loop
 SERVE_WINDOW_S = 5.0
 TRAIN_TIMED_STEPS, TRAIN_WARMUP_STEPS, TRAIN_WINDOWS = 30, 5, 3
@@ -231,7 +254,23 @@ def phase_build() -> dict:
         for line in text.splitlines():
             if line.strip():
                 log(f"[build] {name}: {line.strip()}")
-    return logs
+    fused = {}
+    for fn, rep in _build.ptxas_report(logs["transpose_conv2d_fused"]).items():
+        if "fused_kernelI" not in fn:
+            continue
+        ncg, npg, tw, ci, r, d = _build.template_args(fn.split("fused_kernelI", 1)[1])
+        key = f"{'rich' if ncg > 1 else 'poor'} R{r} d{d}"
+        fused[key] = {"ncg": ncg, "npg": npg, "tw": tw, "ci": ci, **rep}
+        log(f"[build] fused_kernel {key} ({ncg * npg} threads, chunk {ci}): "
+            f"{rep['registers']} registers, {rep['stack']} bytes stack, "
+            f"{rep['spill_stores']} bytes spill stores, {rep['spill_loads']} "
+            f"bytes spill loads")
+    if len(fused) != 16:
+        raise AssertionError(f"expected 16 fused kernel instances, got {sorted(fused)}")
+    spilled = [k for k, v in fused.items() if v["spill_stores"] or v["spill_loads"]]
+    if spilled:
+        raise AssertionError(f"fused kernel instances spill: {spilled}")
+    return {"logs": logs, "fused_ptxas": fused}
 
 
 def _inputs(torch, shape, seed):
@@ -274,11 +313,19 @@ def epilogues():
 
 
 def phase_check(torch) -> dict:
+    from repro_torch.kernels import transpose_conv2d as tcf
+
     epis = epilogues()
     worst = {}
+    common = DCGAN_SHAPES + ODD_SHAPES
+    fused_shapes = common + FUSED_SHAPES + VARIANT_SHAPES
+    geos = [tcf.fused_geometry(*s) for s in fused_shapes]
+    if ({g.variant for g in geos} != tcf.fused_variants()
+            or len({(g.vx, g.vw) for g in geos}) != 4):
+        raise AssertionError("the check shapes miss an instance of the fused kernel")
     for name, (launch, plain) in kernels(FORWARD).items():
         worst[name] = 0.0
-        for i, shape in enumerate(DCGAN_SHAPES + ODD_SHAPES):
+        for i, shape in enumerate(fused_shapes if name == "fused" else common):
             x, k, bias = _inputs(torch, shape, seed=i)
             pad = shape[3]
             for epi in epis:
@@ -290,7 +337,9 @@ def phase_check(torch) -> dict:
                 scale = want.abs().max().item()
                 tol = TOL_REL * scale + TOL_ABS
                 tag = epi.tag() if epi else "none"
-                log(f"[check] {name} {shape} {tag}: max abs err {err:.3e} "
+                variant = (f" {geos[i].variant} splits {geos[i].splits}"
+                           if name == "fused" else "")
+                log(f"[check] {name} {shape}{variant} {tag}: max abs err {err:.3e} "
                     f"rel {err / max(scale, 1e-30):.3e} (tol {tol:.3e})")
                 if not (got.shape == want.shape and err <= tol):
                     raise AssertionError(
@@ -320,39 +369,76 @@ def _bound(shape) -> dict:
     return _limits(flops, nbytes)
 
 
-def phase_times(torch) -> dict:
+def _layer_row(torch, i, shape, plain: bool) -> dict:
+    """DCGAN layer ``i`` at ``shape``: the fused and GEMM kernels and the
+    library call, by CUDA events and by graph replay, the plain versions
+    (by events, if ``plain``) and the bound."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.epilogue import Epilogue
     from repro_torch.kernels.plan import cold_method
+    from repro_torch.timing import time_cuda
+
+    b, n_in, n_k, pad, cin, cout = shape
+    x, k, bias = _inputs(torch, shape, seed=100 + i)
+    epi = Epilogue(True, "tanh" if i == len(DCGAN_SHAPES) - 1 else "relu")
+    x_nchw = x.permute(0, 3, 1, 2).contiguous()
+    w_t = torch.flip(k, (0, 1)).permute(2, 3, 0, 1).contiguous()
+    act = torch.tanh if epi.act == "tanh" else torch.relu
+
+    def library(xx, ww, bb, _pad=n_k - 1 - pad, _act=act):
+        return _act(F.conv_transpose2d(xx, ww, bb, stride=2, padding=_pad))
+
+    row = {"layer": f"L{i}", "shape": shape, "path": cold_method(n_in, n_k, pad),
+           **_bound(shape),
+           "library_ms": time_cuda(library, x_nchw, w_t, bias),
+           "device_us": {"library": _device_us(torch, library, x_nchw, w_t, bias)}}
+    for name, (launch, plain_fn) in kernels(FORWARD).items():
+        row[f"{name}_ms"] = time_cuda(launch, x, k, pad, epilogue=epi, bias=bias)
+        row["device_us"][name] = _device_us(torch, launch, x, k, pad, epilogue=epi,
+                                            bias=bias)
+        if plain:
+            row[f"{name}_plain_ms"] = time_cuda(plain_fn, x, k, pad, epilogue=epi,
+                                                bias=bias, iters=5)
+    # the fused kernel again with the Cin split aiming at twice the blocks:
+    # what the batch-free split rule trades between batch 1 and batch 8
+    from repro_torch.kernels import transpose_conv2d as tcf
+
+    target = tcf.SPLIT_TARGET
+    try:
+        tcf.SPLIT_TARGET = 2 * target
+        tcf.fused_geometry.cache_clear()
+        row["splits_2x_target"] = tcf.fused_geometry(*shape).splits
+        row["device_us"]["fused_2x_target"] = _device_us(
+            torch, kernels(("fused",))["fused"][0], x, k, pad, epilogue=epi, bias=bias)
+    finally:
+        tcf.SPLIT_TARGET = target
+        tcf.fused_geometry.cache_clear()
+    row["splits"] = tcf.fused_geometry(*shape).splits
+    dev = row["device_us"]
+    log(f"[times] L{i} {shape} fused splits {row['splits']}: {dev['fused']:.2f} us; "
+        f"at {2 * target} blocks an image, splits {row['splits_2x_target']}: "
+        f"{dev['fused_2x_target']:.2f} us (device-only)")
+    log(f"[times] L{i} {shape} path={row['path']}: fused {row['fused_ms']:.4f} ms"
+        f" gemm {row['gemm_ms']:.4f} ms library {row['library_ms']:.4f} ms"
+        + (f" | plain fused {row['fused_plain_ms']:.4f} gemm "
+           f"{row['gemm_plain_ms']:.4f}" if plain else "")
+        + f" | device-only us: fused {dev['fused']:.2f} gemm {dev['gemm']:.2f} "
+        f"library {dev['library']:.2f} | bound {row['bound_ms'] * 1e3:.2f} us "
+        f"({row['bound_by']}); fused at {row['bound_ms'] * 1e3 / dev['fused']:.1%}"
+        f" of it")
+    return row
+
+
+def phase_times(torch) -> dict:
     from repro_torch.models import gan
     from repro_torch.timing import time_cuda
 
-    layers = []
-    for i, shape in enumerate(DCGAN_SHAPES):
-        b, n_in, n_k, pad, cin, cout = shape
-        x, k, bias = _inputs(torch, shape, seed=100 + i)
-        epi = Epilogue(True, "tanh" if i == len(DCGAN_SHAPES) - 1 else "relu")
-        x_nchw = x.permute(0, 3, 1, 2).contiguous()
-        w_t = torch.flip(k, (0, 1)).permute(2, 3, 0, 1).contiguous()
-        act = torch.tanh if epi.act == "tanh" else torch.relu
-
-        def library(xx, ww, bb, _pad=n_k - 1 - pad, _act=act):
-            return _act(F.conv_transpose2d(xx, ww, bb, stride=2, padding=_pad))
-
-        row = {"layer": f"L{i}", "shape": shape, "path": cold_method(n_in, n_k, pad),
-               **_bound(shape),
-               "library_ms": time_cuda(library, x_nchw, w_t, bias)}
-        for name, (launch, plain) in kernels(FORWARD).items():
-            row[f"{name}_ms"] = time_cuda(launch, x, k, pad, epilogue=epi, bias=bias)
-            row[f"{name}_plain_ms"] = time_cuda(plain, x, k, pad, epilogue=epi,
-                                                bias=bias, iters=5)
-        layers.append(row)
-        log(f"[times] L{i} {shape} path={row['path']}: fused {row['fused_ms']:.4f} ms"
-            f" gemm {row['gemm_ms']:.4f} ms | plain fused "
-            f"{row['fused_plain_ms']:.4f} gemm {row['gemm_plain_ms']:.4f} | "
-            f"library {row['library_ms']:.4f} | bound {row['bound_ms'] * 1e3:.2f} us"
-            f" ({row['bound_by']})")
+    layers = [_layer_row(torch, i, shape, plain=True)
+              for i, shape in enumerate(DCGAN_SHAPES)]
+    # batch 1, the bucket where latency is felt; L0 too, for the cold rule
+    layers_b1 = [_layer_row(torch, i, (1,) + shape[1:], plain=False)
+                 for i, shape in enumerate(DCGAN_SHAPES)]
 
     cfg = gan.DCGAN
     params = gan.generator_init(torch.Generator().manual_seed(0), cfg)
@@ -366,7 +452,7 @@ def phase_times(torch) -> dict:
         generator.append(row)
         log(f"[times] generator b{bucket}: kernels {row['auto']:.4f} ms, "
             f"unified_reshape {row['unified_reshape']:.4f} ms, xla {row['xla']:.4f} ms")
-    return {"layers": layers, "generator": generator}
+    return {"layers": layers, "layers_b1": layers_b1, "generator": generator}
 
 
 def _kernel_times(prof) -> dict:
@@ -746,7 +832,8 @@ def _counters():
     from repro_torch.kernels import transpose_conv2d_bwd as bw
 
     wrappers = {name: fns[0] for name, fns in kernels().items()}
-    return wrappers, {"dx_reduce": bw.transpose_conv2d_dx,
+    return wrappers, {"fused_reduce": wrappers["fused"],
+                      "dx_reduce": bw.transpose_conv2d_dx,
                       "dw_reduce": bw.transpose_conv2d_dw,
                       "decode_reduce": da.decode_attention}
 
@@ -1572,7 +1659,7 @@ def main() -> int:
     sys.path.insert(0, SRC)
     t_start = time.perf_counter()
     dev = phase_device(torch)
-    phase_build()
+    build = phase_build()
     worst = phase_check(torch)
     times = phase_times(torch)
     profiled = phase_profile(torch)
@@ -1625,7 +1712,8 @@ def main() -> int:
                     "bound_by": d4k["bound_by"], "library_ms": d4k["library_ms"]})
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
-        json.dump({"device": dev, "kernels": entries, "times": times,
+        json.dump({"device": dev, "fused_ptxas": build["fused_ptxas"],
+                   "kernels": entries, "times": times,
                    "profile": profiled, "engine": engine, "projection": projection,
                    "serving": serving, "max_abs_err": worst, "grads": grads,
                    "bwd_times": bwd_times, "pair_times": pair_times,

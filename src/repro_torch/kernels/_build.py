@@ -16,6 +16,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -89,6 +90,35 @@ def build(*names: str) -> dict:
         name: library_path(name).with_suffix(".log").read_text()
         for name in names
     }
+
+
+def ptxas_report(log: str) -> dict:
+    """``{mangled kernel name: {"registers", "stack", "spill_stores",
+    "spill_loads"}}`` from an ``-Xptxas -v`` build log."""
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            name = m.group(1)
+            out[name] = {"registers": 0, "stack": 0, "spill_stores": 0,
+                         "spill_loads": 0}
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            out[name].update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                             spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[name]["registers"] = int(m.group(1))
+    return out
+
+
+def template_args(mangled: str) -> tuple:
+    """The integer template arguments of a mangled kernel name, in order."""
+    return tuple(int(v) for v in re.findall(r"Li(\d+)E", mangled))
 
 
 @functools.lru_cache(maxsize=None)

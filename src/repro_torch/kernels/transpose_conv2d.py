@@ -4,18 +4,25 @@ their wrappers and their plain PyTorch versions. Mirrors
 ``_fused_kernel``; ``transpose_conv2d_pallas_phase`` and its
 ``_phase_kernel``).
 
-The kernel (``csrc/transpose_conv2d_fused.cu``) runs one block per (spatial
-tile of the ``(Hp, Hp)`` phase plane, Cout tile, batch item), loops over Cin
-chunks inside the block, and computes all four output parities from one
-staged input tile. Everything it needs to know about the geometry --
-phase origins, the odd-padding sub-kernel swap, tiles, grid and shared
-memory -- is computed here by :func:`fused_geometry`, so the CPU tests
-reach it.
+The fused kernel (``csrc/transpose_conv2d_fused.cu``) computes all four
+output parities of a tile of the ``(Hp, Hp)`` phase plane from one staged
+halo tile a Cin chunk. Each thread keeps a register micro-tile of 4
+parities x ``FUSED_PW`` positions of a row x 4 channels; Cin chunks stream
+through a ``FUSED_STAGES``-deep ``cp.async`` ring. One of two layouts
+(:data:`FUSED_LAYOUTS`) is chosen by Cout: "rich" (256 threads over 64
+channels x 64 positions) or "poor" (Cout <= 4: 128 threads over 512
+positions). Where an image holds fewer than :data:`SPLIT_TARGET` blocks,
+Cin is split across blocks and a second pass adds the splits in order.
+Everything the kernel needs to know -- phase origins, the odd-padding
+sub-kernel swap, layout, tiles, chunks, splits and shared memory -- is
+computed here by :func:`fused_geometry` from the layer's shape, never from
+the batch beyond the grid, so the CPU tests reach it and a batched call
+gives each sample its unbatched bits.
 
 :func:`transpose_conv2d_fused` launches the kernel for a CUDA tensor and
 runs :func:`transpose_conv2d_fused_plain` for a CPU tensor; it never falls
 back from one to the other. ``transpose_conv2d_fused.launches`` counts
-kernel launches.
+kernel launches, ``.reduce_launches`` the split passes.
 
 The per-phase kernel (``csrc/transpose_conv2d_phase.cu``) computes the same
 function with one output parity per block, each block staging its own input
@@ -29,6 +36,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
+import itertools
 
 import torch
 import torch.nn.functional as F
@@ -38,13 +46,49 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import epilogue as epilib
 
 H100_SMS = 132           # streaming multiprocessors of one H100 SXM
+SMEM_LIMIT = 232_448     # bytes of shared memory one block may use on Hopper
+MAX_R = 4                # the kernels are built for R = ceil(n/2) of 1..4
+# The per-phase kernel's tiles (phase_geometry).
 POSITIONS_PER_BLOCK = 64  # 32 position groups x 2 positions per thread
-CIN_CHUNK = 16            # kCinChunk of the kernel
-MAX_R = 4                 # the kernel is built for R = ceil(n/2) of 1..4
+CIN_CHUNK = 16            # kCinChunk of the per-phase kernel
+# The fused kernel's constants (kStages, kPW and the layouts of its source).
+FUSED_STAGES = 3         # depth of the cp.async ring
+FUSED_PW = 4             # positions along a phase-plane row a thread
+POOR_MAX_COUT = 4        # the "poor" layout serves Cout up to this
+SPLIT_TARGET = 16        # blocks per image a Cin split aims for
+MAX_SPLITS = 8
 
 
 def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
+
+
+@dataclasses.dataclass(frozen=True)
+class FusedLayout:
+    """A thread layout of the fused kernel: ``ncg`` channel groups of 4 x
+    ``npg`` position groups of ``FUSED_PW`` consecutive positions, over a
+    tile ``tw`` positions wide."""
+
+    name: str
+    code: int      # the layout argument of tconv_fused_f32
+    ncg: int
+    npg: int
+    tw: int
+
+    @property
+    def th(self) -> int:
+        return self.npg * FUSED_PW // self.tw
+
+    def ci_chunk(self, r: int) -> int:
+        """Cin channels a ring stage holds: 4 where a rich layout's R >= 3
+        weight chunk would crowd the ring out of shared memory, else 8."""
+        return 4 if self.name == "rich" and r > 2 else 8
+
+
+FUSED_LAYOUTS = {
+    "rich": FusedLayout("rich", 0, ncg=16, npg=16, tw=8),     # 64 ch x 8x8
+    "poor": FusedLayout("poor", 1, ncg=1, npg=128, tw=32),    # 4 ch x 16x32
+}
 
 
 def _phase_offsets(n_in: int, n_k: int, padding: int):
@@ -56,52 +100,95 @@ def _phase_offsets(n_in: int, n_k: int, padding: int):
 
 @dataclasses.dataclass(frozen=True)
 class FusedGeometry:
-    """Launch geometry of the fused kernel for one layer shape."""
+    """Launch geometry of the fused kernel for one layer shape. Only
+    ``batch`` (the grid's last axis) depends on the batch."""
 
     batch: int
     m: int            # output extent 2N - n + 2P
     hp: int           # phase-plane extent ceil(M / 2)
     r: int            # stacked sub-kernel extent ceil(n / 2)
+    d: int            # parity 1's rows start d rows after parity 0's (P even: 1)
     pad_lo: int       # floor(P / 2): zero rows before the input
     base_r: int       # first padded row/col any phase reads
     base_c: int
-    roffs: tuple      # per output row parity, relative to base_r
+    roffs: tuple      # per output row parity, relative to base_r: (0, d)
     coffs: tuple
     wsels: tuple      # output parity 2*pr+pc -> stacked sub-kernel index
+    layout: str       # "rich" or "poor" (FUSED_LAYOUTS)
+    ncg: int          # channel groups of 4 a block
+    npg: int          # position groups a block
     th: int           # phase-plane tile (rows x cols)
     tw: int
     n_h: int
     n_w: int
-    xh: int           # staged input tile th + dr + R - 1 (likewise xw)
-    xw: int
-    ct: int           # Cout tile: 4, 8, 16 or 32
+    xh: int           # staged rows th + d + R - 1
+    xw: int           # staged cols tw + d + R - 1
+    x_pitch: int      # their pitch in shared memory (xw made odd)
+    patch_rows: int   # input rows a thread walks: R + d
+    patch_cols: int   # register patch a row: FUSED_PW + R - 1 + d pixels
+    ct: int           # Cout tile: 4 * ncg
     n_co: int
-    ci_chunk: int     # cin channels staged a step
+    ci_chunk: int     # Cin channels a ring stage holds
+    n_chunks: int
+    splits: int       # Cin splits across blocks (1: no second pass)
+    stages: int
+    vx: bool          # 16-byte input copies (Cin a multiple of 4)
+    vw: bool          # 16-byte weight copies and stores (Cout a multiple of 4)
     smem_bytes: int
 
     @property
     def grid(self) -> tuple:
-        return (self.n_h * self.n_w, self.n_co, self.batch)
+        """``(spatial tiles, splits * Cout tiles, batch)``."""
+        return (self.n_h * self.n_w, self.splits * self.n_co, self.batch)
 
     @property
     def threads(self) -> int:
-        return self.ct // 4 * 32
+        return self.ncg * self.npg
+
+    @property
+    def variant(self) -> tuple:
+        """The compiled instance this geometry launches."""
+        return (self.layout, self.r, self.d)
+
+    @property
+    def summation_order(self) -> tuple:
+        """The fields that fix the order of every output's sum: split,
+        chunk, channel group, tap, channel, in that order."""
+        return (self.layout, self.r, self.d, self.ci_chunk, self.n_chunks,
+                self.splits)
+
+    def split_chunks(self, split: int) -> range:
+        """The Cin chunks split ``split`` sums, as the kernel partitions
+        them."""
+        lo = split * self.n_chunks // self.splits
+        return range(lo, (split + 1) * self.n_chunks // self.splits)
 
 
-def _cout_tile(cout: int, blocks_per_cout_tile: int) -> int:
-    """The smallest of 4/8/16/32 that covers Cout, halved (not below 8)
-    while the grid has fewer than two blocks per SM."""
-    ct = 4
-    while ct < min(cout, 32):
-        ct *= 2
-    while ct > 8 and blocks_per_cout_tile * _cdiv(cout, ct) < 2 * H100_SMS:
-        ct //= 2
-    return ct
+def fused_variants() -> set:
+    """Every compiled ``(layout, R, d)`` instance the geometry can choose.
+    The copy widths ``(vx, vw)`` are chosen at run time inside each."""
+    return set(itertools.product(FUSED_LAYOUTS, range(1, MAX_R + 1), (0, 1)))
 
 
-def _smem_bytes(ci: int, xh: int, xw: int, r: int, ct: int) -> int:
-    xs = -(-ci * xh * xw // 4) * 4
-    return 4 * (xs + 4 * r * r * ci * ct)
+def _cin_splits(blocks_per_image: int, n_chunks: int) -> int:
+    """Powers of two, until an image holds SPLIT_TARGET blocks, each split
+    keeps a chunk, or MAX_SPLITS."""
+    s = 1
+    while (blocks_per_image * s < SPLIT_TARGET
+           and 2 * s <= min(n_chunks, MAX_SPLITS)):
+        s *= 2
+    return s
+
+
+def _fused_smem_bytes(ci: int, xh: int, x_pitch: int, r: int, ct: int,
+                      th: int, tw: int) -> int:
+    """The larger of the ring, FUSED_STAGES x (input chunk
+    [ci/4][xh][pitch][4] + weight chunk [ci][4][R][R][ct]) floats, and the
+    output tile that reuses it after the loop, [2 th][2 tw][ct + 4] floats
+    with a skew of 4 floats for each 8 columns."""
+    ring = FUSED_STAGES * (ci * xh * x_pitch + ci * 4 * r * r * ct)
+    out = 4 * th * tw * (ct + 4) + 4 * ((2 * tw - 1) >> 3)
+    return 4 * max(ring, out)
 
 
 @functools.lru_cache(maxsize=None)
@@ -109,11 +196,11 @@ def fused_geometry(batch: int, n_in: int, n_k: int, padding: int, cin: int,
                    cout: int) -> FusedGeometry:
     """The fused kernel's launch geometry.
 
-    Tiles hold at most 64 phase-plane positions (``tw = min(Hp, 8)``). The
-    Cout tile is the smallest of 4/8/16/32 that covers Cout, halved (not
-    below 8) while the grid has fewer than two blocks per SM. At the
-    largest ``R = 4`` and ``ct = 32`` the staged chunk takes 140 KB of
-    shared memory, under the 227 KB a block may use.
+    The layout is "poor" for Cout <= POOR_MAX_COUT, else "rich". Cin is
+    split across blocks (a power of two, at most MAX_SPLITS, each split
+    keeping a chunk) until one image's tiles x Cout tiles x splits reach
+    SPLIT_TARGET blocks. The shared-memory ring is largest for a rich R = 4
+    (204,096 bytes, under the 232,448 a block may use).
     """
     m = seg.output_size(n_in, n_k, padding)
     hp = (m + 1) // 2
@@ -122,22 +209,44 @@ def fused_geometry(batch: int, n_in: int, n_k: int, padding: int, cin: int,
     base_r, base_c = min(row0s), min(col0s)
     roffs = tuple(v - base_r for v in row0s)
     coffs = tuple(v - base_c for v in col0s)
+    if roffs != coffs or roffs not in ((0, 0), (0, 1)):
+        raise ValueError(f"unexpected phase origins {row0s}, {col0s}")
     wsels = tuple(
         2 * seg.phase_params(pr, padding) + seg.phase_params(pc, padding)
         for pr in range(2) for pc in range(2)
     )
-    tw = min(hp, 8)
-    th = min(hp, POSITIONS_PER_BLOCK // tw)
+    lay = FUSED_LAYOUTS["poor" if cout <= POOR_MAX_COUT else "rich"]
+    d = roffs[1]
+    th, tw = lay.th, lay.tw
     n_h, n_w = _cdiv(hp, th), _cdiv(hp, tw)
-    xh = th + max(roffs) + r - 1
-    xw = tw + max(coffs) + r - 1
-    ct = _cout_tile(cout, n_h * n_w * batch)
+    xh, xw = th + d + r - 1, tw + d + r - 1
+    x_pitch = xw | 1
+    ct = 4 * lay.ncg
+    n_co = _cdiv(cout, ct)
+    ci = lay.ci_chunk(r)
+    n_chunks = _cdiv(cin, ci)
     return FusedGeometry(
-        batch=batch, m=m, hp=hp, r=r, pad_lo=pad_lo, base_r=base_r, base_c=base_c,
-        roffs=roffs, coffs=coffs, wsels=wsels, th=th, tw=tw, n_h=n_h, n_w=n_w,
-        xh=xh, xw=xw, ct=ct, n_co=_cdiv(cout, ct), ci_chunk=CIN_CHUNK,
-        smem_bytes=_smem_bytes(CIN_CHUNK, xh, xw, r, ct),
+        batch=batch, m=m, hp=hp, r=r, d=d, pad_lo=pad_lo, base_r=base_r,
+        base_c=base_c, roffs=roffs, coffs=coffs, wsels=wsels, layout=lay.name,
+        ncg=lay.ncg, npg=lay.npg, th=th, tw=tw, n_h=n_h, n_w=n_w, xh=xh, xw=xw,
+        x_pitch=x_pitch, patch_rows=r + d, patch_cols=FUSED_PW + r - 1 + d,
+        ct=ct, n_co=n_co, ci_chunk=ci, n_chunks=n_chunks,
+        splits=_cin_splits(n_h * n_w * n_co, n_chunks), stages=FUSED_STAGES,
+        vx=cin % 4 == 0, vw=cout % 4 == 0,
+        smem_bytes=_fused_smem_bytes(ci, xh, x_pitch, r, ct, th, tw),
     )
+
+
+def _cout_tile(cout: int, blocks_per_cout_tile: int) -> int:
+    """The per-phase kernel's Cout tile: the smallest of 4/8/16/32 that
+    covers Cout, halved (not below 8) while the grid has fewer than two
+    blocks per SM."""
+    ct = 4
+    while ct < min(cout, 32):
+        ct *= 2
+    while ct > 8 and blocks_per_cout_tile * _cdiv(cout, ct) < 2 * H100_SMS:
+        ct //= 2
+    return ct
 
 
 def transpose_conv2d_fused_plain(x, kernel, padding: int = 0, *,
@@ -176,7 +285,7 @@ def _lib():
     lib = _build.load("transpose_conv2d_fused")
     fn = lib.tconv_fused_f32
     fn.argtypes = (
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 27
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 26
         + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     )
     fn.restype = ctypes.c_int
@@ -243,23 +352,33 @@ def transpose_conv2d_fused(x, kernel, padding: int = 0, *, epilogue=None,
     kernel = kernel.contiguous()
     bias = bias.contiguous() if bias is not None else None
     out = torch.empty((b, g.m, g.m, cout), device=x.device, dtype=torch.float32)
+    part = (torch.empty((g.splits, b, g.m, g.m, cout), device=x.device,
+                        dtype=torch.float32) if g.splits > 1 else None)
+    # 16-byte copies need aligned rows; the copy width never changes a sum
+    vx = g.vx and x.data_ptr() % 16 == 0
+    vw = g.vw and kernel.data_ptr() % 16 == 0
     with torch.cuda.device(x.device):
         err = _lib()(
             x.data_ptr(), kernel.data_ptr(),
             bias.data_ptr() if bias is not None else None, out.data_ptr(),
-            b, n_in, cin, cout, n_k, g.m, g.r, g.pad_lo, g.base_r, g.base_c,
-            *g.roffs, *g.coffs, *g.wsels, g.th, g.tw, g.n_h, g.n_w, g.xh, g.xw,
-            g.ct, g.n_co, epi.code if epi else 0,
-            epi.slope if epi else 0.0, g.smem_bytes,
+            part.data_ptr() if part is not None else None,
+            b, n_in, cin, cout, n_k, g.m, g.r, g.d,
+            g.base_r - g.pad_lo, g.base_c - g.pad_lo, *g.wsels,
+            FUSED_LAYOUTS[g.layout].code, int(vx), int(vw), g.th, g.tw, g.ci_chunk,
+            g.n_h, g.n_w, g.n_co, g.splits, g.n_chunks,
+            epi.code if epi else 0, epi.slope if epi else 0.0, g.smem_bytes,
             torch.cuda.current_stream(x.device).cuda_stream,
         )
     if err:
         raise RuntimeError(f"transpose_conv2d_fused launch failed: CUDA error {err}")
     transpose_conv2d_fused.launches += 1
+    if g.splits > 1:
+        transpose_conv2d_fused.reduce_launches += 1
     return out
 
 
 transpose_conv2d_fused.launches = 0
+transpose_conv2d_fused.reduce_launches = 0
 
 
 # ------------------------------------------------------------ per-phase form

@@ -1,4 +1,6 @@
-"""Card tests of the port: each CUDA kernel against its plain version, the
+"""Card tests of the port: each CUDA kernel against its plain version (the
+fused kernel at a shape for each of its compiled instances and copy
+widths), the fused kernel's rows equal to unbatched calls bit for bit, the
 generator's batch invariance (per layer and through fused pairs), and the
 generator's gradients through the backward kernels, fused pairs and the
 per-phase kernel, the decode attention kernel at the LM shapes, and a
@@ -40,7 +42,19 @@ SHAPES = [  # (B, N, n, P, Cin, Cout)
     (2, 7, 3, 0, 37, 19),      # odd M, Cout not a multiple of a tile
     (2, 6, 5, 1, 20, 70),      # n = 5, odd P
     (1, 9, 3, 3, 33, 5),       # n = 3, odd P, odd M
+    (1, 8, 4, 2, 512, 256),    # DCGAN L1 at batch 1: Cin split
+    (1, 32, 4, 2, 128, 3),     # DCGAN L3 at batch 1: poor layout, split
+    (1, 64, 4, 2, 128, 64),    # EB-GAN L4
+    (1, 128, 4, 2, 64, 64),    # EB-GAN L5
+    (3, 6, 3, 1, 100, 70),     # 13 chunks in uneven splits, 4-byte copies
 ]
+# Two shapes per instance of the fused kernel, (layout, R, d): n = 2R or
+# 2R - 1, an odd and an even P, Cout <= 4 for the poor layout; Cin and Cout
+# multiples of 4 or not, for each of its copy widths.
+VARIANT_SHAPES = [(2, 3 + n, n, pad, cin, cout)
+                  for n in (2, 4, 5, 7) for pad in (n - 1, n - 2)
+                  for cin, cout in ((12, 6), (10, 8), (8, 4), (5, 3))]
+SHAPES += VARIANT_SHAPES
 KERNELS = {
     "fused": (tcf.transpose_conv2d_fused, tcf.transpose_conv2d_fused_plain),
     "gemm": (tcg.transpose_conv2d_gemm, tcg.transpose_conv2d_gemm_plain),
@@ -111,6 +125,25 @@ def test_generator_batch_invariant_bitwise(card):
     batched = gan.generator_apply(params, cfg, z, device=card)
     for i in range(8):
         one = gan.generator_apply(params, cfg, z[i : i + 1], device=card)
+        assert torch.equal(one[0], batched[i])
+
+
+@pytest.mark.parametrize("shape", [
+    (8, 8, 4, 2, 512, 256),    # DCGAN L1
+    (8, 16, 4, 2, 256, 128),   # DCGAN L2
+    (8, 32, 4, 2, 128, 3),     # DCGAN L3
+    (4, 6, 3, 1, 100, 70),     # uneven Cin splits, 4-byte copies
+], ids=str)
+def test_fused_kernel_rows_equal_unbatched_bitwise(card, shape):
+    """Each batch row of the fused kernel equals its batch-1 call bit for
+    bit: nothing that orders a sum depends on the batch."""
+    b, n_in, n_k, pad, cin, cout = shape
+    x, k, bias = _case(sum(shape), b, n_in, cin, n_k, cout, card)
+    epi = EPILOGUES[2]
+    batched = tcf.transpose_conv2d_fused(x, k, pad, epilogue=epi, bias=bias)
+    for i in range(b):
+        one = tcf.transpose_conv2d_fused(x[i : i + 1], k, pad, epilogue=epi,
+                                         bias=bias)
         assert torch.equal(one[0], batched[i])
 
 
