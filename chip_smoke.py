@@ -13,7 +13,8 @@ Phases, in order; any failure raises and the script exits non-zero:
 2. build   -- the six CUDA sources compiled from src/repro_torch/kernels/csrc
               (in parallel), with nvcc's -Xptxas -v report; the registers
               and spills of each instance of the fused kernel, which must
-              spill nothing.
+              spill nothing, of the pair kernel (8 instances, R x D) and of
+              the dw kernels (2 rich tiles, 4 poor R).
 3. check   -- each forward kernel against its plain PyTorch version at the
               four DCGAN layer shapes at batch 8 and at odd geometries, and
               the fused kernel also at FUSED_SHAPES (DCGAN L1 and L3 at
@@ -43,8 +44,8 @@ Phases, in order; any failure raises and the script exits non-zero:
               (same request mix), each on a freshly warmed engine. The
               32-request replay of phase 5 is a check, too short to rate.
 7. bwd     -- each backward kernel (epilogue-grad, dx, dw with db) against
-              its plain version at the same shapes and epilogues, same
-              tolerance.
+              its plain version at the same shapes and epilogues and at
+              BWD_SHAPES' extra shapes (every dw instance), same tolerance.
 8. autograd -- the full-width DCGAN generator's parameter gradients of a
               scalar loss through the backward kernels against those of the
               plan pinned to bwd="autograd" (cuDNN), same tolerance.
@@ -54,18 +55,23 @@ Phases, in order; any failure raises and the script exits non-zero:
               four DCGAN shapes and ODD_SHAPES with every epilogue; the pair
               kernel against its plain version at both DCGAN pairs (batch
               8), EB-GAN's two legal head pairs (batch 1) and odd
-              geometries, with interface and output epilogues; EB-GAN's
+              geometries (every compiled (R, d) instance), with interface
+              and output epilogues; EB-GAN's
               64x64x128->64->64 tail pair refused (over the shared-memory
-              budget); same tolerance.
+              budget); same tolerance. For each checked pair, the
+              clusters of its instance the card runs at once
+              (cudaOccupancyMaxActiveClusters).
 11. pair times -- per DCGAN pair at batch 8: the pair kernel and the port's
               own back-to-back kernels in turns (and both at batch 1), its
               plain version, a library yardstick (two F.conv_transpose2d +
-              activation) and the bound; per DCGAN layer: the per-phase kernel and the fused
+              activation) and the bound, with graph-replay device times at
+              batch 8 and 1; per DCGAN layer: the per-phase kernel and the fused
               kernel in turns (recorded, not claimed: the per-phase kernel
               keeps the simple tiles the fused kernel had before its
               register-tiled redesign, so the pair no longer reads on the
               paper's unified-versus-segregated claim), the plain version, the
-              library call and the bound; the whole generator per bucket
+              library call (by events and by graph replay) and the bound; the
+              whole generator per bucket
               through fused pairs and per layer, in turns; a profiled fused
               generator call.
 12. fused engine -- GanEngine(fuse="force") on full-width DCGAN: the 32
@@ -186,9 +192,22 @@ PAIR_CHECKS = DCGAN_PAIRS + [
     (1, 16, 4, 2, 512, 256, 128),    # EB-GAN L2-3: 177 KB of shared memory
     (2, 5, 3, 1, 13, 21, 7),         # n = 3, odd P, C2 not a tile multiple
     (2, 7, 5, 3, 9, 12, 5),          # n = 5, odd P = 3
-    (1, 6, 3, 0, 17, 35, 6),         # n = 3, P = 0, 5 cluster blocks
+    (1, 6, 3, 0, 17, 35, 6),         # n = 3, P = 0, 9 cluster blocks
+    # with the rows above, one shape for each compiled (R, d) instance
+    (2, 3, 2, 1, 8, 8, 8),           # R = 1, d = 0
+    (2, 4, 2, 0, 6, 10, 5),          # R = 1, d = 1
+    (1, 5, 6, 2, 10, 9, 7),          # R = 3, d = 1
+    (1, 4, 8, 3, 6, 10, 4),          # R = 4, d = 0: idle threads on a 3x3 plane
+    (1, 5, 7, 2, 5, 6, 3),           # R = 4, d = 1
 ]
 PAIR_OVER_BUDGET = (1, 64, 4, 2, 128, 64, 64)   # EB-GAN L4-5
+# The backward check's shapes: with DCGAN_SHAPES and ODD_SHAPES, one for
+# each poor dw instance (Cout <= 4) at R = 1, 3 and 4.
+BWD_SHAPES = DCGAN_SHAPES + ODD_SHAPES + [
+    (2, 5, 2, 1, 7, 3),      # R = 1
+    (2, 6, 5, 2, 9, 4),      # R = 3
+    (1, 9, 7, 3, 6, 2),      # R = 4, two Cin quads ragged
+]
 DECODE_CHECKS = [  # (B, S, KV, G, hd) of the decode kernel's check
     (8, 1024, 8, 4, 128),    # Llama-3-8B as phase 16 serves it (max_len 1024)
     (8, 4096, 8, 4, 128),    # Llama-3-8B
@@ -270,7 +289,26 @@ def phase_build() -> dict:
     spilled = [k for k, v in fused.items() if v["spill_stores"] or v["spill_loads"]]
     if spilled:
         raise AssertionError(f"fused kernel instances spill: {spilled}")
-    return {"logs": logs, "fused_ptxas": fused}
+    # the redesigned pair and dw kernels: every instance's registers and
+    # spills (recorded; PERF.md explains any spill)
+    instances = {}
+    for src, kernel, label, want in (
+            ("transpose_conv2d_pair", "pair_kernelI", "pair R{} D{}", 8),
+            ("transpose_conv2d_bwd", "dw_kernelI", "dw rich {}x{}", 2),
+            ("transpose_conv2d_bwd", "dw_poor_kernelI", "dw poor R{}", 4)):
+        found = {}
+        for fn, rep in _build.ptxas_report(logs[src]).items():
+            if kernel not in fn:
+                continue
+            key = label.format(*_build.template_args(fn.split(kernel, 1)[1]))
+            found[key] = rep
+            log(f"[build] {key}: {rep['registers']} registers, {rep['stack']} bytes "
+                f"stack, {rep['spill_stores']} bytes spill stores, "
+                f"{rep['spill_loads']} bytes spill loads")
+        if len(found) != want:
+            raise AssertionError(f"expected {want} {kernel} instances, got {sorted(found)}")
+        instances.update(found)
+    return {"logs": logs, "fused_ptxas": fused, "ptxas": instances}
 
 
 def _inputs(torch, shape, seed):
@@ -643,9 +681,13 @@ def phase_bwd_check(torch) -> dict:
     dw versions take, so each error is the kernel's own."""
     from repro_torch.kernels import transpose_conv2d as tcf
 
+    from repro_torch.kernels import transpose_conv2d_bwd as bw
+
     bwd = kernels(("epilogue_grad", "dx", "dw"))
+    if {bw.bwd_geometry(*s).dw_variant for s in BWD_SHAPES} != bw.dw_variants():
+        raise AssertionError("the backward check shapes miss an instance of dw")
     worst = dict.fromkeys(bwd, 0.0)
-    for i, shape in enumerate(DCGAN_SHAPES + ODD_SHAPES):
+    for i, shape in enumerate(BWD_SHAPES):
         x, k, bias, g = _bwd_inputs(torch, shape, seed=200 + i)
         b, n_in, n_k, pad, _, _ = shape
         for epi in epilogues():
@@ -987,13 +1029,21 @@ def _tag(epi) -> str:
     return epi.tag() if epi is not None else "none"
 
 
-def phase_pair_check(torch) -> dict:
+def phase_pair_check(torch) -> tuple:
     """The per-phase kernel and the pair kernel against their plain
-    versions; the over-budget pair refused."""
+    versions; the over-budget pair refused. Returns the worst errors and,
+    per checked pair shape, its cluster size and how many such clusters
+    the card runs at once."""
     from repro_torch.kernels.epilogue import Epilogue
-    from repro_torch.kernels.transpose_conv2d_pair import pair_smem_bytes
+    from repro_torch.kernels.transpose_conv2d_pair import (
+        max_active_clusters,
+        pair_launch_geometry,
+        pair_smem_bytes,
+        pair_variants,
+    )
 
     worst = {"phase": 0.0, "pair": 0.0}
+    clusters = {}
     launch, plain = kernels(("phase",))["phase"]
     for i, shape in enumerate(DCGAN_SHAPES + ODD_SHAPES):
         x, k, bias = _inputs(torch, shape, seed=400 + i)
@@ -1007,6 +1057,9 @@ def phase_pair_check(torch) -> dict:
         log(f"[pair-check] phase {shape}: every epilogue within tolerance; "
             f"worst so far {worst['phase']:.3e}")
     launch, plain = kernels(("pair",))["pair"]
+    if ({pair_launch_geometry(*s[1:3], s[3], *s[4:]).variant for s in PAIR_CHECKS}
+            != pair_variants()):
+        raise AssertionError("the pair check shapes miss an instance of the pair kernel")
     relu, tanh = Epilogue(True, "relu"), Epilogue(True, "tanh")
     epi_pairs = [(relu, relu), (relu, tanh), (None, None),
                  (Epilogue(True, "leaky_relu", 0.2), Epilogue(True))]
@@ -1020,8 +1073,13 @@ def phase_pair_check(torch) -> dict:
                    [(launch(x, k1, k2, pad, **kw), plain(x, k1, k2, pad, **kw))],
                    worst)
         torch.cuda.synchronize()
+        g = pair_launch_geometry(*shape[1:3], pad, *shape[4:])
+        active = max_active_clusters(*shape[1:3], pad, *shape[4:])
+        clusters[str(shape)] = {"cl": g.cl, "r": g.r, "d": g.d,
+                                "smem_bytes": g.smem_bytes, "max_active": active}
         log(f"[pair-check] pair {shape}, {pair_smem_bytes(*shape[1:3], *shape[4:], pad)}"
-            f" B of shared memory a block: every epilogue pair within tolerance;"
+            f" B of shared memory a block, clusters of {g.cl} (instance R{g.r} "
+            f"D{g.d}), {active} at once: every epilogue pair within tolerance;"
             f" worst so far {worst['pair']:.3e}")
     x, k1, k2, b1, b2 = _pair_inputs(torch, PAIR_OVER_BUDGET, seed=599)
     try:
@@ -1032,7 +1090,7 @@ def phase_pair_check(torch) -> dict:
     else:
         raise AssertionError(f"the pair {PAIR_OVER_BUDGET} over the shared-memory "
                              "budget launched")
-    return worst
+    return worst, clusters
 
 
 def _pair_bound(shape) -> dict:
@@ -1104,10 +1162,15 @@ def phase_pair_times(torch) -> dict:
         # one batch item: one cluster, the batch-8 launch's per-cluster work
         row["pair_b1_ms"] = time_cuda(pair, x[:1], k1, k2, pad, **kw)
         row["back_to_back_b1_ms"] = time_cuda(back_to_back, x[:1], k1, k2, b1, b2)
+        x1 = x[:1].contiguous()
         row["device_us"] = {
             "pair": _device_us(torch, pair, x, k1, k2, pad, **kw),
             "back_to_back": _device_us(torch, back_to_back, x, k1, k2, b1, b2),
-            "library": _device_us(torch, library, *lib_args)}
+            "library": _device_us(torch, library, *lib_args),
+            "pair_b1": _device_us(torch, pair, x1, k1, k2, pad, **kw),
+            "back_to_back_b1": _device_us(torch, back_to_back, x1, k1, k2, b1, b2),
+            "library_b1": _device_us(torch, library, lib_args[0][:1].contiguous(),
+                                     *lib_args[1:])}
         pairs.append(row)
         log(f"[pair-times] {row['pair']} {shape}: pair {row['pair_ms'] * 1e3:.2f} us "
             f"{[round(t * 1e3, 2) for t in turns['pair']]}, back-to-back "
@@ -1146,7 +1209,10 @@ def phase_pair_times(torch) -> dict:
                                        _flipped(torch, k), bias),
                "device_us": {
                    "phase": _device_us(torch, phase, x, k, pad, epilogue=epi, bias=bias),
-                   "fused": _device_us(torch, fused, x, k, pad, epilogue=epi, bias=bias)}}
+                   "fused": _device_us(torch, fused, x, k, pad, epilogue=epi, bias=bias),
+                   "library": _device_us(torch, library,
+                                         x.permute(0, 3, 1, 2).contiguous(),
+                                         _flipped(torch, k), bias)}}
         row["fused_over_phase"] = row["fused_ms"] / row["phase_ms"]
         layers.append(row)
         log(f"[pair-times] L{i} {shape}: phase {row['phase_ms'] * 1e3:.2f} us "
@@ -1669,7 +1735,8 @@ def main() -> int:
     worst.update(phase_bwd_check(torch))
     grads = phase_autograd(torch)
     bwd_times = phase_bwd_times(torch)
-    worst.update(phase_pair_check(torch))
+    pair_worst, pair_clusters = phase_pair_check(torch)
+    worst.update(pair_worst)
     pair_times = phase_pair_times(torch)
     fused_engine = phase_fused_engine(torch)
     fused_serving = phase_serving(torch, fuse="force")
@@ -1713,6 +1780,7 @@ def main() -> int:
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"device": dev, "fused_ptxas": build["fused_ptxas"],
+                   "ptxas": build["ptxas"], "pair_clusters": pair_clusters,
                    "kernels": entries, "times": times,
                    "profile": profiled, "engine": engine, "projection": projection,
                    "serving": serving, "max_abs_err": worst, "grads": grads,

@@ -3,7 +3,7 @@
 // Replaces the Pallas TPU kernels of src/repro/kernels/transpose_conv2d_bwd.py:
 //   epilogue_grad_kernel  <- epilogue_grad_pallas       (_epilogue_grad_kernel)
 //   dx_kernel             <- transpose_conv2d_dx_pallas (_dx_kernel)
-//   dw_kernel             <- transpose_conv2d_dw_pallas (_dw_kernel, with_db)
+//   dw_kernel, dw_poor_kernel <- transpose_conv2d_dw_pallas (_dw_kernel, with_db)
 // plus sum_splits_kernel, the second pass of a split contraction.
 //
 // The functions (geometry computed in Python, transpose_conv2d_bwd.py):
@@ -23,23 +23,35 @@
 // (~20 FLOP/byte), so fp32 arithmetic bounds them (~32 us at 67 TFLOP/s).
 // Epilogue-grad moves 3 bytes per byte it computes on and is bound by HBM.
 //
-// What these simple designs do about it:
+// What these designs do about it:
 // - epilogue-grad: one grid-stride pass, one read of g and y, one write. The
 //   products are rounded one by one (__fmul_rn/__fsub_rn, no FMA
 //   contraction), so the kernel gives the bits of the plain PyTorch version.
-// - dx and dw are implicit GEMMs on one SGEMM tile: 128 threads, 4 x 4 fp32
+// - dx is an implicit GEMM on one SGEMM tile: 128 threads, 4 x 4 fp32
 //   accumulators a thread, K in steps of 16, both operands gathered by
 //   address into shared memory (the TPU's pre-shifted parity planes and
-//   zero-padded copies are gone; ragged edges are masked).
-//   dx: rows are dx positions (b, i, j), columns Cin, K runs over the
-//   stacked taps (ph, p, q) and Cout in chunks; each row's source in gm is
-//   resolved once per tap, and a tap that no row of the block reads (a
-//   border) or that lies past an odd kernel is skipped whole.
-//   dw: one GEMM per HWIO tap, rows Cin, columns Cout, K over the B*Hp*Hp
-//   positions of that tap's phase plane; each position's two sources are
-//   resolved once per K step. A Cout of at most 16 takes a 128 x 16 tile.
-//   db is summed from the staged gm tiles by the blocks of each phase's
-//   first tap and first Cin block: no extra read of gm.
+//   zero-padded copies are gone; ragged edges are masked). Rows are dx
+//   positions (b, i, j), columns Cin, K runs over the stacked taps (ph, p,
+//   q) and Cout in chunks; each row's source in gm is resolved once per tap,
+//   and a tap that no row of the block reads (a border) or that lies past
+//   an odd kernel is skipped whole.
+// - dw is one GEMM per HWIO tap, rows Cin, columns Cout, K over the B*Hp*Hp
+//   positions of that tap's phase plane. Two layouts, chosen by Cout:
+//   "rich"/"narrow" (Cout > 4): 256 threads with 8 x 8 fp32 accumulators
+//   each (16 FMAs a 128-bit shared load) on a 128 x 128 or 256 x 64 block
+//   tile; positions stream through a 3-stage cp.async ring, one barrier a
+//   16-position stage. A thread stages one position's x row (Cin) and gm
+//   row (Cout) pieces straight from NHWC in 16-byte copies (4-byte where a
+//   channel count is ragged or a row unaligned), resolving that position's
+//   two pixels by its own index math. db is summed from the staged gm
+//   tiles by the blocks of each phase's first tap and first Cin block.
+//   "poor" (Cout <= 4, a GAN's output layer, bound by reading x): a block
+//   takes one phase, one row tap p and 64 Cin; a thread keeps the R column
+//   taps of that row x 4 Cin x 4 Cout and walks phase-plane rows with a
+//   sliding window of R float4 pixels, so each x pixel is read once per
+//   (phase, p) and one gm pixel feeds R taps; 16 row slices of a block are
+//   added in slice order through shared memory. The rows are split widely
+//   across blocks.
 // - Determinism: no atomics. Where the TPU carried a sum across sequential
 //   grid steps, a block loops. Where that leaves too few blocks for 132 SMs,
 //   the contraction is split into a number of parts that depends only on the
@@ -49,7 +61,13 @@
 
 #include <cuda_runtime.h>
 
+#include "tconv_microkernel.cuh"
+
 namespace {
+
+using tconv::cp_async_commit;
+using tconv::cp_async_wait;
+using tconv::cp_quad;
 
 constexpr int BK = 16;   // contraction step
 constexpr int NT = 128;  // threads of the GEMM kernels: 4 x 4 outputs each
@@ -211,21 +229,82 @@ dx_kernel(const float* __restrict__ g, const float* __restrict__ w,
 struct DwArgs {
   int B, N, Cin, Cout, n_k, M, Hp, pad_lo;
   int row0[2], col0[2];  // padded-input origin by output row/col parity
-  int phase_of_sub[4];   // stacked sub-kernel -> output parity
+  int wsel[4];           // output parity -> stacked sub-kernel
+  int phase_of_sub[4];   // stacked sub-kernel -> output parity (inverse)
   int n_co_blocks;
-  int positions_per_split;
+  int per_split;         // positions (rich) or phase-plane rows (poor) a split
   int with_db;
+  int vx, vw;            // 16-byte copies of x / of gm and the partial sums
 };
 
-template <int BM, int BN>
-__global__ void __launch_bounds__(NT)
-dw_kernel(const float* __restrict__ x, const float* __restrict__ g,
-          float* __restrict__ part, float* __restrict__ db_part, const DwArgs a) {
-  constexpr int TX = BN / 4;  // column groups; NT / TX row groups of 4
-  __shared__ __align__(16) float As[BK][BM];  // x:  [position][ci]
-  __shared__ __align__(16) float Bs[BK][BN];  // gm: [position][co]
-  __shared__ long long xsrc[BK], gsrc[BK];    // this step's pixels, -1: none
+constexpr int DW_THREADS = 256;
+constexpr int DW_BK = 16;      // positions a ring stage
+constexpr int DW_STAGES = 3;   // cp.async ring depth
+constexpr int DW_SLICES = 16;  // poor layout: row slices of a block
 
+// The rich layout: BM Cin x BN Cout of one HWIO tap a block, 8 x 8 a
+// thread (rows ty*4 + i and BM/2 + ty*4 + i, columns likewise).
+template <int BM, int BN>
+struct DwTile {
+  static constexpr int TX = BN / 8;              // threads along Cout
+  static constexpr int STAGE = DW_BK * (BM + BN);  // floats: x rows, then gm rows
+  static constexpr int SMEM = 4 * DW_STAGES * STAGE;
+  static_assert((BM / 8) * (BN / 8) == DW_THREADS, "8 x 8 a thread");
+  static_assert(BM % 64 == 0 && BN % 64 == 0, "16 threads x 16 bytes a row");
+};
+
+// Issue this thread's copies of the ring stage of positions [k0, k0 + BK):
+// thread tid takes position k0 + tid / 16 and the 16-byte pieces tid % 16
+// + 16 j of its x row (Cin) and its gm row (Cout), so its position's two
+// pixels are resolved once, by its own index math.
+template <int BM, int BN>
+__device__ __forceinline__ void dw_stage(float* xs, const float* __restrict__ x,
+                                         const float* __restrict__ g, const DwArgs& a,
+                                         int k0, int k_end, int pr, int pc, int p, int q,
+                                         int ci0, int co0) {
+  float* gs = xs + DW_BK * BM;
+  const int kk = threadIdx.x / 16;
+  const int lane16 = threadIdx.x % 16;
+  const int k = k0 + kk;
+  long long xsrc = -1;
+  long long gsrc = -1;
+  if (k < k_end) {
+    const int plane = a.Hp * a.Hp;
+    const int b = k / plane;
+    const int rem = k - b * plane;
+    const int t = rem / a.Hp;
+    const int u = rem - t * a.Hp;
+    const int oh = 2 * t + pr;
+    const int ow = 2 * u + pc;
+    if (oh < a.M && ow < a.M) {
+      gsrc = ((static_cast<long long>(b) * a.M + oh) * a.M + ow) * a.Cout;
+      const int ih = a.row0[pr] + t + p - a.pad_lo;
+      const int iw = a.col0[pc] + u + q - a.pad_lo;
+      if (ih >= 0 && ih < a.N && iw >= 0 && iw < a.N)
+        xsrc = ((static_cast<long long>(b) * a.N + ih) * a.N + iw) * a.Cin;
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < BM / 64; ++j) {
+    const int ci = ci0 + 4 * (lane16 + 16 * j);
+    cp_quad(xs + kk * BM + 4 * (lane16 + 16 * j), xsrc >= 0 ? x + xsrc + ci : x, x,
+            xsrc >= 0 ? a.Cin - ci : 0, a.vx);
+  }
+#pragma unroll
+  for (int j = 0; j < BN / 64; ++j) {
+    const int co = co0 + 4 * (lane16 + 16 * j);
+    cp_quad(gs + kk * BN + 4 * (lane16 + 16 * j), gsrc >= 0 ? g + gsrc + co : g, g,
+            gsrc >= 0 ? a.Cout - co : 0, a.vw);
+  }
+}
+
+template <int BM, int BN>
+__global__ void __launch_bounds__(DW_THREADS)
+dw_kernel(const float* __restrict__ x, const float* __restrict__ g,
+          float* __restrict__ part, float* __restrict__ db_part,
+          const __grid_constant__ DwArgs a) {
+  using T = DwTile<BM, BN>;
+  extern __shared__ __align__(16) float smem[];
   const int tid = threadIdx.x;
   const int ci0 = (blockIdx.x / a.n_co_blocks) * BM;
   const int co0 = (blockIdx.x % a.n_co_blocks) * BN;
@@ -238,87 +317,207 @@ dw_kernel(const float* __restrict__ x, const float* __restrict__ g,
   const int pc = ph & 1;
   const int p = kh >> 1;
   const int q = kw >> 1;
-  const int plane = a.Hp * a.Hp;
-  const int positions = a.B * plane;
-  const int k_begin = split * a.positions_per_split;
-  const int k_end = min(positions, k_begin + a.positions_per_split);
+  const int positions = a.B * a.Hp * a.Hp;
+  const int k_begin = split * a.per_split;
+  const int k_end = min(positions, k_begin + a.per_split);
+  const int steps = k_end > k_begin ? (k_end - k_begin + DW_BK - 1) / DW_BK : 0;
   // the blocks of each phase's first tap and first Cin block also sum db
   const bool do_db = a.with_db && p == 0 && q == 0 && ci0 == 0;
 
-  const int tx = tid % TX;
-  const int ty = tid / TX;
-  float acc[4][4];
+  const int tx = tid % T::TX;
+  const int ty = tid / T::TX;
+  float acc[8][8];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < 8; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
   float dbacc = 0.f;
 
-  for (int k0 = k_begin; k0 < k_end; k0 += BK) {
-    if (tid < BK) {
-      const int k = k0 + tid;
-      long long xs = -1;
-      long long gs = -1;
-      if (k < k_end) {
-        const int b = k / plane;
-        const int rem = k % plane;
-        const int t = rem / a.Hp;
-        const int u = rem % a.Hp;
-        const int oh = 2 * t + pr;
-        const int ow = 2 * u + pc;
-        if (oh < a.M && ow < a.M) {
-          gs = ((static_cast<long long>(b) * a.M + oh) * a.M + ow) * a.Cout;
-          const int ih = a.row0[pr] + t + p - a.pad_lo;
-          const int iw = a.col0[pc] + u + q - a.pad_lo;
-          if (ih >= 0 && ih < a.N && iw >= 0 && iw < a.N)
-            xs = ((static_cast<long long>(b) * a.N + ih) * a.N + iw) * a.Cin;
-        }
-      }
-      xsrc[tid] = xs;
-      gsrc[tid] = gs;
-    }
-    __syncthreads();
 #pragma unroll
-    for (int i = 0; i < BM * BK / NT; ++i) {
-      const int idx = tid + i * NT;
-      const int mm = idx % BM;
-      const int k = idx / BM;
-      const long long src = xsrc[k];
-      const int ci = ci0 + mm;
-      As[k][mm] = (src >= 0 && ci < a.Cin) ? x[src + ci] : 0.f;
-    }
-#pragma unroll
-    for (int i = 0; i < BN * BK / NT; ++i) {
-      const int idx = tid + i * NT;
-      const int nn = idx % BN;
-      const int k = idx / BN;
-      const long long src = gsrc[k];
-      const int co = co0 + nn;
-      Bs[k][nn] = (src >= 0 && co < a.Cout) ? g[src + co] : 0.f;
-    }
-    __syncthreads();
+  for (int s = 0; s < DW_STAGES - 1; ++s) {
+    if (s < steps)
+      dw_stage<BM, BN>(smem + s * T::STAGE, x, g, a, k_begin + s * DW_BK, k_end,
+                       pr, pc, p, q, ci0, co0);
+    cp_async_commit();
+  }
+  for (int k = 0; k < steps; ++k) {
+    cp_async_wait<DW_STAGES - 2>();   // this thread's copies of stage k landed
+    __syncthreads();                  // everyone's did; stage k - 1 is consumed
+    if (k + DW_STAGES - 1 < steps)
+      dw_stage<BM, BN>(smem + (k + DW_STAGES - 1) % DW_STAGES * T::STAGE, x, g, a,
+                       k_begin + (k + DW_STAGES - 1) * DW_BK, k_end, pr, pc, p, q,
+                       ci0, co0);
+    cp_async_commit();
+    const float* xs = smem + (k % DW_STAGES) * T::STAGE;
+    const float* gs = xs + DW_BK * BM;
     if (do_db && tid < BN) {
 #pragma unroll
-      for (int k = 0; k < BK; ++k) dbacc += Bs[k][tid];
+      for (int kk = 0; kk < DW_BK; ++kk) dbacc += gs[kk * BN + tid];
     }
-    tile_fma<BM, BN>(As, Bs, ty, tx, acc);
-    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < DW_BK; ++kk) {
+      const float4 a0 = *reinterpret_cast<const float4*>(xs + kk * BM + ty * 4);
+      const float4 a1 = *reinterpret_cast<const float4*>(xs + kk * BM + BM / 2 + ty * 4);
+      const float4 b0 = *reinterpret_cast<const float4*>(gs + kk * BN + tx * 4);
+      const float4 b1 = *reinterpret_cast<const float4*>(gs + kk * BN + BN / 2 + tx * 4);
+      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+    }
   }
+  cp_async_wait<0>();
 
   float* o = part + static_cast<long long>(split * a.n_k * a.n_k + tap) * a.Cin * a.Cout;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int ci = ci0 + ty * 4 + i;
+  for (int i = 0; i < 8; ++i) {
+    const int ci = ci0 + (i < 4 ? ty * 4 + i : BM / 2 + ty * 4 + i - 4);
     if (ci >= a.Cin) continue;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int co = co0 + tx * 4 + j;
-      if (co < a.Cout) o[static_cast<long long>(ci) * a.Cout + co] = acc[i][j];
+    for (int h = 0; h < 2; ++h) {
+      const int co = co0 + h * (BN / 2) + tx * 4;
+      float* dst = o + static_cast<long long>(ci) * a.Cout + co;
+      if (a.vw && co + 3 < a.Cout) {
+        *reinterpret_cast<float4*>(dst) = make_float4(
+            acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2], acc[i][4 * h + 3]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (co + e < a.Cout) dst[e] = acc[i][4 * h + e];
+      }
     }
   }
   if (do_db && tid < BN && co0 + tid < a.Cout)
     db_part[(static_cast<long long>(split) * 4 + ph) * a.Cout + co0 + tid] = dbacc;
 }
+
+// The poor layout (Cout <= 4, a GAN's output layer): a block takes one
+// phase, one row tap p, 64 input channels and a range of phase-plane rows;
+// a thread keeps the R column taps q of that row x 4 Cin x 4 Cout, so one
+// gm pixel and a sliding window of R x pixels (float4s of 4 channels) serve
+// R taps. DW_SLICES slices of 16 threads take the block's rows in turn and
+// are added in slice order through shared memory at the end.
+template <int R>
+__global__ void __launch_bounds__(DW_THREADS)
+dw_poor_kernel(const float* __restrict__ x, const float* __restrict__ g,
+               float* __restrict__ part, float* __restrict__ db_part, const DwArgs a) {
+  extern __shared__ __align__(16) float smem[];   // [slice][q, c, co][cg], db
+  const int tid = threadIdx.x;
+  const int cg = tid % 16;
+  const int sl = tid / 16;
+  const int ci = blockIdx.x * 64 + 4 * cg;
+  const int ph = blockIdx.y / R;
+  const int p = blockIdx.y % R;
+  const int pr = ph >> 1;
+  const int pc = ph & 1;
+  const int s = a.wsel[ph];
+  const int kh = 2 * p + (s >> 1);
+  const int split = blockIdx.z;
+  const int rows = a.B * a.Hp;
+  const int r_begin = split * a.per_split;
+  const int r_end = min(rows, r_begin + a.per_split);
+  const bool db_block = a.with_db && p == 0 && blockIdx.x == 0;
+  const int u_end = min(a.Hp, (a.M - pc + 1) / 2);   // ow = 2u + pc < M
+  const int ncin = a.Cin - ci;                      // channels of this quad that exist
+
+  float acc[R][4][4];
+#pragma unroll
+  for (int qq = 0; qq < R; ++qq)
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+#pragma unroll
+      for (int co = 0; co < 4; ++co) acc[qq][c][co] = 0.f;
+  float dbacc[4] = {0.f, 0.f, 0.f, 0.f};
+
+  if (kh < a.n_k || db_block) {
+    for (int r = r_begin + sl; r < r_end; r += DW_SLICES) {
+      const int b = r / a.Hp;
+      const int t = r - b * a.Hp;
+      const int oh = 2 * t + pr;
+      if (oh >= a.M) continue;
+      const int ih = a.row0[pr] + t + p - a.pad_lo;
+      const bool row_ok = kh < a.n_k && ih >= 0 && ih < a.N && ncin > 0;
+      const float* xrow = x + ((static_cast<long long>(b) * a.N + (row_ok ? ih : 0)) * a.N) * a.Cin + ci;
+      const float* grow = g + ((static_cast<long long>(b) * a.M + oh) * a.M + pc) * a.Cout;
+      const int iw0 = a.col0[pc] - a.pad_lo;   // x column of (u, q) is iw0 + u + q
+      auto pixel = [&](int iw) {
+        float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (row_ok && iw >= 0 && iw < a.N) {
+          const float* src = xrow + static_cast<long long>(iw) * a.Cin;
+          if (a.vx) {
+            v = __ldg(reinterpret_cast<const float4*>(src));
+          } else {
+            v.x = __ldg(src);
+            if (ncin > 1) v.y = __ldg(src + 1);
+            if (ncin > 2) v.z = __ldg(src + 2);
+            if (ncin > 3) v.w = __ldg(src + 3);
+          }
+        }
+        return v;
+      };
+      float4 win[R];
+#pragma unroll
+      for (int qq = 0; qq + 1 < R; ++qq) win[qq + 1] = pixel(iw0 + qq);
+#pragma unroll 4
+      for (int u = 0; u < u_end; ++u) {
+#pragma unroll
+        for (int qq = 0; qq + 1 < R; ++qq) win[qq] = win[qq + 1];
+        win[R - 1] = pixel(iw0 + u + R - 1);
+        const float* gp = grow + static_cast<long long>(2 * u) * a.Cout;
+        float gv[4];
+#pragma unroll
+        for (int co = 0; co < 4; ++co) gv[co] = co < a.Cout ? __ldg(gp + co) : 0.f;
+#pragma unroll
+        for (int qq = 0; qq < R; ++qq) {
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            const float xv = tconv::component(win[qq], c);
+#pragma unroll
+            for (int co = 0; co < 4; ++co) acc[qq][c][co] = fmaf(xv, gv[co], acc[qq][c][co]);
+          }
+        }
+#pragma unroll
+        for (int co = 0; co < 4; ++co) dbacc[co] += gv[co];
+      }
+    }
+  }
+
+  // the slices' sums, added in slice order
+  constexpr int OUTS = R * 16;   // (q, c, co) a thread
+  float* red = smem;
+  float* red_db = smem + DW_SLICES * OUTS * 16;
+#pragma unroll
+  for (int o = 0; o < OUTS; ++o) red[(sl * OUTS + o) * 16 + cg] = (&acc[0][0][0])[o];
+  if (cg == 0) {
+#pragma unroll
+    for (int co = 0; co < 4; ++co) red_db[sl * 4 + co] = dbacc[co];
+  }
+  __syncthreads();
+  float* dst = part + static_cast<long long>(split) * a.n_k * a.n_k * a.Cin * a.Cout;
+  for (int i = tid; i < OUTS * 16; i += DW_THREADS) {
+    const int og = i / 16;          // (q, c, co)
+    const int cgi = i % 16;
+    const int qq = og / 16;
+    const int c = og / 4 % 4;
+    const int co = og % 4;
+    const int kw = 2 * qq + (s & 1);
+    const int cin = blockIdx.x * 64 + 4 * cgi + c;
+    if (kh >= a.n_k || kw >= a.n_k || cin >= a.Cin || co >= a.Cout) continue;
+    float v = 0.f;
+    for (int z = 0; z < DW_SLICES; ++z) v += red[(z * OUTS + og) * 16 + cgi];
+    dst[((static_cast<long long>(kh) * a.n_k + kw) * a.Cin + cin) * a.Cout + co] = v;
+  }
+  if (db_block && tid < a.Cout) {
+    float v = 0.f;
+    for (int z = 0; z < DW_SLICES; ++z) v += red_db[z * 4 + tid];
+    db_part[(static_cast<long long>(split) * 4 + ph) * a.Cout + tid] = v;
+  }
+}
+
+template <int R>
+constexpr int dw_poor_smem() { return 4 * (DW_SLICES * R * 16 * 16 + DW_SLICES * 4); }
 
 // ----------------------------------------------------- split-K second pass
 
@@ -347,12 +546,39 @@ int grid_stride_blocks(long long n, int threads) {
   return static_cast<int>(want < 1 ? 1 : (want > 8 * 132 ? 8 * 132 : want));
 }
 
+// The Python geometry and the constants compiled here must describe the
+// same kernel: tile, shared memory and grid are checked.
 template <int BM, int BN>
 cudaError_t launch_dw(const float* x, const float* g, float* part, float* db_part,
                       const DwArgs& a, int n_blocks, int n_taps, int splits,
-                      cudaStream_t stream) {
-  const dim3 grid(n_blocks, n_taps, splits);
-  dw_kernel<BM, BN><<<grid, NT, 0, stream>>>(x, g, part, db_part, a);
+                      int smem_bytes, cudaStream_t stream) {
+  using T = DwTile<BM, BN>;
+  if (smem_bytes != T::SMEM || a.n_co_blocks != (a.Cout + BN - 1) / BN ||
+      n_blocks != a.n_co_blocks * ((a.Cin + BM - 1) / BM) || n_taps != a.n_k * a.n_k ||
+      a.per_split % DW_BK != 0)
+    return cudaErrorInvalidValue;
+  auto kernel = dw_kernel<BM, BN>;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       smem_bytes);
+  if (e != cudaSuccess) return e;
+  kernel<<<dim3(n_blocks, n_taps, splits), DW_THREADS, smem_bytes, stream>>>(
+      x, g, part, db_part, a);
+  return cudaGetLastError();
+}
+
+template <int R>
+cudaError_t launch_dw_poor(const float* x, const float* g, float* part, float* db_part,
+                           const DwArgs& a, int n_blocks, int n_taps, int splits,
+                           int smem_bytes, cudaStream_t stream) {
+  if (smem_bytes != dw_poor_smem<R>() || a.Cout > 4 || n_blocks != (a.Cin + 63) / 64 ||
+      n_taps != 4 * R || (a.n_k + 1) / 2 != R)
+    return cudaErrorInvalidValue;
+  auto kernel = dw_poor_kernel<R>;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       smem_bytes);
+  if (e != cudaSuccess) return e;
+  kernel<<<dim3(n_blocks, n_taps, splits), DW_THREADS, smem_bytes, stream>>>(
+      x, g, part, db_part, a);
   return cudaGetLastError();
 }
 
@@ -382,27 +608,42 @@ extern "C" int tconv_dx_f32(const float* g, const float* w, float* out,
   return static_cast<int>(cudaGetLastError());
 }
 
+// layout: 0 rich (tile_m x tile_n a block), 1 poor (Cout <= 4, 64 Cin a block).
 extern "C" int tconv_dw_f32(const float* x, const float* g, float* part, float* db_part,
                             int B, int N, int Cin, int Cout, int n_k, int M, int Hp,
                             int pad_lo, int row00, int row01, int col00, int col01,
-                            int ps0, int ps1, int ps2, int ps3, int tile_m, int tile_n,
-                            int n_blocks, int n_taps, int splits,
-                            int positions_per_split, int with_db, void* stream) {
+                            int ws0, int ws1, int ws2, int ws3,
+                            int ps0, int ps1, int ps2, int ps3, int layout, int tile_m,
+                            int tile_n, int n_blocks, int n_taps, int splits,
+                            int per_split, int with_db, int vx, int vw, int smem_bytes,
+                            void* stream) {
   DwArgs a;
   a.B = B; a.N = N; a.Cin = Cin; a.Cout = Cout; a.n_k = n_k; a.M = M; a.Hp = Hp;
   a.pad_lo = pad_lo;
   a.row0[0] = row00; a.row0[1] = row01; a.col0[0] = col00; a.col0[1] = col01;
+  a.wsel[0] = ws0; a.wsel[1] = ws1; a.wsel[2] = ws2; a.wsel[3] = ws3;
   a.phase_of_sub[0] = ps0; a.phase_of_sub[1] = ps1;
   a.phase_of_sub[2] = ps2; a.phase_of_sub[3] = ps3;
   a.n_co_blocks = (Cout + tile_n - 1) / tile_n;
-  a.positions_per_split = positions_per_split;
+  a.per_split = per_split;
   a.with_db = with_db;
+  a.vx = vx; a.vw = vw;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (tile_m == 32 && tile_n == 64)
-    return static_cast<int>(launch_dw<32, 64>(x, g, part, db_part, a, n_blocks, n_taps, splits, s));
-  if (tile_m == 128 && tile_n == 16)
-    return static_cast<int>(launch_dw<128, 16>(x, g, part, db_part, a, n_blocks, n_taps, splits, s));
-  return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t e = cudaErrorInvalidValue;
+  if (layout == 0 && tile_m == 128 && tile_n == 128)
+    e = launch_dw<128, 128>(x, g, part, db_part, a, n_blocks, n_taps, splits, smem_bytes, s);
+  else if (layout == 0 && tile_m == 256 && tile_n == 64)
+    e = launch_dw<256, 64>(x, g, part, db_part, a, n_blocks, n_taps, splits, smem_bytes, s);
+  else if (layout == 1 && tile_m == 64 && tile_n == 4) {
+    switch ((n_k + 1) / 2) {
+      case 1: e = launch_dw_poor<1>(x, g, part, db_part, a, n_blocks, n_taps, splits, smem_bytes, s); break;
+      case 2: e = launch_dw_poor<2>(x, g, part, db_part, a, n_blocks, n_taps, splits, smem_bytes, s); break;
+      case 3: e = launch_dw_poor<3>(x, g, part, db_part, a, n_blocks, n_taps, splits, smem_bytes, s); break;
+      case 4: e = launch_dw_poor<4>(x, g, part, db_part, a, n_blocks, n_taps, splits, smem_bytes, s); break;
+      default: break;
+    }
+  }
+  return static_cast<int>(e);
 }
 
 extern "C" int tconv_sum_splits_f32(const float* pa, float* oa, long long na, int sa,

@@ -66,16 +66,25 @@
 //   split across blocks by a count fixed by the layer's shape alone; each
 //   split writes its partial sums to scratch and reduce_splits_kernel adds
 //   them in split order, then applies bias and activation.
+// The copies and the micro-tile are tconv_microkernel.cuh's, which the pair
+// kernel compiles too.
 // Every output's sum runs over (split, chunk, channel group, p, q, channel
 // in group) in an order fixed by the shape, never by the batch: no atomics,
 // so a batched call gives each sample the bits of its own unbatched call.
 
 #include <cuda_runtime.h>
 
+#include "tconv_microkernel.cuh"
+
 namespace {
 
+using tconv::activate;
+using tconv::cp_async_commit;
+using tconv::cp_async_wait;
+using tconv::cp_quad;
+using tconv::kPW;
+
 constexpr int kStages = 3;   // cp.async ring depth
-constexpr int kPW = 4;       // positions along a phase-plane row a thread
 
 struct FusedArgs {
   int B, N, Cin, Cout, n_k, M;
@@ -89,42 +98,6 @@ struct FusedArgs {
   int act;
   float slope;
 };
-
-__device__ __forceinline__ float activate(float y, int act, float slope) {
-  switch (act) {
-    case 1: return y > 0.f ? y : 0.f;
-    case 2: return tanhf(y);
-    case 3: return y > 0.f ? y : slope * y;
-    default: return y;
-  }
-}
-
-__device__ __forceinline__ void cp_async16(float* smem, const float* gmem, bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(s), "l"(gmem), "r"(valid ? 16 : 0) : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(float* smem, const float* gmem, bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-               :: "r"(s), "l"(gmem), "r"(valid ? 4 : 0) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
-
-// Component k of v; k is a constant of an unrolled loop, so this is a
-// register, not a branch.
-__device__ __forceinline__ float component(const float4& v, int k) {
-  return k == 0 ? v.x : k == 1 ? v.y : k == 2 ? v.z : v.w;
-}
 
 // Compile-time shape of one variant: layout (NCG channel groups of 4 x NPG
 // position groups of kPW, TW positions a tile row), Cin chunk CI, R, D.
@@ -185,16 +158,7 @@ __device__ __forceinline__ void stage(float* xs, const float* __restrict__ x,
     const float* src = in
         ? x + ((static_cast<long long>(b) * a.N + gr) * a.N + gc) * a.Cin + gci
         : x;
-    float* dst = xs + ((c4 * T::XH + r) * T::XW + c) * 4;
-    if (a.vx) {
-      cp_async16(dst, src, in && gci < a.Cin);
-    } else {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const bool ok = in && gci + e < a.Cin;
-        cp_async4(dst + e, ok ? src + e : x, ok);
-      }
-    }
+    cp_quad(xs + ((c4 * T::XH + r) * T::XW + c) * 4, src, x, in ? a.Cin - gci : 0, a.vx);
   }
   constexpr int Q = T::WROW * NCG;   // 16-byte weight pieces a channel
   if constexpr (T::NT % Q == 0) {
@@ -218,15 +182,7 @@ __device__ __forceinline__ void stage(float* xs, const float* __restrict__ x,
         const bool in = tap && ci0 + ci + j * M < a.Cin;
         const float* sj = src + static_cast<long long>(j) * M * a.Cout;
         float* dj = dst + j * M * T::WROW * T::CT;
-        if (a.vw) {
-          cp_async16(dj, in && gco < a.Cout ? sj : w, in && gco < a.Cout);
-        } else {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const bool ok = in && gco + e < a.Cout;
-            cp_async4(dj + e, ok ? sj + e : w, ok);
-          }
-        }
+        cp_quad(dj, sj, w, in ? a.Cout - gco : 0, a.vw);
       }
     }
     return;
@@ -247,16 +203,7 @@ __device__ __forceinline__ void stage(float* xs, const float* __restrict__ x,
     const float* src = tap
         ? w + ((static_cast<long long>(kh) * a.n_k + kw) * a.Cin + gci) * a.Cout + gco
         : w;
-    float* dst = ws + row * T::CT + 4 * cq;
-    if (a.vw) {
-      cp_async16(dst, src, tap && gco < a.Cout);
-    } else {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const bool ok = tap && gco + e < a.Cout;
-        cp_async4(dst + e, ok ? src + e : w, ok);
-      }
-    }
+    cp_quad(ws + row * T::CT + 4 * cq, src, w, tap ? a.Cout - gco : 0, a.vw);
   }
 }
 
@@ -319,42 +266,10 @@ fused_kernel(const float* __restrict__ x, const float* __restrict__ w,
     const float* xs = smem + (k % kStages) * T::STAGE;
     const float* ws = xs + T::XS;
 #pragma unroll 1
-    for (int c4 = 0; c4 < T::C4; ++c4) {
-      const float* xc = xs + c4 * (T::XH * T::XW * 4) + xoff;
-      const float* wc = ws + c4 * (4 * T::WROW * T::CT);
-#pragma unroll
-      for (int rho = 0; rho < R + D; ++rho) {   // staged row tr + rho
-        float4 xr[T::PC];
-#pragma unroll
-        for (int kap = 0; kap < T::PC; ++kap)
-          xr[kap] = *reinterpret_cast<const float4*>(xc + (rho * T::XW + kap) * 4);
-#pragma unroll
-        for (int pr = 0; pr < 2; ++pr) {
-          const int p = rho - pr * D;           // the row tap of parity pr here
-          if (p < 0 || p >= R) continue;
-#pragma unroll
-          for (int q = 0; q < R; ++q) {
-#pragma unroll
-            for (int pc = 0; pc < 2; ++pc) {
-              const int par = 2 * pr + pc;
-#pragma unroll
-              for (int cc = 0; cc < 4; ++cc) {
-                const float4 wv = *reinterpret_cast<const float4*>(
-                    wc + woff[par] + cc * (T::WROW * T::CT) + (p * R + q) * T::CT);
-#pragma unroll
-                for (int j = 0; j < kPW; ++j) {
-                  const float xv = component(xr[j + pc * D + q], cc);
-                  acc[par][j][0] = fmaf(xv, wv.x, acc[par][j][0]);
-                  acc[par][j][1] = fmaf(xv, wv.y, acc[par][j][1]);
-                  acc[par][j][2] = fmaf(xv, wv.z, acc[par][j][2]);
-                  acc[par][j][3] = fmaf(xv, wv.w, acc[par][j][3]);
-                }
-              }
-            }
-          }
-        }
-      }
-    }
+    for (int c4 = 0; c4 < T::C4; ++c4)
+      tconv::mac_c4<R, D>(xs + c4 * (T::XH * T::XW * 4) + xoff, T::XW,
+                          ws + c4 * (4 * T::WROW * T::CT), T::WROW * T::CT, T::CT,
+                          woff, acc);
   }
 
   // The block's outputs go through shared memory (the ring is free now), so

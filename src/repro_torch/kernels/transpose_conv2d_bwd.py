@@ -45,13 +45,22 @@ import torch.nn.functional as F
 from repro_torch.core import segregation as seg
 from repro_torch.kernels import _build
 from repro_torch.kernels import epilogue as epilib
-from repro_torch.kernels.transpose_conv2d import H100_SMS, check_cuda_operands
+from repro_torch.kernels.transpose_conv2d import MAX_R, H100_SMS, check_cuda_operands
 
 DX_TILE = (32, 64)        # (rows = dx positions, cols = Cin) of the dx kernel
-DW_TILES = ((32, 64), (128, 16))  # (rows = Cin, cols = Cout); the second for Cout <= 16
-BK = 16                   # contraction step of both GEMM kernels
-MIN_BLOCKS = 2 * H100_SMS  # split a reduction until the grid has this many blocks
-MIN_DW_STEPS = 8          # ... but keep at least this many BK steps in each split
+# dw block tiles (rows = Cin, cols = Cout) by layout: "rich" for Cout > 64,
+# "narrow" for 4 < Cout <= 64 (both 256 threads of 8 x 8), "poor" for
+# Cout <= POOR_MAX_COUT (64 Cin x 4 Cout x the R column taps of one row tap)
+DW_TILES = {"rich": (128, 128), "narrow": (256, 64), "poor": (64, 4)}
+DW_LAYOUT_CODES = {"rich": 0, "narrow": 0, "poor": 1}
+POOR_MAX_COUT = 4
+BK = 16                   # contraction step of both GEMM kernels (DW_BK too)
+DW_STAGES = 3             # depth of the dw kernel's cp.async ring
+DW_SLICES = 16            # row slices of a poor dw block
+MIN_BLOCKS = 2 * H100_SMS  # split dx's reduction until the grid has this many blocks
+DW_MIN_BLOCKS = H100_SMS   # split dw's until its grid has this many (one block an SM)
+MIN_DW_STEPS = 8          # ... but keep at least this many BK steps (rich) or
+                          # DW_SLICES rows (poor) in each split
 EPI_GRAD_THREADS = 256
 
 
@@ -120,25 +129,41 @@ class BwdGeometry:
     dx_taps_per_split: int
     # dw: one GEMM per HWIO tap, rows Cin x cols Cout, contraction over the
     # B Hp Hp positions of the tap's phase plane
+    dw_layout: str     # "rich", "narrow" or "poor" (DW_TILES)
     dw_tile: tuple     # (rows, cols)
     dw_positions: int
-    dw_grid: tuple     # (Cin blocks * Cout blocks, n*n taps, splits)
-    dw_positions_per_split: int
+    dw_grid: tuple     # rich: (Cin blocks * Cout blocks, n*n taps, splits);
+                       # poor: (Cin blocks, 4 phases * R row taps, splits)
+    dw_positions_per_split: int  # rich: a multiple of BK; poor: whole rows of Hp
+    dw_smem_bytes: int
 
     @property
     def dx_splits(self) -> int:
         return self.dx_grid[2]
 
     @property
+    def dw_variant(self) -> tuple:
+        """The compiled dw instance this geometry launches: ``("rich",
+        rows, cols)`` or ``("poor", R)``."""
+        return ("poor", self.r) if self.dw_layout == "poor" else ("rich", *self.dw_tile)
+
+    @property
     def dw_splits(self) -> int:
         return self.dw_grid[2]
 
 
-def _splits(blocks: int, steps: int, min_steps: int) -> int:
+def dw_variants() -> set:
+    """Every compiled instance of the dw kernels."""
+    return ({("rich", *DW_TILES[k]) for k in ("rich", "narrow")}
+            | {("poor", r) for r in range(1, MAX_R + 1)})
+
+
+def _splits(blocks: int, steps: int, min_steps: int,
+            min_blocks: int = MIN_BLOCKS) -> int:
     """Shape-only split count: double while the grid is under
-    :data:`MIN_BLOCKS` and each split keeps ``min_steps`` of ``steps``."""
+    ``min_blocks`` and each split keeps ``min_steps`` of ``steps``."""
     s = 1
-    while blocks * s < MIN_BLOCKS and steps // (2 * s) >= min_steps:
+    while blocks * s < min_blocks and steps // (2 * s) >= min_steps:
         s *= 2
     return s
 
@@ -163,11 +188,24 @@ def bwd_geometry(batch: int, n_in: int, n_k: int, padding: int, cin: int,
     dx_splits = _splits(dx_blocks, dx_taps, 1)
     dx_tps = _cdiv(dx_taps, dx_splits)
 
-    dw_tile = DW_TILES[1] if cout <= DW_TILES[1][1] else DW_TILES[0]
+    dw_layout = ("poor" if cout <= POOR_MAX_COUT
+                 else "narrow" if cout <= DW_TILES["narrow"][1] else "rich")
+    dw_tile = DW_TILES[dw_layout]
     dw_pos = batch * hp * hp
-    dw_blocks = _cdiv(cin, dw_tile[0]) * _cdiv(cout, dw_tile[1])
-    dw_splits = _splits(dw_blocks * n_k * n_k, _cdiv(dw_pos, BK), MIN_DW_STEPS)
-    dw_pps = _cdiv(_cdiv(dw_pos, dw_splits), BK) * BK
+    if dw_layout == "poor":
+        dw_blocks = _cdiv(cin, dw_tile[0])
+        dw_taps = 4 * r
+        rows = batch * hp
+        dw_splits = _splits(dw_blocks * dw_taps, rows, DW_SLICES, DW_MIN_BLOCKS)
+        dw_pps = _cdiv(rows, dw_splits) * hp
+        dw_smem = 4 * (DW_SLICES * r * 16 * 16 + DW_SLICES * 4)
+    else:
+        dw_blocks = _cdiv(cin, dw_tile[0]) * _cdiv(cout, dw_tile[1])
+        dw_taps = n_k * n_k
+        dw_splits = _splits(dw_blocks * dw_taps, _cdiv(dw_pos, BK), MIN_DW_STEPS,
+                            DW_MIN_BLOCKS)
+        dw_pps = _cdiv(_cdiv(dw_pos, dw_splits), BK) * BK
+        dw_smem = 4 * DW_STAGES * BK * sum(dw_tile)
     return BwdGeometry(
         batch=batch, n_in=n_in, n_k=n_k, padding=padding, cin=cin, cout=cout,
         m=m, hp=hp, r=r, pad_lo=pad_lo, row0s=row0s, col0s=col0s,
@@ -175,8 +213,9 @@ def bwd_geometry(batch: int, n_in: int, n_k: int, padding: int, cin: int,
         dx_rows=dx_rows,
         dx_grid=(_cdiv(dx_rows, DX_TILE[0]), _cdiv(cin, DX_TILE[1]), dx_splits),
         dx_taps=dx_taps, dx_taps_per_split=dx_tps,
-        dw_tile=dw_tile, dw_positions=dw_pos,
-        dw_grid=(dw_blocks, n_k * n_k, dw_splits), dw_positions_per_split=dw_pps,
+        dw_layout=dw_layout, dw_tile=dw_tile, dw_positions=dw_pos,
+        dw_grid=(dw_blocks, dw_taps, dw_splits), dw_positions_per_split=dw_pps,
+        dw_smem_bytes=dw_smem,
     )
 
 
@@ -265,7 +304,7 @@ def _lib():
     lib.tconv_dx_f32.argtypes = (
         [ctypes.c_void_p] * 3 + [ctypes.c_int] * 19 + [ctypes.c_void_p])
     lib.tconv_dw_f32.argtypes = (
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 23 + [ctypes.c_void_p])
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 31 + [ctypes.c_void_p])
     lib.tconv_sum_splits_f32.argtypes = (
         [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int] * 2
         + [ctypes.c_void_p])
@@ -390,12 +429,17 @@ def transpose_conv2d_dw(x, gm, n_k: int, padding: int = 0, *,
                                                    **opts)
     db = torch.empty((cout,), **opts) if with_db else None
     db_part = torch.empty((g.dw_splits, 4, cout), **opts) if with_db else None
+    # 16-byte copies need aligned rows; the copy width never changes a sum
+    vx = cin % 4 == 0 and x.data_ptr() % 16 == 0
+    vw = cout % 4 == 0 and gm.data_ptr() % 16 == 0
+    per_split = g.dw_positions_per_split // (g.hp if g.dw_layout == "poor" else 1)
     with torch.cuda.device(x.device):
         err = _lib().tconv_dw_f32(
             x.data_ptr(), gm.data_ptr(), part.data_ptr(), _ptr(db_part),
             b, n_in, cin, cout, n_k, g.m, g.hp, g.pad_lo, *g.row0s, *g.col0s,
-            *g.phase_of_sub, *g.dw_tile, *g.dw_grid, g.dw_positions_per_split,
-            int(with_db), _stream(x))
+            *g.wsels, *g.phase_of_sub, DW_LAYOUT_CODES[g.dw_layout], *g.dw_tile,
+            *g.dw_grid, per_split, int(with_db), int(vx), int(vw), g.dw_smem_bytes,
+            _stream(x))
     _check(err, "transpose_conv2d_dw")
     transpose_conv2d_dw.launches += 1
     pairs = ([(part, dw)] if g.dw_splits > 1 else []) + (

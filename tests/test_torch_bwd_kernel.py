@@ -247,12 +247,32 @@ def test_split_counts_depend_on_the_shape_only():
              (8, 16, 4, 2, 256, 128), (8, 32, 4, 2, 128, 3)]
     got = [(bw.bwd_geometry(*s).dx_splits, bw.bwd_geometry(*s).dw_splits)
            for s in dcgan]
-    assert got == [(8, 1), (4, 1), (2, 2), (1, 32)]
+    assert got == [(8, 1), (4, 2), (2, 8), (1, 16)]
     for s in dcgan:
         g = bw.bwd_geometry(*s)
         assert g.dx_grid[0] * g.dx_grid[1] * g.dx_splits >= bw.MIN_BLOCKS
-        assert g.dw_positions_per_split % bw.BK == 0
+        assert g.dw_grid[0] * g.dw_grid[1] * g.dw_splits >= bw.DW_MIN_BLOCKS
+        # a rich split holds whole ring stages, a poor one whole rows
+        step = g.hp if g.dw_layout == "poor" else bw.BK
+        assert g.dw_positions_per_split % step == 0
         assert g.dw_positions_per_split * g.dw_splits >= g.dw_positions
+
+
+def test_card_shape_lists_reach_every_dw_instance():
+    """The card test's SHAPES and chip_smoke.py's BWD_SHAPES each launch
+    every compiled dw instance (the rich and narrow tiles, the poor layout
+    at R = 1-4)."""
+    import os
+    import sys
+    root = os.path.join(os.path.dirname(__file__), "..")
+    sys.path.insert(0, root)
+    try:
+        import chip_smoke
+        from test_torch_cuda import SHAPES
+    finally:
+        sys.path.remove(root)
+    for shapes in (SHAPES, chip_smoke.BWD_SHAPES):
+        assert {bw.bwd_geometry(*s).dw_variant for s in shapes} == bw.dw_variants()
 
 
 # ------------------------------------------------- emulation of the kernels
@@ -314,12 +334,13 @@ def emulate_dx_kernel(gm, kernel, n_in, padding):
     return dx.reshape(b, n_in, n_in, cin), writes
 
 
-def emulate_dw_kernel(x, gm, n_k, padding, with_db=True):
-    """What ``dw_kernel`` (then ``sum_splits_kernel``) computes, block by
-    block. Returns dw, db and the write counts of the dw and db slots."""
+def _emulate_dw_rich(x, gm, g, with_db):
+    """``dw_kernel``: per (Cin x Cout tile, HWIO tap, split) block, the ring
+    of 16-position stages (each thread stages position ``tid // 16`` of a
+    stage: its x row and gm row pieces ``tid % 16 + 16 j``), the 8 x 8
+    micro-tiles and db from the staged gm rows."""
     b, n_in, _, cin = x.shape
-    m, cout = gm.shape[1], gm.shape[3]
-    g = bw.bwd_geometry(b, n_in, n_k, padding, cin, cout)
+    m, cout, n_k = gm.shape[1], gm.shape[3], g.n_k
     bm, bn = g.dw_tile
     n_co = -(-cout // bn)
     plane, pos = g.hp * g.hp, g.dw_positions
@@ -328,19 +349,27 @@ def emulate_dw_kernel(x, gm, n_k, padding, with_db=True):
     db_part = torch.full((g.dw_splits, 4, cout), float("nan"), dtype=x.dtype)
     db_writes = torch.zeros(db_part.shape, dtype=torch.int64)
     xflat, gflat = x.reshape(-1), gm.reshape(-1)
+    tid = torch.arange(256)
+    kk, lane16 = tid // 16, tid % 16
+    tx, ty = tid % (bn // 8), tid // (bn // 8)
+    # a thread's 8 x 8 outputs: rows ty*4 + i and bm/2 + ty*4 + i, columns alike
+    rows = torch.cat([ty[:, None] * 4 + torch.arange(4), bm // 2 + ty[:, None] * 4
+                      + torch.arange(4)], 1)
+    cols = torch.cat([tx[:, None] * 4 + torch.arange(4), bn // 2 + tx[:, None] * 4
+                      + torch.arange(4)], 1)
     for bx, tap, z in itertools.product(*map(range, g.dw_grid)):
         ci0, co0 = (bx // n_co) * bm, (bx % n_co) * bn
         kh, kw = tap // n_k, tap % n_k
         ph = g.phase_of_sub[2 * (kh % 2) + kw % 2]
         pr, pc, p, q = ph // 2, ph % 2, kh // 2, kw // 2
-        ci, co = ci0 + torch.arange(bm), co0 + torch.arange(bn)
         do_db = with_db and p == 0 and q == 0 and ci0 == 0
         acc = torch.zeros((bm, bn), dtype=x.dtype)
         dbacc = torch.zeros(bn, dtype=x.dtype)
         k_begin = z * g.dw_positions_per_split
         k_end = min(pos, k_begin + g.dw_positions_per_split)
-        for k0 in range(k_begin, k_end, bw.BK):
-            k = k0 + torch.arange(bw.BK)
+        steps = -(-(k_end - k_begin) // bw.BK) if k_end > k_begin else 0
+        for st in range(steps):
+            k = k_begin + st * bw.BK + kk                 # each thread's position
             bb, rem = k // plane, k % plane
             t, u = rem // g.hp, rem % g.hp
             oh, ow = 2 * t + pr, 2 * u + pc
@@ -350,23 +379,115 @@ def emulate_dw_kernel(x, gm, n_k, padding, with_db=True):
             xok = gok & (ih >= 0) & (ih < n_in) & (iw >= 0) & (iw < n_in)
             xsrc = ((bb * n_in + ih) * n_in + iw) * cin
             gsrc = ((bb * m + oh) * m + ow) * cout
-            a = _gather(xflat, xsrc[:, None] + ci[None, :],
-                        xok[:, None] & (ci < cin)[None, :])
-            bmat = _gather(gflat, gsrc[:, None] + co[None, :],
-                           gok[:, None] & (co < cout)[None, :])
-            acc += a.T @ bmat
+            xs = torch.full((bw.BK, bm), float("nan"), dtype=x.dtype)
+            gs = torch.full((bw.BK, bn), float("nan"), dtype=x.dtype)
+            for j in range(bm // 64):
+                ci = ci0 + 4 * (lane16 + 16 * j)[:, None] + torch.arange(4)
+                xs[kk[:, None], ci - ci0] = _gather(
+                    xflat, xsrc[:, None] + ci, xok[:, None] & (ci < cin))
+            for j in range(bn // 64):
+                co = co0 + 4 * (lane16 + 16 * j)[:, None] + torch.arange(4)
+                gs[kk[:, None], co - co0] = _gather(
+                    gflat, gsrc[:, None] + co, gok[:, None] & (co < cout))
+            assert not (xs.isnan().any() or gs.isnan().any())   # every slot staged
             if do_db:
-                dbacc += bmat.sum(0)
-        ci_ok, co_ok = ci[ci < cin], co[co < cout]
-        part[z, kh, kw][ci_ok[:, None], co_ok[None, :]] = acc[ci < cin][:, co < cout]
-        writes[z, kh, kw][ci_ok[:, None], co_ok[None, :]] += 1
+                dbacc += gs.sum(0)
+            acc += xs.T @ gs
+        ci, co = ci0 + rows, co0 + cols                    # (256, 8) each
+        for i in range(8):
+            for e in range(8):
+                ok = (ci[:, i] < cin) & (co[:, e] < cout)
+                part[z, kh, kw, ci[ok, i], co[ok, e]] = acc[rows[ok, i], cols[ok, e]]
+                writes[z, kh, kw, ci[ok, i], co[ok, e]] += 1
         if do_db:
-            db_part[z, ph, co_ok] = dbacc[co < cout]
-            db_writes[z, ph, co_ok] += 1
+            c = co0 + torch.arange(bn)
+            db_part[z, ph, c[c < cout]] = dbacc[c < cout]
+            db_writes[z, ph, c[c < cout]] += 1
+    return part, writes, db_part, db_writes
+
+
+def _emulate_dw_poor(x, gm, g, with_db):
+    """``dw_poor_kernel``: per (64-Cin block, phase x row tap p, split)
+    block, 16 row slices of 16 threads (a Cin quad each) walk their rows
+    with a sliding window of R x pixels, then the slices' sums are added in
+    slice order."""
+    b, n_in, _, cin = x.shape
+    m, cout, n_k, r = gm.shape[1], gm.shape[3], g.n_k, g.r
+    part = torch.full((g.dw_splits, n_k, n_k, cin, cout), float("nan"), dtype=x.dtype)
+    writes = torch.zeros(part.shape, dtype=torch.int64)
+    db_part = torch.full((g.dw_splits, 4, cout), float("nan"), dtype=x.dtype)
+    db_writes = torch.zeros(db_part.shape, dtype=torch.int64)
+    rows_per_split = g.dw_positions_per_split // g.hp
+    n_rows = b * g.hp
+    for bx, by, z in itertools.product(*map(range, g.dw_grid)):
+        ph, p = by // r, by % r
+        pr, pc = ph // 2, ph % 2
+        sub = g.wsels[ph]
+        kh = 2 * p + (sub >> 1)
+        ci = bx * 64 + torch.arange(64)                    # 16 quads of 4
+        db_block = with_db and p == 0 and bx == 0
+        u_end = min(g.hp, (m - pc + 1) // 2)
+        r_begin = z * rows_per_split
+        r_end = min(n_rows, r_begin + rows_per_split)
+        acc = torch.zeros((16, r, 64, 4), dtype=x.dtype)   # (slice, q, ci, co)
+        dbacc = torch.zeros((16, 4), dtype=x.dtype)
+        for sl in range(16):
+            if not (kh < n_k or db_block):
+                break
+            for row in range(r_begin + sl, r_end, 16):
+                bb, t = row // g.hp, row % g.hp
+                oh = 2 * t + pr
+                if oh >= m:
+                    continue
+                ih = g.row0s[pr] + t + p - g.pad_lo
+                row_ok = kh < n_k and 0 <= ih < n_in
+
+                def pixel(iw):
+                    v = torch.zeros(64, dtype=x.dtype)
+                    if row_ok and 0 <= iw < n_in:
+                        v[ci < cin] = x[bb, ih, iw, ci[ci < cin]]
+                    return v
+
+                iw0 = g.col0s[pc] - g.pad_lo
+                win = [None] + [pixel(iw0 + qq) for qq in range(r - 1)]
+                for u in range(u_end):
+                    win = win[1:] + [pixel(iw0 + u + r - 1)]
+                    gv = torch.zeros(4, dtype=x.dtype)
+                    gv[:cout] = gm[bb, oh, 2 * u + pc, :cout]
+                    for qq in range(r):
+                        acc[sl, qq] += win[qq][:, None] * gv[None, :]
+                    dbacc[sl] += gv
+        tot = acc[0]
+        for sl in range(1, 16):
+            tot = tot + acc[sl]
+        for qq in range(r):
+            kw = 2 * qq + (sub & 1)
+            if kh >= n_k or kw >= n_k:
+                continue
+            ok = ci < cin
+            part[z, kh, kw, ci[ok], :] = tot[qq, ok, :cout]
+            writes[z, kh, kw, ci[ok], :] += 1
+        if db_block:
+            db = dbacc[0]
+            for sl in range(1, 16):
+                db = db + dbacc[sl]
+            db_part[z, ph] = db[:cout]
+            db_writes[z, ph] += 1
+    return part, writes, db_part, db_writes
+
+
+def emulate_dw_kernel(x, gm, n_k, padding, with_db=True):
+    """What the dw kernel of the layer's layout (then ``sum_splits_kernel``)
+    computes, block by block. Returns dw, db and the write counts of the dw
+    and db slots."""
+    b, n_in, _, cin = x.shape
+    g = bw.bwd_geometry(b, n_in, n_k, padding, cin, gm.shape[3])
+    run = _emulate_dw_poor if g.dw_layout == "poor" else _emulate_dw_rich
+    part, writes, db_part, db_writes = run(x, gm, g, with_db)
     dw = part[0]
     for z in range(1, g.dw_splits):
         dw = dw + part[z]
-    db = db_part.reshape(-1, cout)
+    db = db_part.reshape(-1, gm.shape[3])
     db_sum = db[0]
     for i in range(1, db.shape[0]):
         db_sum = db_sum + db[i]
@@ -374,11 +495,13 @@ def emulate_dw_kernel(x, gm, n_k, padding, with_db=True):
 
 
 EMU_CASES = [   # (b, N, n, P, Cin, Cout)
-    (2, 4, 4, 2, 5, 3),      # DCGAN geometry, Cout = 3 (the 128 x 16 dw tile)
+    (2, 4, 4, 2, 5, 3),      # DCGAN geometry, Cout = 3 (the poor dw layout)
     (1, 7, 3, 0, 3, 19),     # odd M = 11, Cout not a multiple of 16
     (1, 6, 5, 1, 70, 6),     # n = 5, odd P, two Cin blocks of dx
     (2, 5, 3, 1, 2, 20),     # odd M = 11, odd P
     (1, 9, 2, 1, 4, 33),     # n = 2, M = 18
+    (1, 5, 4, 2, 8, 72),     # the rich dw tile (Cout > 64), ragged in it
+    (1, 9, 7, 3, 70, 2),     # the poor layout at R = 4, two Cin blocks, odd M
 ]
 
 
@@ -412,7 +535,7 @@ def test_emulated_kernels_split_at_the_dcgan_tail():
     emulation still writes each slot once and matches)."""
     shape = (2, 32, 4, 2, 3, 3)
     g = bw.bwd_geometry(*shape)
-    assert g.dw_splits > 1 and g.dw_tile == (128, 16)
+    assert g.dw_splits > 1 and g.dw_layout == "poor" and g.dw_tile == (64, 4)
     b, n_in, n_k, pad, cin, cout = shape
     x, _, _, gm = _case(9, b, n_in, n_k, pad, cin, cout, dtype=np.float64)
     tx, tg = torch.from_numpy(x), torch.from_numpy(gm)

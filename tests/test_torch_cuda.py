@@ -65,6 +65,12 @@ PAIR_SHAPES = [  # (B, N, n, P, C0, C1, C2)
     (8, 16, 4, 2, 256, 128, 3),     # DCGAN L2-3
     (2, 5, 3, 1, 13, 21, 7),        # n = 3, odd P, C2 not a tile multiple
     (2, 7, 5, 3, 9, 12, 5),         # n = 5, odd P
+    # with the rows above, one shape for each compiled (R, d) instance
+    (2, 3, 2, 1, 8, 8, 8),          # R = 1, d = 0
+    (2, 4, 2, 0, 6, 10, 5),         # R = 1, d = 1
+    (1, 5, 6, 2, 10, 9, 7),         # R = 3, d = 1
+    (1, 4, 8, 3, 6, 10, 4),         # R = 4, d = 0
+    (1, 5, 7, 2, 5, 6, 3),          # R = 4, d = 1
 ]
 
 

@@ -48,6 +48,20 @@ def test_port_imports_without_jax_or_reference():
     assert res.stdout.startswith("ok")
 
 
+def test_cuda_sources_use_no_atomics():
+    """No hand-written kernel calls an atomic: every sum runs in an order
+    fixed by the layer's shape, which the bitwise served-output and resume
+    checks rely on."""
+    import re
+    csrc = os.path.join(ROOT, "src", "repro_torch", "kernels", "csrc")
+    sources = sorted(f for f in os.listdir(csrc) if f.endswith((".cu", ".cuh")))
+    assert len(sources) >= 7
+    for name in sources:
+        text = open(os.path.join(csrc, name)).read()
+        code = re.sub(r"//[^\n]*|/\*.*?\*/", "", text, flags=re.S)
+        assert not re.search(r"\batomic\w*\s*\(|\bred\.\w+", code), name
+
+
 def test_module_list_covers_the_slice():
     for name in ("core.segregation", "core.transpose_conv", "kernels.ref",
                  "kernels.epilogue", "kernels._build", "kernels.plan",

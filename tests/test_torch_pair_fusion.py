@@ -5,9 +5,11 @@ the TPU's VMEM.
 
 On the CPU: the plain version against the JAX package's own pair kernel
 (which still interprets under the installed JAX); an emulation of the CUDA
-kernel's cluster partition (each block's interface slice in its own shared
-memory, the consumer reading every slice) that must produce each interface
-element once, write each output once, and give the plain version's result;
+kernel's index math (cluster ranks over interface quads and row bands, the
+ring, the warps' contraction splits, the consumer staging windows from the
+owners' slices) that must produce each interface element once, write each
+output once, and give the plain version's result; the launch arguments of
+every zoo pair at buckets 1-8;
 the zoo classification and ``pair_legal``'s reasons; the pair pass; the
 fused generator against the reference's fused generator on the same
 weights; pair gradients; and the memory the pairs keep on chip. The card
@@ -108,139 +110,204 @@ def test_wrapper_checks_operands_and_runs_plain_on_cpu():
 
 # ------------------------------------------- emulation of the CUDA kernel
 
+def _emulate_tile(t, cin, cout, w, n_k, co0, nst, ring, wsels, r, d,
+                  stage_x, emit):
+    """One ``run_tile`` of csrc/transpose_conv2d_pair.cu, thread by thread
+    (threads vectorised): the ring of ``ring`` slots filled ``ring - 1``
+    stages ahead, each thread's micro-tile from its split's quad of a stage,
+    then the splits' sums added in split order and handed to ``emit(v,
+    out_row, out_col, channel)``. ``stage_x(st)`` returns the staged input
+    window ``[ks][xh][xp][4]`` of stage ``st`` (pitch columns past ``xwr``
+    NaN, so a stray read shows)."""
+    nt, pw, wrow = pairlib.THREADS, pairlib.PW, 4 * r * r
+    npg = t.th * t.tw // pw
+    nts = t.ncg * npg
+    tid = torch.arange(nt)
+    s, tis = tid // nts, tid % nts
+    active = s < t.ks
+    cgi, pg = tis // npg, tis % npg
+    pgr = t.tw // pw
+    tr, tc = pg // pgr, (pg % pgr) * pw
+    sa, ca, tra, tca = (v[active] for v in (s, cgi, tr, tc))
+    ci_n = 4 * t.ks
+
+    def stage_w(st):
+        # [ci][tap][quad][4] of k's rows [ci_n st, ci_n (st + 1)), zero past
+        # the kernel's taps and channels
+        ws = torch.zeros((ci_n, wrow, t.ncg, 4), dtype=w.dtype)
+        for spq in range(wrow):
+            sub, p, q = spq // (r * r), spq // r % r, spq % r
+            kh, kw = 2 * p + (sub >> 1), 2 * q + (sub & 1)
+            if kh >= n_k or kw >= n_k:
+                continue
+            for cq in range(t.ncg):
+                ci0, c = st * ci_n, co0 + 4 * cq
+                n_ci, n_co = min(ci_n, cin - ci0), min(4, cout - c)
+                if n_ci > 0 and n_co > 0:
+                    ws[:n_ci, spq, cq, :n_co] = w[kh, kw, ci0 : ci0 + n_ci, c : c + n_co]
+        return ws
+
+    slots = [None] * ring
+
+    def stage(st):
+        slots[st % ring] = (st, stage_x(st), stage_w(st))
+
+    acc = torch.zeros((int(active.sum()), 4, pw, 4), dtype=w.dtype)
+    for st in range(ring - 1):
+        if st < nst:
+            stage(st)
+    for k in range(nst):
+        if k + ring - 1 < nst:
+            assert (k + ring - 1) % ring != k % ring   # never the slot in use
+            stage(k + ring - 1)
+        got, xs, ws = slots[k % ring]
+        assert got == k
+        for rho in range(r + d):
+            for pr in range(2):
+                p = rho - pr * d
+                if not 0 <= p < r:
+                    continue
+                for q in range(r):
+                    for pc in range(2):
+                        par = 2 * pr + pc
+                        cols = tca[:, None] + torch.arange(pw) + pc * d + q
+                        if int((tra + rho).max()) >= t.xh or int(cols.max()) >= t.xwr:
+                            raise IndexError("read past the staged window")
+                        xv = xs[sa[:, None], (tra + rho)[:, None], cols]   # (T, j, cc)
+                        spq = (wsels[par] * r + p) * r + q
+                        wv = ws[4 * sa[:, None] + torch.arange(4), spq, ca[:, None]]
+                        acc[:, par] += torch.einsum("tjc,tck->tjk", xv, wv)
+    # the splits' sums [split][slot][micro-tile], added in split order
+    red = torch.full((t.ks, 4 * pw * 4, nts), float("nan"), dtype=w.dtype)
+    red[sa, :, tis[active]] = acc.reshape(-1, 4 * pw * 4)
+    ct = 4 * t.ncg
+    for i in range(4 * pw * 4 * nts):
+        c, ocol, orow = i % ct, i // ct % (2 * t.tw), i // ct // (2 * t.tw)
+        par, u = 2 * (orow & 1) + (ocol & 1), ocol >> 1
+        slot = (par * pw + u % pw) * 4 + (c & 3)
+        at = (c >> 2) * npg + (orow >> 1) * pgr + u // pw
+        v = red[0, slot, at]
+        for z in range(1, t.ks):
+            v = v + red[z, slot, at]
+        emit(v, orow, ocol, c)
+
+
 def emulate_pair_kernel(x, k1, k2, padding, e1=None, b1=None, e2=None,
                         b2=None):
     """What csrc/transpose_conv2d_pair.cu computes, block by block: each
-    cluster rank's interface slice in its own buffer (the zero halo around
-    it), then the consumer's work tiles round-robin over the ranks, reading
-    every rank's slice. Threads are vectorised. Returns the output, how many
-    times each interface element and each output element was written, and
-    the shared memory (bytes) the emulated buffers took in one block."""
+    cluster rank's interface quads over its band of padded rows,
+    ``[qpr][rpb][s2][4]``, in its own buffer (the zero halo around them)
+    from its producer tiles, then the consumer's work tiles round-robin
+    over the ranks, each ring stage staging its interface window from the
+    owners' buffers. Returns the
+    output, how many times each interface element and each output element
+    was written, and the shared memory (bytes) the emulated buffers take in
+    one block."""
     b_, n_in, _, c0 = x.shape
     n_k, c1, c2 = k1.shape[0], k1.shape[3], k2.shape[3]
     g = pairlib.pair_launch_geometry(n_in, n_k, padding, c0, c1, c2)
-    R, CI, NT = g.r, pairlib.CIN_CHUNK, pairlib.THREADS
+    r, d = g.r, g.d
     out = torch.full((b_, g.m2, g.m2, c2), float("nan"), dtype=x.dtype)
     out_writes = torch.zeros((b_, g.m2, g.m2, c2), dtype=torch.int64)
     if_writes = torch.zeros((b_, c1, g.s2, g.s2), dtype=torch.int64)
-    tid = torch.arange(NT)
 
-    def weights(k, ci0, ci_end, co0, co_end, ct):
-        ws = torch.zeros((4, R, R, CI, ct), dtype=x.dtype)
-        cin = k.shape[2]
-        for s, p, q in itertools.product(range(4), range(R), range(R)):
-            kh, kw = 2 * p + (s >> 1), 2 * q + (s & 1)
-            if kh < n_k and kw < n_k:
-                n_ci = max(0, min(CI, ci_end - ci0, cin - ci0))
-                n_co = max(0, min(ct, co_end - co0))
-                ws[s, p, q, :n_ci, :n_co] = k[kh, kw, ci0 : ci0 + n_ci,
-                                              co0 : co0 + n_co]
-        return ws
-
-    def mac(acc, xs, ws, rows, cols, cgi, roff, coff):
-        for ci, p, q, par in itertools.product(range(CI), range(R), range(R),
-                                               range(4)):
-            ri = rows + roff[par >> 1] + p
-            cj = cols + coff[par & 1] + q
-            if ri.max() >= xs.shape[1] or cj.max() >= xs.shape[2]:
-                raise IndexError("read past the staged window")
-            wv = ws[g.wsels[par], p, q, ci][cgi[:, None] * 4 + torch.arange(4)]
-            acc[par] += xs[ci, ri, cj][..., None] * wv[:, None, :]
+    def window(t):
+        xs = torch.zeros((t.ks, t.xh, t.xp, 4), dtype=x.dtype)
+        xs[:, :, t.xwr:] = float("nan")     # the pitch's columns: never read
+        return xs
 
     for bb in range(b_):
-        ifaces = []
-        # ---- producer, one rank at a time
-        ct = 4 * g.ncg1
-        groups = NT // g.ncg1
-        pg, cgi = tid % groups, tid // groups   # lanes along positions
+        ifaces = [torch.zeros((g.qpr, g.rpb, g.s2, 4), dtype=x.dtype)
+                  for _ in range(g.cl)]
+        # ---- producer, one rank at a time: its quads over its row band
+        t = g.t1
         for rank in range(g.cl):
-            c1_lo, c1_hi = rank * g.mc, min(rank * g.mc + g.mc, c1)
-            iface = torch.zeros((g.mc, g.s2, g.s2), dtype=x.dtype)
-            for tile in range(g.n_sp1 * g.nct1):
-                sp = tile % g.n_sp1
-                t0, u0 = (sp // g.n_w1) * g.th1, (sp % g.n_w1) * g.tw1
-                co0 = c1_lo + (tile // g.n_sp1) * ct
-                pos = pg[:, None] + groups * torch.arange(g.ppt1)
-                live = pos < g.th1 * g.tw1
-                pos = torch.where(live, pos, torch.zeros_like(pos))
-                tl, ul = pos // g.tw1, pos % g.tw1
-                acc = torch.zeros((4, NT, g.ppt1, 4), dtype=x.dtype)
-                for ci0 in range(0, c0, CI):
-                    xs = torch.zeros((CI, g.xh1, g.xw1), dtype=x.dtype)
-                    n_ci = min(CI, c0 - ci0)
-                    for r, c in itertools.product(range(g.xh1), range(g.xw1)):
-                        gr = g.x0r + t0 + r - g.pad_lo1
-                        gc = g.x0c + u0 + c - g.pad_lo1
-                        if 0 <= gr < n_in and 0 <= gc < n_in:
-                            xs[:n_ci, r, c] = x[bb, gr, gc, ci0 : ci0 + n_ci]
-                    ws = weights(k1, ci0, c0, co0, c1_hi, ct)
-                    mac(acc, xs, ws, tl, ul, cgi, g.roff1, g.coff1)
-                for par, th, j, k in itertools.product(
-                        range(4), range(NT), range(g.ppt1), range(4)):
-                    oh = 2 * (t0 + int(tl[th, j])) + (par >> 1)
-                    ow = 2 * (u0 + int(ul[th, j])) + (par & 1)
-                    c = co0 + int(cgi[th]) * 4 + k
-                    if not live[th, j] or oh >= g.m1 or ow >= g.m1 or c >= c1_hi:
-                        continue
-                    y = acc[par, th, j, k]
+            c1_lo = rank // g.n_bands * g.mc
+            c1_hi = min(c1_lo + g.mc, c1)
+            r0 = rank % g.n_bands * g.rpb
+            oh_lo, oh_hi = max(0, r0 - g.pad_lo2), min(g.m1, r0 + g.rpb - g.pad_lo2)
+            t_lo = oh_lo // 2
+            n_sp = (-(-((oh_hi + 1) // 2 - t_lo) // t.th) * g.n_w1
+                    if oh_hi > oh_lo else 0)
+            for tile in range(n_sp * g.nct1):
+                sp = tile % n_sp
+                t0, u0 = t_lo + (sp // g.n_w1) * t.th, (sp % g.n_w1) * t.tw
+                co0 = c1_lo + (tile // n_sp) * 4 * t.ncg
+
+                def stage_x(st):
+                    xs = window(t)
+                    for q4, rr, cc in itertools.product(range(t.ks), range(t.xh),
+                                                        range(t.xwr)):
+                        gr, gc = g.org1r + t0 + rr, g.org1c + u0 + cc
+                        gci = (st * t.ks + q4) * 4
+                        n = min(4, c0 - gci)
+                        if 0 <= gr < n_in and 0 <= gc < n_in and n > 0:
+                            xs[q4, rr, cc, :n] = x[bb, gr, gc, gci : gci + n]
+                    return xs
+
+                def emit(v, orow, ocol, c):
+                    oh, ow, ch = 2 * t0 + orow, 2 * u0 + ocol, co0 + c
+                    if not oh_lo <= oh < oh_hi or ow >= g.m1 or ch >= c1_hi:
+                        return
                     if e1 is not None:
-                        y = e1.apply(y, b1[c] if e1.bias else None)
-                    r, cc = g.pad_lo2 + oh, g.pad_lo2 + ow
-                    iface[c - c1_lo, r, cc] = y
-                    if_writes[bb, c, r, cc] += 1
-            ifaces.append(iface)
+                        v = e1.apply(v, b1[ch] if e1.bias else None)
+                    cl_, rr, cc = ch - c1_lo, g.pad_lo2 + oh, g.pad_lo2 + ow
+                    ifaces[rank][cl_ >> 2, rr - r0, cc, cl_ & 3] = v
+                    if_writes[bb, ch, rr, cc] += 1
+
+                _emulate_tile(t, c0, c1, k1, n_k, co0, g.nst1, g.ring, g.wsels,
+                              r, d, stage_x, emit)
         # ---- consumer: work tiles round-robin over the ranks
-        ct = 4 * g.ncg2
-        groups = NT // g.ncg2
-        pg, cgi = tid % groups, tid // groups   # lanes along positions
+        t = g.t2
         for rank in range(g.cl):
             for work in range(rank, g.n_sp2 * g.n_co2, g.cl):
                 sp = work % g.n_sp2
-                t0, u0 = (sp // g.n_w2) * g.th2, (sp % g.n_w2) * g.tw2
-                co0 = (work // g.n_sp2) * ct
-                pos = pg[:, None] + groups * torch.arange(g.ppt2)
-                live = pos < g.th2 * g.tw2
-                pos = torch.where(live, pos, torch.zeros_like(pos))
-                tl, ul = pos // g.tw2, pos % g.tw2
-                acc = torch.zeros((4, NT, g.ppt2, 4), dtype=x.dtype)
-                for src in range(g.cl):
-                    m_lo, m_hi = src * g.mc, min(src * g.mc + g.mc, c1)
-                    for cc0 in range(m_lo, m_hi, CI):
-                        xs = torch.zeros((CI, g.xh2, g.xw2), dtype=x.dtype)
-                        for ci, r, c in itertools.product(
-                                range(CI), range(g.xh2), range(g.xw2)):
-                            gr, gc = g.b0r + t0 + r, g.b0c + u0 + c
-                            if cc0 + ci < m_hi and gr < g.s2 and gc < g.s2:
-                                xs[ci, r, c] = ifaces[src][cc0 - m_lo + ci, gr, gc]
-                        ws = weights(k2, cc0, m_hi, co0, c2, ct)
-                        mac(acc, xs, ws, tl, ul, cgi, g.roff2, g.coff2)
-                for par, th, j, k in itertools.product(
-                        range(4), range(NT), range(g.ppt2), range(4)):
-                    oh = 2 * (t0 + int(tl[th, j])) + (par >> 1)
-                    ow = 2 * (u0 + int(ul[th, j])) + (par & 1)
-                    c = co0 + int(cgi[th]) * 4 + k
-                    if not live[th, j] or oh >= g.m2 or ow >= g.m2 or c >= c2:
-                        continue
-                    y = acc[par, th, j, k]
+                t0, u0 = (sp // g.n_w2) * t.th, (sp % g.n_w2) * t.tw
+                co0 = (work // g.n_sp2) * 4 * t.ncg
+
+                def stage_x(st):
+                    xs = window(t)
+                    for q4, rr, cc in itertools.product(range(t.ks), range(t.xh),
+                                                        range(t.xwr)):
+                        gq = st * t.ks + q4
+                        gr, gc = g.b0r + t0 + rr, g.b0c + u0 + cc
+                        if gq * 4 < c1 and gr < g.s2 and gc < g.s2:
+                            owner = gq // g.qpr * g.n_bands + gr // g.rpb
+                            xs[q4, rr, cc] = ifaces[owner][gq % g.qpr, gr % g.rpb, gc]
+                    return xs
+
+                def emit(v, orow, ocol, c):
+                    oh, ow, ch = 2 * t0 + orow, 2 * u0 + ocol, co0 + c
+                    if oh >= g.m2 or ow >= g.m2 or ch >= c2:
+                        return
                     if e2 is not None:
-                        y = e2.apply(y, b2[c] if e2.bias else None)
-                    out[bb, oh, ow, c] = y
-                    out_writes[bb, oh, ow, c] += 1
-    stage = max(
-        CI * g.xh1 * g.xw1 + 4 * R * R * CI * 4 * g.ncg1,
-        CI * g.xh2 * g.xw2 + 4 * R * R * CI * 4 * g.ncg2,
-    )
-    smem = 4 * (g.mc * g.s2 * g.s2 + stage)
+                        v = e2.apply(v, b2[ch] if e2.bias else None)
+                    out[bb, oh, ow, ch] = v
+                    out_writes[bb, oh, ow, ch] += 1
+
+                _emulate_tile(t, c1, c2, k2, n_k, co0, g.nst2, g.ring, g.wsels,
+                              r, d, stage_x, emit)
+    wrow = 4 * r * r
+
+    def stage_floats(t):   # a window and the weights
+        return t.ks * t.xh * t.xp * 4 + 4 * t.ks * wrow * 4 * t.ncg
+
+    smem = 4 * (g.qpr * g.rpb * g.s2 * 4
+                + max(g.ring * stage_floats(g.t1), g.ring * stage_floats(g.t2),
+                      pairlib.THREADS * 4 * pairlib.PW * 4))
     return out, if_writes, out_writes, smem
 
 
 EMULATED = [  # (n_in, n_k, P, C0, C1, C2, batch)
     (4, 4, 2, 64, 32, 16, 2),    # reduced DCGAN head pair (scale 16)
     (16, 4, 2, 16, 8, 2, 1),     # reduced DCGAN tail pair
-    (4, 4, 2, 17, 37, 9, 1),     # C1 past one rank's chunk, C2 ragged
+    (4, 4, 2, 17, 37, 9, 1),     # C1 past one rank's quads, C2 ragged
     (5, 3, 1, 3, 5, 2, 2),       # odd extent, n = 3, odd P
-    (7, 5, 3, 2, 10, 5, 1),      # n = 5, odd P = 3; 5 ranks of 2 channels
+    (7, 5, 3, 2, 10, 5, 1),      # n = 5, odd P = 3; 3 ranks
     (32, 4, 2, 2, 2, 2, 1),      # reduced EB-GAN tail pair: tiled planes
+    (4, 4, 2, 256, 64, 8, 1),    # the head producer's in-block split, 8 ring stages
+    (3, 8, 3, 6, 10, 4, 1),      # R = 4 on a small plane: idle threads
+    (16, 4, 2, 8, 4, 2, 1),      # one interface quad: 9 row bands, odd pad_lo2
 ]
 
 
@@ -261,9 +328,74 @@ def test_emulated_pair_kernel_matches_plain(n_in, n_k, pad, c0, c1, c2,
         x, k1, k2, pad, epilogue1=LEAKY, bias1=b1, epilogue2=TANH, bias2=b2)
     np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-10,
                                atol=1e-10)
-    # the launch asks for what the emulated block holds (float4 padding of
-    # the two regions aside)
+    # the launch asks for what the emulated block holds
     assert 0 <= g.smem_bytes - smem < 32
+
+
+def test_emulated_cases_reach_the_designs_corners():
+    """EMULATED reaches an in-block contraction split at a head producer,
+    a ring that wraps, idle threads, 4-byte copies (a ragged C0), more than
+    one cluster rank, and interface row bands."""
+    geos = [pairlib.pair_launch_geometry(*c[:6]) for c in EMULATED]
+    assert any(gg.hp1 <= 4 and gg.ks1 > 1 for gg in geos)
+    assert any(max(gg.nst1, gg.nst2) > gg.ring for gg in geos)
+    assert any(gg.ncg1 * gg.th1 * gg.tw1 // pairlib.PW * gg.ks1 < pairlib.THREADS
+               for gg in geos)
+    assert any(c[3] % 4 for c in EMULATED)
+    assert any(gg.cl > 1 for gg in geos)
+    assert any(gg.n_bands > 1 for gg in geos)
+
+
+@pytest.mark.parametrize("name", sorted(gan.GAN_ZOO))
+def test_pair_geometry_is_batch_free_at_every_zoo_pair(name):
+    """At every full-size Table-4 pair the plan fuses, the kernel's launch
+    arguments at buckets 1-8 differ in the batch alone: partition, tiles,
+    ring and shared memory (and with them every sum's order) come from the
+    pair's shape."""
+    cfg = gan.GAN_ZOO[name]
+    seen = {}
+    for bucket in range(1, 9):
+        plan = planlib.compile_plan(cfg, bucket, epilogues=gan.generator_epilogues(cfg),
+                                    fuse="force")
+        for i, e in enumerate(plan.entries):
+            if not isinstance(e, planlib.FusedPairPlan):
+                continue
+            g = pairlib.pair_launch_geometry(e.first.n_in, e.first.n_k, e.first.padding,
+                                             e.first.cin, e.first.cout, e.second.cout)
+            ints = g.geometry_ints(bucket)
+            assert ints[0] == bucket
+            seen.setdefault(i, set()).add((tuple(ints[1:]), g.smem_bytes))
+    assert seen and all(len(v) == 1 for v in seen.values())
+
+
+def test_card_shape_lists_reach_every_pair_instance():
+    """The card test's PAIR_SHAPES and chip_smoke.py's PAIR_CHECKS each
+    launch every compiled (R, d) instance of the pair kernel, and every one
+    of their shapes fits a block's shared memory."""
+    import os
+    import sys
+    root = os.path.join(os.path.dirname(__file__), "..")
+    sys.path.insert(0, root)
+    try:
+        import chip_smoke
+        from test_torch_cuda import PAIR_SHAPES
+    finally:
+        sys.path.remove(root)
+    for shapes in (PAIR_SHAPES, chip_smoke.PAIR_CHECKS):
+        geos = [pairlib.pair_launch_geometry(s[1], s[2], s[3], *s[4:]) for s in shapes]
+        assert {g.variant for g in geos} == pairlib.pair_variants()
+        assert all(g.smem_bytes <= pairlib.PAIR_SMEM_BUDGET_BYTES for g in geos)
+
+
+def test_fast_division_is_exact_where_the_kernel_uses_it():
+    """The pair kernel divides copy indices (below 2^16) by run-time
+    extents (window planes and rows, quads a rank, rows a band) with a
+    multiply by ``m = floor((2^32 - 1) / d) + 1`` and the high word; exact
+    for every such n and d."""
+    n = np.arange(1 << 16, dtype=np.uint64)
+    for d in range(2, 1 << 12):
+        m = np.uint64(0xFFFFFFFF // d + 1)
+        assert np.array_equal((n * m) >> np.uint64(32), n // np.uint64(d)), d
 
 
 # ------------------------------------------ shared memory budget, legality
@@ -271,13 +403,17 @@ def test_emulated_pair_kernel_matches_plain(n_in, n_k, pad, c0, c1, c2,
 def test_pair_smem_bytes_deterministic_and_monotone():
     a = pairlib.pair_smem_bytes(4, 4, 256, 128, 64, 2)
     assert a == pairlib.pair_smem_bytes(4, 4, 256, 128, 64, 2)
-    # a larger plane grows the interface slice every block holds
-    assert pairlib.pair_smem_bytes(8, 4, 256, 128, 64, 2) > a
-    # more interface channels grow each block's slice
-    assert pairlib.pair_smem_bytes(4, 4, 256, 256, 64, 2) > a
     g = pairlib.pair_launch_geometry(4, 4, 2, 256, 128, 64)
+    # a larger plane grows the interface slice every block holds (the ring
+    # beside it follows each phase's tile: a 4x4 plane stages the widest
+    # weight chunks, so the total need not grow)
+    assert pairlib.pair_launch_geometry(8, 4, 2, 256, 128, 64).iface_bytes > g.iface_bytes
+    # more interface channels grow each block's slice
+    assert pairlib.pair_launch_geometry(4, 4, 2, 256, 256, 64).iface_bytes > g.iface_bytes
     assert g.smem_bytes == a and g.iface_bytes < a
-    assert g.cl * g.mc >= 128 and (g.cl - 1) * g.mc < 128 and g.cl <= 8
+    assert a <= pairlib.PAIR_SMEM_BUDGET_BYTES
+    assert (g.cl * g.mc >= 128 and (g.cl - 1) * g.mc < 128
+            and g.cl <= pairlib.CLUSTER_MAX)
 
 
 def test_zoo_fusion_classification_full_size():
