@@ -12,9 +12,11 @@ Phases, in order; any failure raises and the script exits non-zero:
               off; CUBLAS_WORKSPACE_CONFIG set before torch is imported.
 2. build   -- the six CUDA sources compiled from src/repro_torch/kernels/csrc
               (in parallel), with nvcc's -Xptxas -v report; the registers
-              and spills of each instance of the fused kernel, which must
-              spill nothing, of the pair kernel (8 instances, R x D) and of
-              the dw kernels (2 rich tiles, 4 poor R).
+              and spills of each instance of the fused kernel (16) and of the
+              per-phase kernel (10, (layout, R, ks)), which must spill
+              nothing, of the pair kernel (8 instances, R x D), of the dw
+              kernels (2 rich tiles, 4 poor R) and of the decode kernel (7:
+              bf16 by head dimension, fp32 by G).
 3. check   -- each forward kernel against its plain PyTorch version at the
               four DCGAN layer shapes at batch 8 and at odd geometries, and
               the fused kernel also at FUSED_SHAPES (DCGAN L1 and L3 at
@@ -52,7 +54,10 @@ Phases, in order; any failure raises and the script exits non-zero:
 9. bwd times -- per DCGAN layer at batch 8: each backward kernel, its plain
               version, a one-call library yardstick and the bound.
 10. pair check -- the per-phase kernel against its plain version at the
-              four DCGAN shapes and ODD_SHAPES with every epilogue; the pair
+              four DCGAN shapes, ODD_SHAPES and PHASE_VARIANT_SHAPES (every
+              compiled instance, both copy widths) with every epilogue, and
+              each sample of a batch-8 call bitwise equal to its own batch-1
+              call at the DCGAN shapes; the pair
               kernel against its plain version at both DCGAN pairs (batch
               8), EB-GAN's two legal head pairs (batch 1) and odd
               geometries (every compiled (R, d) instance), with interface
@@ -66,11 +71,12 @@ Phases, in order; any failure raises and the script exits non-zero:
               plain version, a library yardstick (two F.conv_transpose2d +
               activation) and the bound, with graph-replay device times at
               batch 8 and 1; per DCGAN layer: the per-phase kernel and the fused
-              kernel in turns (recorded, not claimed: the per-phase kernel
-              keeps the simple tiles the fused kernel had before its
-              register-tiled redesign, so the pair no longer reads on the
-              paper's unified-versus-segregated claim), the plain version, the
-              library call (by events and by graph replay) and the bound; the
+              kernel in turns, by events and by graph replay (like for like:
+              both are built from the same ring, copies and register
+              micro-tile, and differ only in the unification, so
+              fused_over_phase reads on the paper's unified-over-segregated
+              claim; recorded, not claimed), the plain version, the library
+              call (by events and by graph replay) and the bound; the
               whole generator per bucket
               through fused pairs and per layer, in turns; a profiled fused
               generator call.
@@ -87,11 +93,14 @@ Phases, in order; any failure raises and the script exits non-zero:
 14. decode check -- the decode attention kernel against its plain version
               at the Llama-3-8B (S = 1024 as phase 16 serves it, 4096, and
               32768 as phase 16's long step runs it), Qwen2-0.5B, Yi-9B,
-              CodeQwen1.5 (MHA) and an odd shape (DECODE_CHECKS), fp32 and
-              bf16, kv_len holding 1, S and lengths off the split grid (one
-              past 32 splits among them), within 1e-4 * max|ref| + 1e-5.
+              CodeQwen1.5 (MHA), an odd shape and a cache of 40 splits
+              (DECODE_CHECKS), fp32 and bf16, kv_len holding 1, S and
+              lengths off the split grid (one past 32 splits among them),
+              one ending inside a tile and one on a tile's edge, within
+              1e-4 * max|ref| + 1e-5.
 15. decode times -- at DECODE_TIMES (Llama-3-8B at S = 4096 and 32768,
-              Qwen2-0.5B at 32768; bf16, kv_len = S): the kernel, its plain
+              Qwen2-0.5B at 32768, and Llama-3-8B at the served S = 1024;
+              bf16, kv_len = S): the kernel, its plain
               version and a one-call library yardstick
               (F.scaled_dot_product_attention with enable_gqa and a kv_len
               mask, which the port never calls), each by CUDA events and by
@@ -163,6 +172,16 @@ FUSED_SHAPES = [  # beside DCGAN_SHAPES and ODD_SHAPES, the fused kernel's own
 VARIANT_SHAPES = [(2, 3 + n, n, pad, cin, cout)
                   for n in (2, 4, 5, 7) for pad in (n - 1, n - 2)
                   for cin, cout in ((12, 6), (10, 8), (8, 4), (5, 3))]
+# Two shapes per compiled instance (layout, R, ks) of the per-phase kernel:
+# n = 2R or 2R - 1 with an odd and an even P, on 6 x 6 inputs (rich ks = 1,
+# and poor for Cout <= 4) and on 2 x 2 inputs (planes of at most 4 x 4: rich
+# ks = 4); Cin and Cout multiples of 4 or not, for each copy width.
+PHASE_VARIANT_SHAPES = (
+    [(2, 6, n, pad, cin, cout) for n in (2, 4, 5, 7)
+     for pad, (cin, cout) in ((n - 1, (12, 8)), (n - 2, (10, 6)),
+                              (n - 1, (8, 4)), (n - 2, (5, 3)))]
+    + [(2, 2, n, pad, cin, cout) for n, pads in ((2, (1, 0)), (4, (2, 3)))
+       for pad, (cin, cout) in zip(pads, ((24, 8), (18, 6)))])
 SERVE_RATES = (250.0, 1000.0, 2000.0)   # offered requests/s, open loop
 SERVE_WINDOW_S = 5.0
 TRAIN_TIMED_STEPS, TRAIN_WARMUP_STEPS, TRAIN_WINDOWS = 30, 5, 3
@@ -211,13 +230,15 @@ BWD_SHAPES = DCGAN_SHAPES + ODD_SHAPES + [
 DECODE_CHECKS = [  # (B, S, KV, G, hd) of the decode kernel's check
     (8, 1024, 8, 4, 128),    # Llama-3-8B as phase 16 serves it (max_len 1024)
     (8, 4096, 8, 4, 128),    # Llama-3-8B
-    (8, 32768, 8, 4, 128),   # Llama-3-8B at decode_32k: 128 splits to combine
+    (8, 32768, 8, 4, 128),   # Llama-3-8B at decode_32k: 32 splits to combine
     (8, 4096, 2, 7, 64),     # Qwen2-0.5B
     (8, 4096, 4, 8, 128),    # Yi-9B
     (2, 1024, 32, 1, 128),   # CodeQwen1.5-7B (MHA)
     (3, 1000, 2, 3, 64),     # S not a multiple of the split, odd G
+    (4, 40000, 2, 4, 64),    # 40 splits: a lane of the combine takes two
 ]
-DECODE_TIMES = [(8, 4096, 8, 4, 128), (8, 32768, 8, 4, 128), (8, 32768, 2, 7, 64)]
+DECODE_TIMES = [(8, 4096, 8, 4, 128), (8, 32768, 8, 4, 128), (8, 32768, 2, 7, 64),
+                (8, 1024, 8, 4, 128)]   # the last: Llama-3-8B as phase 16 serves it
 LM_ARCH = "llama3-8b"
 LM_SLOTS, LM_MAX_LEN, LM_REQUESTS = 8, 1024, 16
 LM_LONG = 32768          # the decode_32k cache length of one timed step
@@ -289,18 +310,26 @@ def phase_build() -> dict:
     spilled = [k for k, v in fused.items() if v["spill_stores"] or v["spill_loads"]]
     if spilled:
         raise AssertionError(f"fused kernel instances spill: {spilled}")
-    # the redesigned pair and dw kernels: every instance's registers and
-    # spills (recorded; PERF.md explains any spill)
+    # the per-phase, pair, dw and decode kernels: every instance's registers
+    # and spills (a per-phase instance must spill nothing; PERF.md explains
+    # any other spill)
     instances = {}
     for src, kernel, label, want in (
+            ("transpose_conv2d_phase", "phase_kernelI", "phase {} R{} ks{}", 10),
             ("transpose_conv2d_pair", "pair_kernelI", "pair R{} D{}", 8),
             ("transpose_conv2d_bwd", "dw_kernelI", "dw rich {}x{}", 2),
-            ("transpose_conv2d_bwd", "dw_poor_kernelI", "dw poor R{}", 4)):
+            ("transpose_conv2d_bwd", "dw_poor_kernelI", "dw poor R{}", 4),
+            ("decode_attention", "split_kernelI", "decode {} G{} hd{}", 7)):
         found = {}
         for fn, rep in _build.ptxas_report(logs[src]).items():
             if kernel not in fn:
                 continue
-            key = label.format(*_build.template_args(fn.split(kernel, 1)[1]))
+            args = _build.template_args(fn.split(kernel, 1)[1])
+            if kernel == "phase_kernelI":
+                args = ("rich" if args[0] == 0 else "poor",) + args[1:]
+            elif kernel == "split_kernelI":
+                args = ("bf16" if "bfloat16" in fn else "fp32",) + args
+            key = label.format(*args)
             found[key] = rep
             log(f"[build] {key}: {rep['registers']} registers, {rep['stack']} bytes "
                 f"stack, {rep['spill_stores']} bytes spill stores, "
@@ -308,6 +337,10 @@ def phase_build() -> dict:
         if len(found) != want:
             raise AssertionError(f"expected {want} {kernel} instances, got {sorted(found)}")
         instances.update(found)
+    spilled = [k for k, v in instances.items()
+               if k.startswith("phase") and (v["spill_stores"] or v["spill_loads"])]
+    if spilled:
+        raise AssertionError(f"per-phase kernel instances spill: {spilled}")
     return {"logs": logs, "fused_ptxas": fused, "ptxas": instances}
 
 
@@ -875,6 +908,7 @@ def _counters():
 
     wrappers = {name: fns[0] for name, fns in kernels().items()}
     return wrappers, {"fused_reduce": wrappers["fused"],
+                      "phase_reduce": wrappers["phase"],
                       "dx_reduce": bw.transpose_conv2d_dx,
                       "dw_reduce": bw.transpose_conv2d_dw,
                       "decode_reduce": da.decode_attention}
@@ -1030,10 +1064,12 @@ def _tag(epi) -> str:
 
 
 def phase_pair_check(torch) -> tuple:
-    """The per-phase kernel and the pair kernel against their plain
+    """The per-phase kernel (at every compiled instance, and bitwise batch
+    invariant at the DCGAN shapes) and the pair kernel against their plain
     versions; the over-budget pair refused. Returns the worst errors and,
     per checked pair shape, its cluster size and how many such clusters
     the card runs at once."""
+    from repro_torch.kernels import transpose_conv2d as tcf
     from repro_torch.kernels.epilogue import Epilogue
     from repro_torch.kernels.transpose_conv2d_pair import (
         max_active_clusters,
@@ -1045,7 +1081,14 @@ def phase_pair_check(torch) -> tuple:
     worst = {"phase": 0.0, "pair": 0.0}
     clusters = {}
     launch, plain = kernels(("phase",))["phase"]
-    for i, shape in enumerate(DCGAN_SHAPES + ODD_SHAPES):
+    phase_shapes = DCGAN_SHAPES + ODD_SHAPES + PHASE_VARIANT_SHAPES
+    geos = [tcf.phase_geometry(*s) for s in phase_shapes]
+    if ({g.variant for g in geos} != tcf.phase_variants() or any(
+            not {(g.vx, g.vw) for g in geos if g.variant == v} >= {(True, True), (False, False)}
+            for v in tcf.phase_variants())):
+        raise AssertionError("the check shapes miss an instance or a copy width of the "
+                             "per-phase kernel")
+    for i, shape in enumerate(phase_shapes):
         x, k, bias = _inputs(torch, shape, seed=400 + i)
         pad = shape[3]
         for epi in epilogues():
@@ -1054,8 +1097,20 @@ def phase_pair_check(torch) -> tuple:
                    [(launch(x, k, pad, epilogue=epi, bias=b),
                      plain(x, k, pad, epilogue=epi, bias=b))], worst)
         torch.cuda.synchronize()
-        log(f"[pair-check] phase {shape}: every epilogue within tolerance; "
-            f"worst so far {worst['phase']:.3e}")
+        g = geos[i]
+        log(f"[pair-check] phase {shape} {g.variant} splits {g.splits} vx {int(g.vx)} "
+            f"vw {int(g.vw)}: every epilogue within tolerance; worst so far "
+            f"{worst['phase']:.3e}")
+        if shape in DCGAN_SHAPES:   # each sample's bits are its own batch-1 call's
+            epi = Epilogue(True, "tanh" if shape == DCGAN_SHAPES[-1] else "relu")
+            batched = launch(x, k, pad, epilogue=epi, bias=bias)
+            for j in range(shape[0]):
+                if not torch.equal(launch(x[j:j + 1], k, pad, epilogue=epi, bias=bias)[0],
+                                   batched[j]):
+                    raise AssertionError(f"per-phase kernel at {shape}: sample {j} of the "
+                                         "batch differs from its own batch-1 call")
+            log(f"[pair-check] phase {shape}: every sample bitwise equal to its "
+                f"batch-1 call")
     launch, plain = kernels(("pair",))["pair"]
     if ({pair_launch_geometry(*s[1:3], s[3], *s[4:]).variant for s in PAIR_CHECKS}
             != pair_variants()):
@@ -1119,6 +1174,7 @@ def phase_pair_times(torch) -> dict:
     import torch.nn.functional as F
 
     from repro_torch.kernels import plan as planlib
+    from repro_torch.kernels import transpose_conv2d as tcf
     from repro_torch.kernels.epilogue import Epilogue
     from repro_torch.kernels.transpose_conv2d_pair import pair_smem_bytes
     from repro_torch.models import gan
@@ -1163,6 +1219,7 @@ def phase_pair_times(torch) -> dict:
         row["pair_b1_ms"] = time_cuda(pair, x[:1], k1, k2, pad, **kw)
         row["back_to_back_b1_ms"] = time_cuda(back_to_back, x[:1], k1, k2, b1, b2)
         x1 = x[:1].contiguous()
+        row["library_b1_ms"] = time_cuda(library, lib_args[0][:1].contiguous(), *lib_args[1:])
         row["device_us"] = {
             "pair": _device_us(torch, pair, x, k1, k2, pad, **kw),
             "back_to_back": _device_us(torch, back_to_back, x, k1, k2, b1, b2),
@@ -1180,7 +1237,8 @@ def phase_pair_times(torch) -> dict:
             f" us, library {row['library_ms'] * 1e3:.2f} us, bound "
             f"{row['bound_ms'] * 1e3:.2f} us ({row['bound_by']}); at batch 1 pair "
             f"{row['pair_b1_ms'] * 1e3:.2f} us, back-to-back "
-            f"{row['back_to_back_b1_ms'] * 1e3:.2f} us; device-only us "
+            f"{row['back_to_back_b1_ms'] * 1e3:.2f} us, library "
+            f"{row['library_b1_ms'] * 1e3:.2f} us; device-only us "
             f"{row['device_us']}; {row['smem_bytes']} B shared memory a block")
 
     phase, phase_plain = kernels(("phase",))["phase"]
@@ -1195,30 +1253,40 @@ def phase_pair_times(torch) -> dict:
         def library(xx, ww, bb, _pad=n_k - 1 - pad, _act=act):
             return _act(F.conv_transpose2d(xx, ww, bb, stride=2, padding=_pad))
 
-        # in turns, so drift hits both alike: phase, fused, fused, phase
+        # in turns, so drift hits both alike: phase, fused, fused, phase,
+        # by events and by graph replay
         turns = {"phase": [], "fused": []}
+        graph = {"phase": [], "fused": []}
         for name in ("phase", "fused", "fused", "phase"):
             fn = phase if name == "phase" else fused
             turns[name].append(time_cuda(fn, x, k, pad, epilogue=epi, bias=bias))
+            graph[name].append(_device_us(torch, fn, x, k, pad, epilogue=epi, bias=bias))
+        g = tcf.phase_geometry(*shape)
         row = {"layer": f"L{i}", "shape": shape, **_bound(shape),
+               "phase_variant": list(g.variant), "phase_splits": g.splits,
                "phase_turns_ms": turns["phase"], "fused_turns_ms": turns["fused"],
+               "phase_graph_turns_us": graph["phase"], "fused_graph_turns_us": graph["fused"],
                "phase_ms": sum(turns["phase"]) / 2, "fused_ms": sum(turns["fused"]) / 2,
                "phase_plain_ms": time_cuda(phase_plain, x, k, pad, epilogue=epi,
                                            bias=bias, iters=5),
                "library_ms": time_cuda(library, x.permute(0, 3, 1, 2).contiguous(),
                                        _flipped(torch, k), bias),
                "device_us": {
-                   "phase": _device_us(torch, phase, x, k, pad, epilogue=epi, bias=bias),
-                   "fused": _device_us(torch, fused, x, k, pad, epilogue=epi, bias=bias),
+                   "phase": sum(graph["phase"]) / 2, "fused": sum(graph["fused"]) / 2,
                    "library": _device_us(torch, library,
                                          x.permute(0, 3, 1, 2).contiguous(),
                                          _flipped(torch, k), bias)}}
         row["fused_over_phase"] = row["fused_ms"] / row["phase_ms"]
+        row["fused_over_phase_graph"] = row["device_us"]["fused"] / row["device_us"]["phase"]
         layers.append(row)
-        log(f"[pair-times] L{i} {shape}: phase {row['phase_ms'] * 1e3:.2f} us "
+        log(f"[pair-times] L{i} {shape}: phase {g.variant} splits {g.splits} "
+            f"{row['phase_ms'] * 1e3:.2f} us "
             f"{[round(t * 1e3, 2) for t in turns['phase']]}, fused "
             f"{row['fused_ms'] * 1e3:.2f} us {[round(t * 1e3, 2) for t in turns['fused']]}"
-            f" (fused / phase {row['fused_over_phase']:.3f}), plain "
+            f" (fused / phase {row['fused_over_phase']:.3f}; graph "
+            f"{[round(t, 2) for t in graph['phase']]} against "
+            f"{[round(t, 2) for t in graph['fused']]}, fused / phase "
+            f"{row['fused_over_phase_graph']:.3f}), plain "
             f"{row['phase_plain_ms'] * 1e3:.2f} us, library {row['library_ms'] * 1e3:.2f}"
             f" us, bound {row['bound_ms'] * 1e3:.2f} us ({row['bound_by']}); device-only"
             f" us {row['device_us']}")
@@ -1386,22 +1454,25 @@ def phase_pair_autograd(torch) -> dict:
 def _decode_inputs(torch, shape, dtype, seed):
     """q, k, v of a decode shape ``(B, S, KV, G, hd)`` in ``dtype``, and a
     kv_len (int32) holding 1, S and, from three rows on, a length just past
-    a split boundary and, from four rows on, one just past 32 splits (where
-    a lane of the combine pass takes two splits); the other rows random."""
+    a split boundary (inside a tile), from four rows on one just past 32
+    splits (where a lane of the combine pass takes two splits), from five
+    rows on one on a tile's edge inside a split, from six rows on one inside
+    a tile of a split's second half; the other rows random."""
     import numpy as np
 
-    from repro_torch.kernels.decode_attention import SPLIT_LEN
+    from repro_torch.kernels.decode_attention import decode_geometry
 
     b, s_len, kvh, g, hd = shape
+    geo = decode_geometry(s_len, hd, g, dtype)
     gen = torch.Generator(device="cuda").manual_seed(seed)
     q, k, v = (torch.randn(sh, device="cuda", generator=gen).to(dtype)
                for sh in ((b, kvh, g, hd), (b, s_len, kvh, hd), (b, s_len, kvh, hd)))
     lens = np.random.default_rng(seed).integers(1, s_len + 1, size=b)
     lens[0], lens[-1] = 1, s_len
-    if b > 2:
-        lens[1] = min(SPLIT_LEN + 3, s_len)
-    if b > 3:
-        lens[2] = min(32 * SPLIT_LEN + 5, s_len)
+    special = [geo.split_len + 3, 32 * geo.split_len + 5, geo.split_len + 2 * geo.tile,
+               3 * geo.split_len + geo.split_len // 2 + 7]
+    for i, n in enumerate(special[: b - 2]):
+        lens[1 + i] = min(n, s_len)
     return q, k, v, torch.tensor(lens, dtype=torch.int32, device="cuda")
 
 

@@ -1,8 +1,9 @@
 // Building blocks shared by the hand-written transpose-conv kernels for
 // sm_90a: the epilogue activation, the cp.async copies that stage tiles into
 // shared memory (16-byte, or 4-byte for a ragged or unaligned channel run,
-// zero-filled past the data), and the register micro-tile of the unified
-// kernel-segregated form.
+// zero-filled past the data), the register micro-tiles of the unified
+// kernel-segregated form (mac_c4, four parities) and of the per-phase form
+// (mac_p1, one parity), and the second pass of a Cin split.
 //
 // The micro-tile (mac_c4). A thread owns 4 output parities x kPW consecutive
 // positions of one phase-plane row x 4 output channels: 64 fp32
@@ -26,6 +27,21 @@
 // into a layout that scatters a line's pieces (probes/staging_bandwidth.cu).
 // Tap, parity and position loops unroll against compile-time R and D, so
 // the patch stays in registers.
+//
+// The per-phase micro-tile (mac_p1). A thread owns kPH consecutive rows x
+// kPW consecutive positions of ONE parity's phase plane x 4 output
+// channels: 64 fp32 accumulators, acc[row][position][channel]. Its staged
+// input is that parity's own window, so every row tap p of every output row
+// reads a different input row: for each tap row p it holds the 4 R weight
+// float4s of (q, channel of the quad) in registers, then walks the kPH
+// output rows, loading each one's input row (a patch of kPW + R - 1 pixels)
+// and applying all R column taps. Each weight float4 feeds 64 FMAs, each
+// patch float4 up to 16 R; per channel quad that is 256 R^2 FMAs against
+// 4 R^2 weight and 4 R (R + 3) patch loads from shared memory: 12.8, 18.3,
+// 21.3 and 23.3 FMAs a 128-bit load at R = 1..4. The staged window skews
+// its columns, pixel c at c + c/4: a thread's first column is a multiple of
+// kPW, so 8 threads whose position groups sit side by side on a row read 8
+// different 16-byte bank groups (without the skew they would share 2).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -33,6 +49,7 @@
 namespace tconv {
 
 constexpr int kPW = 4;   // positions along a phase-plane row a thread
+constexpr int kPH = 4;   // phase-plane rows a thread (mac_p1)
 
 __device__ __forceinline__ float activate(float y, int act, float slope) {
   switch (act) {
@@ -128,5 +145,80 @@ __device__ __forceinline__ void mac_c4(const float* xc, int xw, const float* wc,
     }
   }
 }
+
+// The staged column of pixel column c in mac_p1's skewed window.
+__host__ __device__ constexpr int skew(int c) { return c + (c >> 2); }
+
+// One staged input channel quad into one parity's 64 accumulators. xc: the
+// quad's staged window at the thread's first row and (skewed) column; xp:
+// the window's row pitch in pixels; wc: the quad's first channel in the
+// staged weights [ci][p][q][Cout tile] plus the thread's channel offset;
+// wci: floats between channels; wtap: floats between taps (p * R + q).
+template <int R>
+__device__ __forceinline__ void mac_p1(const float* xc, int xp, const float* wc,
+                                       int wci, int wtap, float (&acc)[kPH][kPW][4]) {
+  constexpr int PC = kPW + R - 1;   // register patch columns
+#pragma unroll
+  for (int p = 0; p < R; ++p) {
+    float4 wq[R][4];
+#pragma unroll
+    for (int q = 0; q < R; ++q)
+#pragma unroll
+      for (int cc = 0; cc < 4; ++cc)
+        wq[q][cc] = *reinterpret_cast<const float4*>(wc + cc * wci + (p * R + q) * wtap);
+#pragma unroll
+    for (int tr = 0; tr < kPH; ++tr) {
+      float4 xr[PC];
+#pragma unroll
+      for (int kap = 0; kap < PC; ++kap)
+        xr[kap] = *reinterpret_cast<const float4*>(xc + ((tr + p) * xp + skew(kap)) * 4);
+#pragma unroll
+      for (int q = 0; q < R; ++q) {
+#pragma unroll
+        for (int cc = 0; cc < 4; ++cc) {
+          const float4 wv = wq[q][cc];
+#pragma unroll
+          for (int j = 0; j < kPW; ++j) {
+            const float xv = component(xr[j + q], cc);
+            acc[tr][j][0] = fmaf(xv, wv.x, acc[tr][j][0]);
+            acc[tr][j][1] = fmaf(xv, wv.y, acc[tr][j][1]);
+            acc[tr][j][2] = fmaf(xv, wv.z, acc[tr][j][2]);
+            acc[tr][j][3] = fmaf(xv, wv.w, acc[tr][j][3]);
+          }
+        }
+      }
+    }
+  }
+}
+
+namespace {   // each library that includes this compiles its own copy
+
+// Second pass of a Cin split: out = act(sum over splits, in split order,
+// of the partial sums + bias).
+__global__ void reduce_splits_kernel(const float* __restrict__ part,
+                                     const float* __restrict__ bias,
+                                     float* __restrict__ out, long long total,
+                                     int Cout, int splits, int act, float slope) {
+  for (long long e = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
+       e < total; e += static_cast<long long>(gridDim.x) * blockDim.x) {
+    float y = part[e];
+    for (int s = 1; s < splits; ++s) y += part[s * total + e];
+    if (bias != nullptr) y += bias[e % Cout];
+    out[e] = activate(y, act, slope);
+  }
+}
+
+// Launch reduce_splits_kernel over the (B, M, M, Cout) output: at most 16
+// blocks of 256 threads an SM of an H100.
+inline cudaError_t reduce_splits(const float* part, const float* bias, float* out,
+                                 long long total, int Cout, int splits, int act,
+                                 float slope, cudaStream_t stream) {
+  const long long blocks = (total + 255) / 256;
+  reduce_splits_kernel<<<static_cast<int>(blocks < 132 * 16 ? blocks : 132 * 16), 256, 0,
+                         stream>>>(part, bias, out, total, Cout, splits, act, slope);
+  return cudaGetLastError();
+}
+
+}  // namespace
 
 }  // namespace tconv

@@ -64,8 +64,9 @@
 //   (a 4-channel x 16x32-position tile; weight loads are broadcasts).
 //   Where a layer's image holds too few blocks to fill the card, Cin is
 //   split across blocks by a count fixed by the layer's shape alone; each
-//   split writes its partial sums to scratch and reduce_splits_kernel adds
-//   them in split order, then applies bias and activation.
+//   split writes its partial sums to scratch and the header's
+//   reduce_splits_kernel adds them in split order, then applies bias and
+//   activation.
 // The copies and the micro-tile are tconv_microkernel.cuh's, which the pair
 // kernel compiles too.
 // Every output's sum runs over (split, chunk, channel group, p, q, channel
@@ -325,21 +326,6 @@ fused_kernel(const float* __restrict__ x, const float* __restrict__ w,
   }
 }
 
-// Second pass of a Cin split: out = act(sum over splits, in split order,
-// of the partial sums + bias).
-__global__ void reduce_splits_kernel(const float* __restrict__ part,
-                                     const float* __restrict__ bias,
-                                     float* __restrict__ out, long long total,
-                                     int Cout, int splits, int act, float slope) {
-  for (long long e = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
-       e < total; e += static_cast<long long>(gridDim.x) * blockDim.x) {
-    float y = part[e];
-    for (int s = 1; s < splits; ++s) y += part[s * total + e];
-    if (bias != nullptr) y += bias[e % Cout];
-    out[e] = activate(y, act, slope);
-  }
-}
-
 // The two layouts and their Cin chunks.
 constexpr int layout_ncg(int L) { return L == 0 ? 16 : 1; }
 constexpr int layout_npg(int L) { return L == 0 ? 16 : 128; }
@@ -381,11 +367,8 @@ cudaError_t launch(const Launch& l) {
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || l.a.splits == 1) return e;
   const long long total = static_cast<long long>(l.a.B) * l.a.M * l.a.M * l.a.Cout;
-  const long long blocks = (total + 255) / 256;
-  reduce_splits_kernel<<<static_cast<int>(blocks < 132 * 16 ? blocks : 132 * 16), 256,
-                         0, l.stream>>>(l.part, l.bias, l.out, total, l.a.Cout,
-                                        l.a.splits, l.a.act, l.a.slope);
-  return cudaGetLastError();
+  return tconv::reduce_splits(l.part, l.bias, l.out, total, l.a.Cout, l.a.splits,
+                              l.a.act, l.a.slope, l.stream);
 }
 
 template <int L, int R>

@@ -21,11 +21,17 @@ keeps it in ``[1, S]`` (the kernel clamps it to ``[0, S]`` to stay inside
 the cache; a row with ``kv_len`` 0 gives zeros there, and the mean of ``v``
 in the plain version, as in the reference).
 
-The kernel's launch geometry, its lane layout included, is computed here
-(:func:`decode_geometry`) as a function of ``S``, ``hd``, ``G`` and the
-dtype alone, never of the batch, and passed to the kernel, which derives
-none of it: the CPU tests emulate the layout the kernel runs, and a row's
-bits do not depend on the other rows.
+The kernel walks each split of the cache in tiles of K and V staged
+together through a cp.async ring; each warp takes a quarter of every tile
+and carries the online softmax's (m, l, acc) across tiles, and the warps
+merge in order at the end of the split. bf16 scores and P.V run on tensor
+cores (``mma.sync``; P enters as a bf16 hi and lo pair, 16 bits, never as
+one bf16), fp32 ones on FMAs. Its launch
+geometry -- tile, ring depth, split length and count, shared memory -- is
+computed here (:func:`decode_geometry`) as a function of ``S``, ``hd``,
+``G`` and the dtype alone, never of the batch, and passed to the kernel,
+which checks it and derives none of it: the CPU tests emulate the layout
+the kernel runs, and a row's bits do not depend on the other rows.
 """
 from __future__ import annotations
 
@@ -38,11 +44,16 @@ import torch
 from repro_torch.kernels import _build
 
 NEG_INF = -1e30
-SPLIT_LEN = 256      # cache positions a block of the first pass walks
 WARPS = 4            # the kernel's WARPS: 128 threads a block
-UNROLL = 4           # the kernel's UNROLL: positions a lane loads before using any
+THREADS = 32 * WARPS
+STAGES = 2           # the kernel's STAGES: depth of the K/V tile ring
+TILE_BYTES = 17408   # staged bytes of K (and of V) a tile may take: 64 rows of 272
+MAX_TILE = 128       # positions a tile, at most (a power of two)
+MIN_TILE = {2: 64, 4: 32}   # ... at least, by element bytes: a bf16 warp's 16 for P.V's mma
+MIN_SPLIT_TILES = 4  # tiles a split of the sequence: at least ...
+MAX_SPLIT_TILES = 16  # ... and at most
 MAX_G = 8            # grouped queries a KV head the kernel takes
-SMEM_LIMIT = 48 * 1024   # shared memory a block may take without opting in
+SMEM_LIMIT = 232_448     # bytes of shared memory one block may take on Hopper
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -57,45 +68,73 @@ class DecodeGeometry:
     s_len: int
     hd: int
     g: int
-    vec: int                 # elements a lane loads at once: 16 bytes
-    lanes: int               # lanes a cache position: a power of two >= hd / vec
-    positions_per_warp: int  # 32 // lanes
-    step: int                # positions the block covers per unrolled slot
-    chunk: int               # positions the block covers per loop step
-    split_len: int
+    elem: int                # bytes of an element: 2 (bf16) or 4 (fp32)
+    tile: int                # positions a ring stage holds, of K and of V
+    split_len: int           # positions a block walks: 4 to 16 tiles, by S
     n_splits: int            # ceil(S / split_len): a function of S alone
-    max_g: int               # the kernel instance: G rounded up to 1, 2, 4 or 8
+    pitch: int               # bytes of a staged K or V row: hd * elem + 16
+    chunks: int              # 16-byte copies a row
+    n_dv: int                # 4-byte groups of a V row; lane l takes l, l + 32, ...
+    max_g: int               # fp32 instance: G rounded up to 1, 2, 4 or 8; bf16: 8
     smem_bytes: int
+
+    @property
+    def threads(self) -> int:
+        return THREADS
+
+    @property
+    def warp_positions(self) -> int:
+        """Positions of each tile a warp takes (and carries over alone)."""
+        return self.tile // WARPS
+
+    def split_ints(self, batch: int, kv_heads: int) -> list:
+        """The integer arguments of decode_attention_split before the
+        scale, in order."""
+        return [batch, self.s_len, kv_heads, self.g, self.hd, self.tile,
+                self.split_len, self.n_splits, self.pitch, self.n_dv]
 
 
 @functools.lru_cache(maxsize=None)
 def decode_geometry(s_len: int, hd: int, g: int, dtype: torch.dtype) -> DecodeGeometry:
     """The kernel's geometry, or ``ValueError`` for a shape it does not
-    take: ``hd`` a multiple of 16 bytes of the dtype and at most 512 bytes
-    (one warp a row), ``1 <= G <= 8``."""
+    take: ``hd`` a multiple of 16 bytes (16 elements for bf16, whose scores
+    take 16-deep tensor-core steps) and at most 512 bytes, ``1 <= G <= 8``.
+
+    A tile is the largest power of two of positions, MIN_TILE to MAX_TILE,
+    whose staged K rows take at most TILE_BYTES (hd and the dtype alone). A
+    split is the largest power-of-two multiple of the tile, from
+    MIN_SPLIT_TILES to MAX_SPLIT_TILES tiles, that keeps at least four
+    splits in S (S alone): long caches walk long splits, a short one still
+    spreads over the card. Never the batch. The bf16 instances take their
+    query rows as the mma's rows, so any G <= 8 runs as max_g 8; the fp32
+    ones round G up.
+    """
     if dtype not in _DTYPES:
         raise TypeError(f"the decode kernel takes float32 or bfloat16, got {dtype}")
     elem = torch.finfo(dtype).bits // 8
-    vec = 16 // elem
-    if hd % vec or hd * elem > 512:
+    step = 16 if elem == 2 else 4
+    if hd % step or hd * elem > 512:
         raise ValueError(f"the decode kernel takes a head_dim that is a multiple "
-                         f"of {vec} and at most {512 // elem}, got {hd}")
+                         f"of {step} and at most {512 // elem}, got {hd}")
     if not 1 <= g <= MAX_G:
         raise ValueError(f"the decode kernel takes 1 to {MAX_G} grouped queries, got {g}")
-    lanes = 1
-    while lanes * vec < hd:
-        lanes *= 2
-    ppw = 32 // lanes
-    step = WARPS * ppw
-    max_g = 1
+    row = hd * elem
+    pitch = row + 16
+    tile = MAX_TILE
+    while tile > MIN_TILE[elem] and tile * pitch > TILE_BYTES:
+        tile //= 2
+    max_g = 1 if elem == 4 else MAX_G
     while max_g < g:
         max_g *= 2
-    split_len = SPLIT_LEN
-    floats = g * hd + g * max(split_len, WARPS * hd) + 2 * g
+    split_len = MIN_SPLIT_TILES * tile
+    while 2 * split_len <= min(s_len // 4, MAX_SPLIT_TILES * tile):
+        split_len *= 2
+    n_dv = row // 4
+    smem = STAGES * 2 * tile * pitch + 4 * (max_g * tile + g * hd + 3 * WARPS * max_g)
     return DecodeGeometry(
-        s_len=s_len, hd=hd, g=g, vec=vec, lanes=lanes, positions_per_warp=ppw,
-        step=step, chunk=step * UNROLL, split_len=split_len,
-        n_splits=_cdiv(s_len, split_len), max_g=max_g, smem_bytes=4 * floats)
+        s_len=s_len, hd=hd, g=g, elem=elem, tile=tile,
+        split_len=split_len, n_splits=_cdiv(s_len, split_len), pitch=pitch,
+        chunks=row // 16, n_dv=n_dv, max_g=max_g, smem_bytes=smem)
 
 
 def decode_attention_ref(q, k, v, kv_len) -> torch.Tensor:
@@ -114,7 +153,7 @@ def decode_attention_ref(q, k, v, kv_len) -> torch.Tensor:
 def _lib():
     lib = _build.load("decode_attention")
     lib.decode_attention_split.argtypes = (
-        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 11 + [ctypes.c_float]
+        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 10 + [ctypes.c_float]
         + [ctypes.c_int] * 3 + [ctypes.c_void_p])
     lib.decode_attention_combine.argtypes = (
         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
@@ -176,10 +215,8 @@ def decode_attention(q, k, v, kv_len) -> torch.Tensor:
     with torch.cuda.device(dev):
         err = _lib().decode_attention_split(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(),
-            ptr(part_acc), ptr(part_ml), out.data_ptr(), b, s_len, kvh, g, hd,
-            geo.lanes, geo.positions_per_warp, geo.step, geo.chunk,
-            geo.split_len, geo.n_splits, hd ** -0.5, geo.max_g,
-            _DTYPES[q.dtype], geo.smem_bytes, stream)
+            ptr(part_acc), ptr(part_ml), out.data_ptr(), *geo.split_ints(b, kvh),
+            hd ** -0.5, geo.max_g, _DTYPES[q.dtype], geo.smem_bytes, stream)
         _check(err, "decode_attention")
         decode_attention.launches += 1
         if geo.n_splits > 1:

@@ -26,10 +26,14 @@ kernel launches, ``.reduce_launches`` the split passes.
 
 The per-phase kernel (``csrc/transpose_conv2d_phase.cu``) computes the same
 function with one output parity per block, each block staging its own input
-window (:func:`phase_geometry`): the segregated form the paper's unified
-kernel is measured against. :func:`transpose_conv2d_phase` and
+window and its one sub-kernel: the segregated form the paper's unified
+kernel is measured against, built from the fused kernel's machinery (the
+cp.async ring, a single-parity register micro-tile of 4 rows x
+``FUSED_PW`` positions x 4 channels, layouts by Cout, shape-only Cin
+splits) with only the unification taken out (:func:`phase_geometry`,
+:data:`PHASE_LAYOUTS`). :func:`transpose_conv2d_phase` and
 :func:`transpose_conv2d_phase_plain` follow the same rules, with
-``transpose_conv2d_phase.launches``.
+``transpose_conv2d_phase.launches`` and ``.reduce_launches``.
 """
 from __future__ import annotations
 
@@ -48,9 +52,6 @@ from repro_torch.kernels import epilogue as epilib
 H100_SMS = 132           # streaming multiprocessors of one H100 SXM
 SMEM_LIMIT = 232_448     # bytes of shared memory one block may use on Hopper
 MAX_R = 4                # the kernels are built for R = ceil(n/2) of 1..4
-# The per-phase kernel's tiles (phase_geometry).
-POSITIONS_PER_BLOCK = 64  # 32 position groups x 2 positions per thread
-CIN_CHUNK = 16            # kCinChunk of the per-phase kernel
 # The fused kernel's constants (kStages, kPW and the layouts of its source).
 FUSED_STAGES = 3         # depth of the cp.async ring
 FUSED_PW = 4             # positions along a phase-plane row a thread
@@ -237,18 +238,6 @@ def fused_geometry(batch: int, n_in: int, n_k: int, padding: int, cin: int,
     )
 
 
-def _cout_tile(cout: int, blocks_per_cout_tile: int) -> int:
-    """The per-phase kernel's Cout tile: the smallest of 4/8/16/32 that
-    covers Cout, halved (not below 8) while the grid has fewer than two
-    blocks per SM."""
-    ct = 4
-    while ct < min(cout, 32):
-        ct *= 2
-    while ct > 8 and blocks_per_cout_tile * _cdiv(cout, ct) < 2 * H100_SMS:
-        ct //= 2
-    return ct
-
-
 def transpose_conv2d_fused_plain(x, kernel, padding: int = 0, *,
                                  epilogue=None, bias=None) -> torch.Tensor:
     """The kernel's function in plain PyTorch: the same phase origins,
@@ -384,8 +373,48 @@ transpose_conv2d_fused.reduce_launches = 0
 # ------------------------------------------------------------ per-phase form
 
 @dataclasses.dataclass(frozen=True)
+class PhaseLayout:
+    """A thread layout of the per-phase kernel: ``ncg`` channel groups of 4
+    x ``threads / ncg`` warp rows, each taking a position group of
+    ``FUSED_PW`` x ``PHASE_PH`` positions or, with ``ks`` slices, a share
+    of every Cin chunk; ``pgw`` position groups along a tile row."""
+
+    name: str
+    code: int        # the layout argument of tconv_phase_f32
+    ncg: int
+    threads: int
+
+    def pgw(self, ks: int) -> int:
+        return (2 if ks == 1 else 1) if self.name == "rich" else 8
+
+    def ci_chunk(self, r: int, ks: int) -> int:
+        """Cin channels a ring stage holds: 16 for a rich ks = 4 (a quad
+        each warp), else 8 for a rich R <= 2, else 4."""
+        if self.name == "poor":
+            return 4
+        return 16 if ks == 4 else 8 if r <= 2 else 4
+
+
+PHASE_LAYOUTS = {
+    "rich": PhaseLayout("rich", 0, ncg=32, threads=128),   # 128 ch x 8x8 or 4x4
+    "poor": PhaseLayout("poor", 1, ncg=1, threads=64),     # 4 ch x 32x32
+}
+PHASE_PH = 4               # the micro-tile's phase-plane rows (kPH)
+PHASE_STAGES = 3           # depth of the per-phase kernel's cp.async ring
+PHASE_SPLIT_TARGET = 32    # blocks per image a per-phase Cin split aims for
+PHASE_KS_MAX_R = 2         # ks = 4 instances exist for R up to this
+
+
+def _skew(c: int) -> int:
+    """The staged column of pixel column ``c``: a 16-byte gap after every
+    4 pixels, so side-by-side position groups read distinct bank groups."""
+    return c + (c >> 2)
+
+
+@dataclasses.dataclass(frozen=True)
 class PhaseGeometry:
-    """Launch geometry of the per-phase kernel for one layer shape."""
+    """Launch geometry of the per-phase kernel for one layer shape. Only
+    ``batch`` (the grid's last axis) depends on the batch."""
 
     batch: int
     m: int            # output extent 2N - n + 2P
@@ -395,36 +424,91 @@ class PhaseGeometry:
     row0s: tuple      # padded-input origin of each output row parity
     col0s: tuple
     wsels: tuple      # output parity 2*pr+pc -> stacked sub-kernel index
+    layout: str       # "rich" or "poor" (PHASE_LAYOUTS)
+    ks: int           # warp slices of each Cin chunk (4 on planes up to 4x4)
+    ncg: int          # channel groups of 4 a block
+    threads: int
     th: int           # phase-plane tile (rows x cols)
     tw: int
     n_h: int
     n_w: int
-    xh: int           # staged input window th + R - 1 (likewise xw)
+    xh: int           # staged window th + R - 1 (likewise xw)
     xw: int
-    ct: int           # Cout tile: 4, 8, 16 or 32
+    x_pitch: int      # staged columns of a window row, skewed
+    ct: int           # Cout tile: 4 * ncg
     n_co: int
-    ci_chunk: int     # cin channels staged a step
+    ci_chunk: int     # Cin channels a ring stage holds
+    n_chunks: int
+    splits: int       # Cin splits across blocks (1: no second pass)
+    stages: int
+    vx: bool          # 16-byte input copies (Cin a multiple of 4)
+    vw: bool          # 16-byte weight copies and stores (Cout a multiple of 4)
     smem_bytes: int
 
     @property
     def grid(self) -> tuple:
-        """``(spatial tiles, Cout tiles, 4 * batch)``: the last axis is
-        ``batch * 4 + output parity``."""
-        return (self.n_h * self.n_w, self.n_co, 4 * self.batch)
+        """``(spatial tiles, splits * Cout tiles, 4 * batch)``: the last
+        axis is ``batch * 4 + output parity``."""
+        return (self.n_h * self.n_w, self.splits * self.n_co, 4 * self.batch)
 
     @property
-    def threads(self) -> int:
-        return self.ct // 4 * 32
+    def variant(self) -> tuple:
+        """The compiled instance this geometry launches."""
+        return (self.layout, self.r, self.ks)
+
+    @property
+    def summation_order(self) -> tuple:
+        """The fields that fix the order of every output's sum: split,
+        chunk, warp slice, channel group, tap, channel, in that order."""
+        return (self.layout, self.r, self.ks, self.ci_chunk, self.n_chunks,
+                self.splits)
+
+    def split_chunks(self, split: int) -> range:
+        """The Cin chunks split ``split`` sums, as the kernel partitions
+        them."""
+        lo = split * self.n_chunks // self.splits
+        return range(lo, (split + 1) * self.n_chunks // self.splits)
+
+    def origins(self) -> tuple:
+        """The input row and column of staged row/col 0 of tile (0, 0), per
+        row parity and per column parity (the launcher's org_r, org_c)."""
+        return (tuple(v - self.pad_lo for v in self.row0s),
+                tuple(v - self.pad_lo for v in self.col0s))
+
+
+def phase_variants() -> set:
+    """Every compiled ``(layout, R, ks)`` instance the geometry can choose.
+    (One parity's window starts at its own origin, so the fused kernel's
+    parity offset d has no counterpart here.) The copy widths are chosen at
+    run time inside each."""
+    return ({("rich", r, 1) for r in range(1, MAX_R + 1)}
+            | {("rich", r, 4) for r in range(1, PHASE_KS_MAX_R + 1)}
+            | {("poor", r, 1) for r in range(1, MAX_R + 1)})
+
+
+def _phase_smem_bytes(ci: int, xh: int, x_pitch: int, r: int, ct: int, ks: int,
+                      th: int, tw: int) -> int:
+    """The larger of the ring, PHASE_STAGES x (window chunk
+    [ci/4][xh][pitch][4] + weight chunk [ci][R][R][ct]) floats, and the
+    output tile that reuses it after the loop, [ks][th][skewed tw][ct]."""
+    ring = PHASE_STAGES * (ci * xh * x_pitch + ci * r * r * ct)
+    out = ks * th * (_skew(tw - 1) + 1) * ct
+    return 4 * max(ring, out)
 
 
 @functools.lru_cache(maxsize=None)
 def phase_geometry(batch: int, n_in: int, n_k: int, padding: int, cin: int,
                    cout: int) -> PhaseGeometry:
-    """The per-phase kernel's launch geometry: the fused kernel's tiles
-    (at most 64 phase-plane positions, ``tw = min(Hp, 8)``) and Cout-tile
-    rule, counted over four times the blocks (one per output parity). A
-    block stages one ``(th + R - 1, tw + R - 1)`` window per cin chunk and
-    one sub-kernel: at ``R = 4`` and ``ct = 32`` that is 40 KB."""
+    """The per-phase kernel's launch geometry.
+
+    The layout is "poor" for Cout <= POOR_MAX_COUT, else "rich"; a rich
+    layout on a phase plane of at most 4 x 4 with R <= PHASE_KS_MAX_R gives
+    each warp a quarter of every Cin chunk (ks = 4) in place of a position
+    group. Cin is split across blocks (a power of two, at most MAX_SPLITS,
+    each split keeping a chunk) until one image's four parities x tiles x
+    Cout tiles x splits reach PHASE_SPLIT_TARGET blocks. The shared memory
+    is largest for a rich R = 4 (105,168 bytes).
+    """
     m = seg.output_size(n_in, n_k, padding)
     hp = (m + 1) // 2
     r = seg.ceil_half(n_k)
@@ -433,17 +517,29 @@ def phase_geometry(batch: int, n_in: int, n_k: int, padding: int, cin: int,
         2 * seg.phase_params(pr, padding) + seg.phase_params(pc, padding)
         for pr in range(2) for pc in range(2)
     )
-    tw = min(hp, 8)
-    th = min(hp, POSITIONS_PER_BLOCK // tw)
+    lay = PHASE_LAYOUTS["poor" if cout <= POOR_MAX_COUT else "rich"]
+    ks = 4 if lay.name == "rich" and hp <= PHASE_PH and r <= PHASE_KS_MAX_R else 1
+    pgw = lay.pgw(ks)
+    npg = lay.threads // lay.ncg // ks
+    tw, th = FUSED_PW * pgw, PHASE_PH * (npg // pgw)
     n_h, n_w = _cdiv(hp, th), _cdiv(hp, tw)
     xh, xw = th + r - 1, tw + r - 1
-    ct = _cout_tile(cout, 4 * n_h * n_w * batch)
-    xs = _cdiv(CIN_CHUNK * xh * xw, 4) * 4
+    x_pitch = _skew(xw - 1) + 1
+    ct = 4 * lay.ncg
+    n_co = _cdiv(cout, ct)
+    ci = lay.ci_chunk(r, ks)
+    n_chunks = _cdiv(cin, ci)
+    splits = 1
+    while (4 * n_h * n_w * n_co * splits < PHASE_SPLIT_TARGET
+           and 2 * splits <= min(n_chunks, MAX_SPLITS)):
+        splits *= 2
     return PhaseGeometry(
         batch=batch, m=m, hp=hp, r=r, pad_lo=pad_lo, row0s=row0s,
-        col0s=col0s, wsels=wsels, th=th, tw=tw, n_h=n_h, n_w=n_w, xh=xh,
-        xw=xw, ct=ct, n_co=_cdiv(cout, ct), ci_chunk=CIN_CHUNK,
-        smem_bytes=4 * (xs + r * r * CIN_CHUNK * ct),
+        col0s=col0s, wsels=wsels, layout=lay.name, ks=ks, ncg=lay.ncg,
+        threads=lay.threads, th=th, tw=tw, n_h=n_h, n_w=n_w, xh=xh, xw=xw,
+        x_pitch=x_pitch, ct=ct, n_co=n_co, ci_chunk=ci, n_chunks=n_chunks,
+        splits=splits, stages=PHASE_STAGES, vx=cin % 4 == 0, vw=cout % 4 == 0,
+        smem_bytes=_phase_smem_bytes(ci, xh, x_pitch, r, ct, ks, th, tw),
     )
 
 
@@ -490,7 +586,7 @@ def _phase_lib():
     lib = _build.load("transpose_conv2d_phase")
     fn = lib.tconv_phase_f32
     fn.argtypes = (
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 25
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 28
         + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     )
     fn.restype = ctypes.c_int
@@ -523,19 +619,30 @@ def transpose_conv2d_phase(x, kernel, padding: int = 0, *, epilogue=None,
     kernel = kernel.contiguous()
     bias = bias.contiguous() if bias is not None else None
     out = torch.empty((b, g.m, g.m, cout), device=x.device, dtype=torch.float32)
+    part = (torch.empty((g.splits, b, g.m, g.m, cout), device=x.device,
+                        dtype=torch.float32) if g.splits > 1 else None)
+    # 16-byte copies need aligned rows; the copy width never changes a sum
+    vx = g.vx and x.data_ptr() % 16 == 0
+    vw = g.vw and kernel.data_ptr() % 16 == 0
+    org_r, org_c = g.origins()
     with torch.cuda.device(x.device):
         err = _phase_lib()(
             x.data_ptr(), kernel.data_ptr(),
             bias.data_ptr() if bias is not None else None, out.data_ptr(),
-            b, n_in, cin, cout, n_k, g.m, g.r, g.pad_lo, *g.row0s, *g.col0s,
-            *g.wsels, g.th, g.tw, g.n_h, g.n_w, g.xh, g.xw, g.ct, g.n_co,
+            part.data_ptr() if part is not None else None,
+            b, n_in, cin, cout, n_k, g.m, g.r, *org_r, *org_c, *g.wsels,
+            PHASE_LAYOUTS[g.layout].code, g.ks, int(vx), int(vw), g.th, g.tw,
+            g.ci_chunk, g.n_h, g.n_w, g.n_co, g.splits, g.n_chunks,
             epi.code if epi else 0, epi.slope if epi else 0.0, g.smem_bytes,
             torch.cuda.current_stream(x.device).cuda_stream,
         )
     if err:
         raise RuntimeError(f"transpose_conv2d_phase launch failed: CUDA error {err}")
     transpose_conv2d_phase.launches += 1
+    if g.splits > 1:
+        transpose_conv2d_phase.reduce_launches += 1
     return out
 
 
 transpose_conv2d_phase.launches = 0
+transpose_conv2d_phase.reduce_launches = 0

@@ -1,6 +1,6 @@
 """Card tests of the port: each CUDA kernel against its plain version (the
-fused kernel at a shape for each of its compiled instances and copy
-widths), the fused kernel's rows equal to unbatched calls bit for bit, the
+fused and per-phase kernels at shapes for each of their compiled instances
+and copy widths), the fused kernel's rows equal to unbatched calls bit for bit, the
 generator's batch invariance (per layer and through fused pairs), and the
 generator's gradients through the backward kernels, fused pairs and the
 per-phase kernel, the decode attention kernel at the LM shapes, and a
@@ -55,6 +55,17 @@ VARIANT_SHAPES = [(2, 3 + n, n, pad, cin, cout)
                   for n in (2, 4, 5, 7) for pad in (n - 1, n - 2)
                   for cin, cout in ((12, 6), (10, 8), (8, 4), (5, 3))]
 SHAPES += VARIANT_SHAPES
+# Two shapes per instance of the per-phase kernel, (layout, R, ks): n = 2R
+# or 2R - 1 with an odd and an even P, on 6 x 6 inputs (rich ks = 1, and
+# poor for Cout <= 4) and on 2 x 2 inputs (phase planes of at most 4 x 4:
+# rich ks = 4); Cin and Cout multiples of 4 and not, for each copy width.
+PHASE_VARIANT_SHAPES = (
+    [(2, 6, n, pad, cin, cout) for n in (2, 4, 5, 7)
+     for pad, (cin, cout) in ((n - 1, (12, 8)), (n - 2, (10, 6)),
+                              (n - 1, (8, 4)), (n - 2, (5, 3)))]
+    + [(2, 2, n, pad, cin, cout) for n, pads in ((2, (1, 0)), (4, (2, 3)))
+       for pad, (cin, cout) in zip(pads, ((24, 8), (18, 6)))])
+SHAPES += PHASE_VARIANT_SHAPES
 KERNELS = {
     "fused": (tcf.transpose_conv2d_fused, tcf.transpose_conv2d_fused_plain),
     "gemm": (tcg.transpose_conv2d_gemm, tcg.transpose_conv2d_gemm_plain),
@@ -149,6 +160,25 @@ def test_fused_kernel_rows_equal_unbatched_bitwise(card, shape):
     batched = tcf.transpose_conv2d_fused(x, k, pad, epilogue=epi, bias=bias)
     for i in range(b):
         one = tcf.transpose_conv2d_fused(x[i : i + 1], k, pad, epilogue=epi,
+                                         bias=bias)
+        assert torch.equal(one[0], batched[i])
+
+
+@pytest.mark.parametrize("shape", [
+    (8, 4, 4, 2, 1024, 512),   # DCGAN L0: ks = 4, Cin split
+    (8, 8, 4, 2, 512, 256),    # DCGAN L1
+    (8, 16, 4, 2, 256, 128),   # DCGAN L2
+    (8, 32, 4, 2, 128, 3),     # DCGAN L3: poor layout
+], ids=str)
+def test_phase_kernel_rows_equal_unbatched_bitwise(card, shape):
+    """Each batch row of the per-phase kernel equals its batch-1 call bit
+    for bit: its geometry reads the batch only in the grid."""
+    b, n_in, n_k, pad, cin, cout = shape
+    x, k, bias = _case(sum(shape), b, n_in, cin, n_k, cout, card)
+    epi = EPILOGUES[2]
+    batched = tcf.transpose_conv2d_phase(x, k, pad, epilogue=epi, bias=bias)
+    for i in range(b):
+        one = tcf.transpose_conv2d_phase(x[i : i + 1], k, pad, epilogue=epi,
                                          bias=bias)
         assert torch.equal(one[0], batched[i])
 
@@ -302,28 +332,30 @@ def test_generator_grads_through_pairs_and_phase_match_per_layer(card):
 DECODE_SHAPES = [  # (B, S, KV, G, hd): chip_smoke.py's decode check
     (8, 1024, 8, 4, 128),    # Llama-3-8B as chip_smoke.py serves it
     (8, 4096, 8, 4, 128),    # Llama-3-8B
-    (8, 32768, 8, 4, 128),   # Llama-3-8B at decode_32k: 128 splits to combine
+    (8, 32768, 8, 4, 128),   # Llama-3-8B at decode_32k: 32 splits to combine
     (8, 4096, 2, 7, 64),     # Qwen2-0.5B
     (8, 4096, 4, 8, 128),    # Yi-9B
     (2, 1024, 32, 1, 128),   # CodeQwen1.5 (MHA)
     (3, 1000, 2, 3, 64),     # S not a multiple of the split
+    (4, 40000, 2, 4, 64),    # 40 splits: a lane of the combine takes two
 ]
 
 
 def _decode_case(seed, shape, dtype, device):
-    """q, k, v and a kv_len holding 1, S and lengths off the split grid,
-    one of them just past 32 splits (a lane of the combine takes two)."""
+    """q, k, v and a kv_len holding 1, S and lengths off the split grid:
+    one just past a split (inside a tile), one just past 32 splits (a lane
+    of the combine takes two), one on a tile's edge."""
     b, s_len, kvh, g, hd = shape
+    geo = da.decode_geometry(s_len, hd, g, dtype)
     gen = torch.Generator().manual_seed(seed)
     q, k, v = (torch.randn(sh, generator=gen).to(device=device, dtype=dtype)
                for sh in ((b, kvh, g, hd), (b, s_len, kvh, hd), (b, s_len, kvh, hd)))
     lens = torch.randint(1, s_len + 1, (b,), generator=gen)
     lens[0] = 1
     lens[-1] = s_len
-    if b > 2:
-        lens[1] = da.SPLIT_LEN + 3
-    if b > 3:
-        lens[2] = min(32 * da.SPLIT_LEN + 5, s_len)
+    special = [geo.split_len + 3, 32 * geo.split_len + 5, geo.split_len + 2 * geo.tile]
+    for i, n in enumerate(special[: b - 2]):
+        lens[1 + i] = min(n, s_len)
     return q, k, v, lens.to(device=device, dtype=torch.int32)
 
 

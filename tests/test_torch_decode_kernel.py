@@ -1,7 +1,8 @@
 """The port's flash-decode attention against the reference on the CPU: the
 plain version against the reference's Pallas kernel (interpret mode) and
-its jnp oracle, and an emulator of the CUDA kernel's split and combine
-index math. The kernel itself runs only on the card
+its jnp oracle, and an emulator of the CUDA kernel's index math (copies,
+tile walk, the bf16 scores' mma fragments, the fp32 scores' quarters, each
+warp's online rescale and P.V, the warps' merge, split and combine). The kernel itself runs only on the card
 (``tests/test_torch_cuda.py``, ``chip_smoke.py``)."""
 import re
 from pathlib import Path
@@ -99,22 +100,175 @@ def test_wrapper_runs_the_plain_version_on_cpu_tensors():
 
 # ------------------------------------------------- the CUDA kernel's index math
 
-def _emulate(q, k, v, kv_len):
-    """The CUDA kernel's two passes on the CPU, loop for loop: the blocks of
-    the first pass (which positions each lane group visits, which slice of
-    hd each lane reads, which splits return at once) and the combine (which
-    splits it reads). Returns the output and, per (b, h), the splits the
-    first pass wrote. Asserts that each position of a split below kv_len is
-    visited exactly once and each element of hd read by exactly one lane."""
+def _stage_cover(geo):
+    """The (position, 16-byte piece) of a tile that each thread's copies
+    fill, as stage() steps them from (tid // chunks, tid % chunks) by
+    (THREADS // chunks, THREADS % chunks) with one carry. Asserts that every
+    piece of the tile is filled exactly once."""
+    ch, dt, dc = geo.chunks, da.THREADS // geo.chunks, da.THREADS % geo.chunks
+    got = []
+    for tid in range(da.THREADS):
+        t, c = tid // ch, tid % ch
+        while t < geo.tile:
+            if c >= ch:
+                c, t = c - ch, t + 1
+                if t >= geo.tile:
+                    break
+            got.append((t, c))
+            t, c = t + dt, c + dc
+    assert sorted(got) == [(t, c) for t in range(geo.tile) for c in range(ch)]
+
+
+def _a_fragment(q, lane, s):
+    """The two 32-bit A registers of mma.m16n8k16 a lane holds for k step
+    s: row g = lane / 4, d pairs (2 (lane % 4), +1) and (+8, +9); rows past
+    G are zero. Returns {(row, d): value}."""
+    g, d = lane >> 2, 16 * s + 2 * (lane & 3)
+    if g >= q.shape[0]:
+        return {}
+    return {(g, dd): q[g, dd] for dd in (d, d + 1, d + 8, d + 9)}
+
+
+def _b_fragment(kt, lane, blk, s):
+    """The two 32-bit B registers a lane reads from the staged K tile for
+    position block blk and k step s: K row 8 blk + lane / 4, d pairs
+    (2 (lane % 4), +1) and (+8, +9). Returns {(d, position): value}."""
+    t, d = 8 * blk + (lane >> 2), 16 * s + 2 * (lane & 3)
+    return {(dd, t): kt[t, dd] for dd in (d, d + 1, d + 8, d + 9)}
+
+
+def _mma_scores(q, kt, n_tiles_of_8):
+    """Scores of a tile as the warps' mma.sync fragments give them: for
+    each block of 8 positions and k step, the 16 x 16 A and 16 x 8 B
+    operands assembled from every lane's registers (each element exactly
+    once), multiplied, and each lane's C registers 0 and 1 read as (row
+    lane / 4, positions 8 blk + 2 (lane % 4) and +1)."""
+    G, hd = q.shape
+    S = np.full((G, 8 * n_tiles_of_8), np.nan)
+    for blk in range(n_tiles_of_8):
+        c = np.zeros((16, 8))
+        for s in range(hd // 16):
+            a = np.zeros((16, 16))
+            b = np.zeros((16, 8))
+            seen_a, seen_b = set(), set()
+            for lane in range(32):
+                for (g, d), val in _a_fragment(q, lane, s).items():
+                    assert (g, d) not in seen_a
+                    seen_a.add((g, d))
+                    a[g, d - 16 * s] = val
+                for (d, t), val in _b_fragment(kt, lane, blk, s).items():
+                    assert (d, t) not in seen_b
+                    seen_b.add((d, t))
+                    b[d - 16 * s, t - 8 * blk] = val
+            assert len(seen_a) == 16 * G and len(seen_b) == 128
+            c += a @ b
+        for lane in range(32):
+            g, t = lane >> 2, 2 * (lane & 3)
+            if g < G:
+                S[g, 8 * blk + t: 8 * blk + t + 2] = c[g, t: t + 2]
+            assert not c[8:].any()          # the padded rows stay zero
+    return S
+
+
+def _split_bf16(p):
+    """p as the kernel splits it for P.V: hi = bf16(p), lo = bf16(p - hi)."""
+    t = torch.from_numpy(np.ascontiguousarray(p, np.float32))
+    hi = t.to(torch.bfloat16).float()
+    lo = (t - hi).to(torch.bfloat16).float()
+    return hi.double().numpy(), lo.double().numpy()
+
+
+def _ldmatrix_v(vt, t0, d0, lane):
+    """The four registers ldmatrix.x4.trans gives a lane over the staged V
+    rows ``vt`` [position][d]: lane L addresses row t0 + 8 (L / 8 % 2) + L %
+    8 at column d0 + 8 (L / 16) for block L / 8; register i of lane T then
+    holds block i's elements (rows 2 (T % 4) and +1, column T / 4). Returns
+    {(register, half): (position, d)}."""
+    rows = {}   # block -> (first position, first column), from the addresses
+    for lane_ in range(32):
+        blk = lane_ >> 3
+        rows.setdefault(blk, set()).add(
+            (t0 + 8 * (blk & 1) + (lane_ & 7), d0 + 8 * (lane_ >> 4)))
+    got = {}
+    for i in range(4):
+        pos = sorted({r for r, _ in rows[i]})
+        (col,) = {c for _, c in rows[i]}
+        assert pos == list(range(pos[0], pos[0] + 8))
+        for half in range(2):
+            got[(i, half)] = (pos[2 * (lane & 3) + half], col + (lane >> 2))
+    return got
+
+
+def _pv_mma(p, vt, hd):
+    """P . V of a warp's 16-position k steps as the kernel's mmas take it:
+    A from P's score fragments (row lane / 4, positions 2 (lane % 4) + (0,
+    1) and + (8, 9) of each 16), B from ldmatrix_v for each pair of 8-wide
+    n-tiles, every element of each operand exactly once; C read back as
+    (row lane / 4, d 8 nt + 2 (lane % 4) and +1)."""
+    G, tw = p.shape
+    out = np.zeros((G, hd))
+    for ks in range(tw // 16):
+        a = np.zeros((16, 16))
+        for lane in range(32):
+            g, d = lane >> 2, 2 * (lane & 3)
+            if g < G:
+                a[g, [d, d + 1, d + 8, d + 9]] = p[g, 16 * ks + np.array([d, d + 1, d + 8, d + 9])]
+        for i in range(0, hd // 8, 2):
+            bmat = {0: np.full((16, 8), np.nan), 1: np.full((16, 8), np.nan)}
+            for lane in range(32):
+                for (reg, half), (t, dd) in _ldmatrix_v(vt, 16 * ks, 8 * i, lane).items():
+                    k_ = 2 * (lane & 3) + half + 8 * (reg & 1)   # b0: k 0-7, b1: k 8-15
+                    n_ = lane >> 2
+                    tile = reg >> 1
+                    assert t == 16 * ks + k_ and dd == 8 * (i + tile) + n_
+                    assert np.isnan(bmat[tile][k_, n_])
+                    bmat[tile][k_, n_] = vt[t, dd]
+            for tile in (0, 1):
+                c = a @ bmat[tile]
+                assert not c[8:].any()
+                out[:, 8 * (i + tile): 8 * (i + tile) + 8] += c[:G]
+    return out
+
+
+def _simt_scores(q, kt, tw):
+    """Scores of the fp32 instance over a warp's ``tw`` positions: a pass of
+    the warp takes 8 positions (lane % 8) x 4 quarters (lane / 8) of hd's
+    float4s, the quarters summed by shuffles xor 8 then xor 16."""
+    G, hd = q.shape
+    S = np.zeros((G, tw))
+    for blk in range(tw // 8):
+        for tl in range(8):
+            t = 8 * blk + tl
+            parts = []
+            for part in range(4):
+                d = [4 * d4 + e for d4 in range(part, hd // 4, 4) for e in range(4)]
+                parts.append(q[:, d] @ kt[t, d])
+            S[:, t] = (parts[0] + parts[1]) + (parts[2] + parts[3])
+    return S
+
+
+def _emulate(q, k, v, kv_len, bf16=False):
+    """The CUDA kernel's two launches on the CPU, loop for loop: the blocks
+    of the first pass (the splits that return at once, each split's tiles
+    and their copies zero-filled past kv_len), each warp's quarter of every
+    tile (the scores of the bf16 fragments or of the fp32 quarters, the
+    row maxima, the online rescale of the warp's own (m, l, acc), P.V), the
+    warps' carries merged in warp order, and the combine (which splits it
+    reads). Returns the output and, per (b, h), the splits the first pass
+    wrote."""
     B, KV, G, hd = q.shape
     S = k.shape[1]
-    geo = da.decode_geometry(S, hd, G, torch.float32 if q.dtype == np.float32
-                             else torch.bfloat16)
-    live = [sub * geo.vec for sub in range(geo.lanes) if sub * geo.vec < hd]
-    cover = sorted(d for d0 in live for d in range(d0, d0 + geo.vec))
-    assert cover == list(range(hd))
-    out = np.zeros((B, KV, G, hd), np.float32)
+    geo = da.decode_geometry(S, hd, G, torch.bfloat16 if bf16 else torch.float32)
+    _stage_cover(geo)
+    TP, TW = geo.tile, geo.warp_positions
+    assert TW % (16 if bf16 else 8) == 0 and TW * da.WARPS == TP
+    if not bf16:   # P.V's lanes: every element of V's row, by one lane
+        lanes = sorted(lane + 32 * j for lane in range(32) for j in range(4)
+                       if lane + 32 * j < geo.n_dv)
+        assert lanes == list(range(hd))
+    out = np.zeros((B, KV, G, hd), np.float64)
     written = {}
+    scale = np.float32(hd ** -0.5)
     for b in range(B):
         ln = min(max(int(kv_len[b]), 0), S)
         for h in range(KV):
@@ -124,23 +278,35 @@ def _emulate(q, k, v, kv_len):
                 if start >= ln and split > 0:
                     continue                  # the block returns, writes nothing
                 n = max(0, min(geo.split_len, ln - start))
-                seen = []
-                for base in range(0, n, geo.chunk):
-                    for u in range(da.UNROLL):
-                        for warp in range(da.WARPS):
-                            for grp in range(geo.positions_per_warp):
-                                t = (base + u * geo.step + warp * geo.positions_per_warp
-                                     + grp)
-                                if t < n:
-                                    seen.append(t)
-                assert sorted(seen) == list(range(n))
-                kk = k[b, start + np.asarray(seen, int), h].astype(np.float32)
-                vv = v[b, start + np.asarray(seen, int), h].astype(np.float32)
-                s = sum(q[b, h][:, None, d0:d0 + geo.vec] * kk[None, :, d0:d0 + geo.vec]
-                        for d0 in live).sum(-1) * np.float32(hd ** -0.5)
-                m = s.max(-1) if n else np.full((G,), da.NEG_INF, np.float32)
-                p = np.exp(s - m[:, None])
-                parts[split] = (m, p.sum(-1), p @ vv)
+                m = np.full((da.WARPS, G), da.NEG_INF)
+                l = np.zeros((da.WARPS, G))
+                acc = np.zeros((da.WARPS, G, hd))
+                for kt in range(-(-n // TP)):
+                    for w in range(da.WARPS):
+                        t0 = start + kt * TP + w * TW
+                        valid = np.arange(TW) < n - kt * TP - w * TW
+                        kk = np.zeros((TW, hd))
+                        vv = np.zeros((TW, hd))
+                        kk[valid] = k[b, t0 + np.flatnonzero(valid), h]   # zero-filled
+                        vv[valid] = v[b, t0 + np.flatnonzero(valid), h]
+                        sc = (_mma_scores(q[b, h].astype(np.float64), kk, TW // 8) if bf16
+                              else _simt_scores(q[b, h].astype(np.float64), kk, TW))
+                        sc = np.where(valid, sc * scale, -np.inf)
+                        m_new = np.maximum(m[w], sc.max(-1))
+                        corr = np.exp(m[w] - m_new)
+                        p = np.exp(sc - m_new[:, None])
+                        l[w] = l[w] * corr + p.sum(-1)
+                        m[w] = m_new
+                        if bf16:   # P = hi + lo through two mmas a k step
+                            hi, lo = _split_bf16(p)
+                            pv = _pv_mma(hi, vv, hd) + _pv_mma(lo, vv, hd)
+                        else:
+                            pv = p @ vv
+                        acc[w] = acc[w] * corr[:, None] + pv
+                # the warps merge in warp order
+                M = m.max(0)
+                f = np.exp(m - M)
+                parts[split] = (M, (l * f).sum(0), (acc * f[..., None]).sum(0))
             written[(b, h)] = sorted(parts)
             used = max(1, -(-ln // geo.split_len))
             if geo.n_splits == 1:
@@ -159,26 +325,59 @@ def _emulate(q, k, v, kv_len):
     return out, written
 
 
-@pytest.mark.parametrize("B,S,KV,G,hd,kv_len", [
-    (3, 1000, 2, 3, 64, [1, 600, 1000]),   # 4 splits; splits wholly past kv_len
-    (2, 700, 2, 7, 64, [256, 257]),        # Qwen2's G = 7; a split boundary
-    (2, 512, 1, 8, 128, [512, 300]),       # Yi's G = 8 at hd 128
-    (1, 200, 4, 1, 128, [200]),            # MHA, one split (no combine pass)
-    (2, 96, 2, 2, 96, [5, 96]),            # hd/vec not a power of two: idle lanes
-    (2, 9000, 1, 2, 64, [8197, 9000]),     # 33 and 36 splits: a combine lane takes two
+def _bf16(*arrays):
+    """The arrays rounded to bf16, as fp32."""
+    return [torch.from_numpy(a).to(torch.bfloat16).float().numpy() for a in arrays]
+
+
+@pytest.mark.parametrize("B,S,KV,G,hd,kv_len,bf16", [
+    (3, 1000, 2, 3, 64, [1, 600, 1000], False),   # 4 splits; splits wholly past kv_len
+    (2, 700, 2, 7, 64, [256, 257], False),        # Qwen2's G = 7; a split boundary
+    (2, 512, 1, 8, 128, [512, 300], False),       # Yi's G = 8 at hd 128
+    (1, 200, 4, 1, 128, [200], False),            # MHA, one split (no combine pass)
+    (2, 96, 2, 2, 96, [5, 96], False),            # hd 96: a lane's fourth V group idles
+    (1, 17000, 1, 1, 128, [16900], False),        # 34 splits: a combine lane takes two
+    (2, 600, 2, 4, 128, [192, 331], True),        # bf16: a tile edge, a ragged tile
+    (2, 1200, 1, 7, 64, [1200, 640], True),       # bf16 Qwen2: 3 splits, a tile edge
 ])
-def test_kernel_index_math_emulated(B, S, KV, G, hd, kv_len):
-    """The emulated kernel visits exactly the positions below kv_len, never
-    reads a split it skipped, and agrees with the plain version within
-    1e-4 * max|ref| + 1e-5 (fp32 sums in another order)."""
+def test_kernel_index_math_emulated(B, S, KV, G, hd, kv_len, bf16):
+    """The emulated kernel visits exactly the positions below kv_len tile
+    by tile, never reads a split it skipped, and agrees with the plain
+    version within 1e-4 * max|ref| + 1e-5 (fp32 sums in another order)."""
     q, k, v, kl = _case(S + G, B, S, KV, G, hd, kv_len)
-    got, written = _emulate(q, k, v, kl)
+    if bf16:
+        q, k, v = _bf16(q, k, v)
+    got, written = _emulate(q, k, v, kl, bf16=bf16)
     want = _plain(q, k, v, kl)
     assert np.abs(got - want).max() <= 1e-4 * np.abs(want).max() + 1e-5
-    geo = da.decode_geometry(S, hd, G, torch.float32)
+    geo = da.decode_geometry(S, hd, G, torch.bfloat16 if bf16 else torch.float32)
     for (b, _), splits in written.items():
         used = max(1, -(-int(kl[b]) // geo.split_len))
         assert splits == list(range(used))
+
+
+@pytest.mark.parametrize("G,hd", [(1, 16), (4, 128), (7, 64), (8, 256)])
+def test_mma_fragment_mapping_emulated(G, hd):
+    """The bf16 instance's fragment mappings. Scores: every lane's A
+    registers (rows lane / 4 of Q, zero past G and for rows 8-15), B
+    registers (K rows of the position block) and C registers (row lane / 4,
+    positions 2 (lane % 4) and +1) give q . k for every (row, position) of
+    a tile. P.V: P's score fragments as A and ldmatrix's transposed V blocks
+    as B give p . v for every (row, d). Each element of every operand is
+    taken once; and hi + lo keeps P within 2^-16 of itself, where one bf16
+    would be 2^-8 off."""
+    rng = np.random.default_rng(G * hd)
+    q, kt = _bf16(rng.normal(size=(G, hd)).astype(np.float32),
+                  rng.normal(size=(64, hd)).astype(np.float32))
+    got = _mma_scores(q.astype(np.float64), kt.astype(np.float64), 8)
+    np.testing.assert_allclose(got, q.astype(np.float64) @ kt.T.astype(np.float64),
+                               rtol=1e-12, atol=1e-12)
+    p = rng.uniform(size=(G, 32))
+    vt = kt[:32].astype(np.float64)
+    np.testing.assert_allclose(_pv_mma(p, vt, hd), p @ vt, rtol=1e-12, atol=1e-12)
+    hi, lo = _split_bf16(p)
+    assert np.abs(hi + lo - p).max() <= 2.0 ** -16 * p.max()
+    assert np.abs(hi - p).max() > 2.0 ** -12 * p.max()
 
 
 def test_splits_past_kv_len_are_skipped():
@@ -188,7 +387,9 @@ def test_splits_past_kv_len_are_skipped():
     length, harmless only while exp(-1e30 - M) underflows.) At kv_len 1 and
     2 of a 4-split cache only split 0 is written, and the result is the
     plain version's."""
-    q, k, v, kl = _case(3, 2, 1024, 2, 4, 64, [1, 2])
+    s_len = 4 * da.decode_geometry(1, 64, 4, torch.float32).split_len
+    assert da.decode_geometry(s_len, 64, 4, torch.float32).n_splits == 4
+    q, k, v, kl = _case(3, 2, s_len, 2, 4, 64, [1, 2])
     got, written = _emulate(q, k, v, kl)
     assert all(s == [0] for s in written.values())
     np.testing.assert_allclose(got, _plain(q, k, v, kl), rtol=1e-5, atol=1e-6)
@@ -202,7 +403,10 @@ def test_split_count_is_a_function_of_the_cache_length_alone():
     size, and the emulated row 0 is bitwise the same alone and beside other
     rows of other lengths."""
     geo = da.decode_geometry(4096, 128, 4, torch.bfloat16)
-    assert geo.n_splits == 4096 // da.SPLIT_LEN
+    assert (geo.tile, geo.split_len, geo.n_splits) == (64, 1024, 4)
+    assert [da.decode_geometry(s, 128, 4, torch.bfloat16).split_len
+            for s in (600, 1024, 2048, 32768)] == [256, 256, 512, 1024]
+    assert da.decode_geometry(1024, 128, 4, torch.bfloat16).n_splits == 4
     q, k, v, kl = _case(9, 3, 600, 2, 4, 64, [450, 7, 600])
     alone, _ = _emulate(q[:1], k[:1], v[:1], kl[:1])
     batched, _ = _emulate(q, k, v, kl)
@@ -223,10 +427,21 @@ def test_geometry_fits_a_block(dtype, hd, g):
             da.decode_geometry(1024, hd, g, dtype)
         return
     geo = da.decode_geometry(1024, hd, g, dtype)
-    assert geo.lanes & (geo.lanes - 1) == 0 and geo.lanes <= 32
-    assert (geo.lanes // 2) * geo.vec < hd <= geo.lanes * geo.vec
-    assert geo.max_g >= g and geo.max_g in (1, 2, 4, 8)
+    assert geo.tile & (geo.tile - 1) == 0 and da.MIN_TILE[elem] <= geo.tile <= da.MAX_TILE
+    assert geo.tile * geo.pitch <= da.TILE_BYTES or geo.tile == da.MIN_TILE[elem]
+    assert geo.split_len % geo.tile == 0
+    assert da.MIN_SPLIT_TILES * geo.tile <= geo.split_len <= da.MAX_SPLIT_TILES * geo.tile
+    assert geo.split_len == da.MIN_SPLIT_TILES * geo.tile or geo.split_len <= 1024 // 4
+    assert geo.chunks * 16 == hd * elem and geo.pitch == hd * elem + 16
+    assert geo.n_dv * 4 == hd * elem and geo.n_dv <= 4 * 32   # 4 groups a lane at most
+    assert geo.warp_positions % (16 if elem == 2 else 8) == 0   # mma k steps / passes
+    assert geo.max_g >= g and geo.max_g in ((1, 2, 4, 8) if elem == 4 else (8,))
+    assert geo.smem_bytes == (da.STAGES * 2 * geo.tile * geo.pitch
+                              + 4 * (geo.max_g * geo.tile + g * hd
+                                     + 3 * da.WARPS * geo.max_g))
     assert geo.smem_bytes <= da.SMEM_LIMIT
+    if hd * elem <= 256:   # the LM heads: two blocks an SM, each with 1 KB reserved
+        assert 2 * (geo.smem_bytes + 1024) <= 233_472
 
 
 def test_geometry_refuses_what_the_kernel_does_not_take():
@@ -240,7 +455,10 @@ def test_geometry_refuses_what_the_kernel_does_not_take():
 
 def test_python_constants_match_the_kernel_source():
     src = CU.read_text()
-    for name in ("WARPS", "UNROLL"):
+    for name in ("WARPS", "STAGES"):
         found = re.search(rf"constexpr int {name} = (\d+);", src)
         assert found and int(found.group(1)) == getattr(da, name), name
+    assert "constexpr int kMaxBlocks = 4;" in src and da.MAX_TILE == 32 * 4
+    assert "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32" in src
+    assert "pitch != hd * elem + 16 ||" in src and "n_dv != hd * elem / 4" in src
     assert "decode_attention_pallas" in src   # names the TPU kernel it replaces
