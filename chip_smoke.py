@@ -12,13 +12,17 @@ Phases, in order; any failure raises and the script exits non-zero:
               off; CUBLAS_WORKSPACE_CONFIG set before torch is imported.
 2. build   -- the six CUDA sources compiled from src/repro_torch/kernels/csrc
               (in parallel), with nvcc's -Xptxas -v report; the registers
-              and spills of each instance of the fused kernel (16) and of the
-              per-phase kernel (10, (layout, R, ks)), which must spill
-              nothing, of the pair kernel (8 instances, R x D), of the dw
-              kernels (2 rich tiles, 4 poor R) and of the decode kernel (7:
-              bf16 by head dimension, fp32 by G).
+              and spills of each instance of the fused kernel (16), of the
+              per-phase kernel (10, (layout, R, ks)), of the implicit-GEMM
+              kernel (1) and of the dx kernels (rich, and poor at R 1-4),
+              which must all spill nothing, of the pair kernel (8
+              instances, R x D), of the dw kernels (2 rich tiles, 4 poor R)
+              and of the decode kernel (7: bf16 by head dimension, fp32 by
+              G).
 3. check   -- each forward kernel against its plain PyTorch version at the
-              four DCGAN layer shapes at batch 8 and at odd geometries, and
+              four DCGAN layer shapes at batch 8 and at odd geometries, the
+              GEMM kernel also at GEMM_SHAPES' own (DCGAN and EB-GAN L0 at
+              batch 1, an unsplit contraction, every copy width), and
               the fused kernel also at FUSED_SHAPES (DCGAN L1 and L3 at
               batch 1, EB-GAN L4 and L5, a shape of uneven Cin splits) and at
               VARIANT_SHAPES, which launch every instance the geometry can
@@ -47,12 +51,15 @@ Phases, in order; any failure raises and the script exits non-zero:
               32-request replay of phase 5 is a check, too short to rate.
 7. bwd     -- each backward kernel (epilogue-grad, dx, dw with db) against
               its plain version at the same shapes and epilogues and at
-              BWD_SHAPES' extra shapes (every dw instance), same tolerance.
+              BWD_SHAPES' extra shapes (every dx and dw instance, every dx
+              copy width), and dx with gm and the kernel 4 bytes off
+              16-byte alignment at DX_UNALIGNED_SHAPES, same tolerance.
 8. autograd -- the full-width DCGAN generator's parameter gradients of a
               scalar loss through the backward kernels against those of the
               plan pinned to bwd="autograd" (cuDNN), same tolerance.
 9. bwd times -- per DCGAN layer at batch 8: each backward kernel, its plain
-              version, a one-call library yardstick and the bound.
+              version, a one-call library yardstick and the bound, with
+              dx's instance and splits and dw's splits.
 10. pair check -- the per-phase kernel against its plain version at the
               four DCGAN shapes, ODD_SHAPES and PHASE_VARIANT_SHAPES (every
               compiled instance, both copy widths) with every epilogue, and
@@ -201,6 +208,16 @@ SOURCES = {
     "decode_attention": ("src/repro_torch/kernels/csrc/decode_attention.cu",
                          "src/repro/kernels/decode_attention.py:84"),
 }
+# The GEMM kernel's check: with DCGAN_SHAPES and ODD_SHAPES, the zoo head
+# layers at batch 1 (split contractions, a warp past the batch), a
+# contraction too short to split, and 4-byte input with 16-byte weight
+# copies (the other three copy widths are among the rest).
+GEMM_SHAPES = DCGAN_SHAPES + ODD_SHAPES + [
+    (1, 4, 4, 2, 1024, 512),    # DCGAN L0 at bucket 1: 17 splits, 272 blocks
+    (1, 4, 4, 2, 2048, 1024),   # EB-GAN L0 at bucket 1
+    (3, 5, 4, 2, 30, 12),       # Cin ragged, Cout a multiple of 4
+    (2, 3, 2, 1, 8, 8),         # R = 1, one step: no split
+]
 FORWARD = ("fused", "gemm")
 TRAINING = ("fused", "gemm", "epilogue_grad", "dx", "dw")
 DCGAN_PAIRS = [  # (B, N, n, P, C0, C1, C2): DCGAN L0-1 and L2-3 at batch 8
@@ -221,12 +238,18 @@ PAIR_CHECKS = DCGAN_PAIRS + [
 ]
 PAIR_OVER_BUDGET = (1, 64, 4, 2, 128, 64, 64)   # EB-GAN L4-5
 # The backward check's shapes: with DCGAN_SHAPES and ODD_SHAPES, one for
-# each poor dw instance (Cout <= 4) at R = 1, 3 and 4.
+# each poor dx and dw instance (Cout <= 4) at R = 1, 3 and 4, and a poor dx
+# with 16-byte gm pixels and dx stores (Cout 4, Cin a multiple of 4).
 BWD_SHAPES = DCGAN_SHAPES + ODD_SHAPES + [
     (2, 5, 2, 1, 7, 3),      # R = 1
     (2, 6, 5, 2, 9, 4),      # R = 3
     (1, 9, 7, 3, 6, 2),      # R = 4, two Cin quads ragged
+    (2, 6, 4, 2, 12, 4),     # R = 2, 16-byte copies and stores
 ]
+# dx with gm and the kernel as views 4 bytes into larger buffers: 4-byte
+# copies at a Cout that is a multiple of 4 (the poor layout at Cout 4, the
+# rich tile at Cout 8)
+DX_UNALIGNED_SHAPES = [(2, 6, 4, 2, 12, 4), (2, 5, 3, 1, 9, 8)]
 DECODE_CHECKS = [  # (B, S, KV, G, hd) of the decode kernel's check
     (8, 1024, 8, 4, 128),    # Llama-3-8B as phase 16 serves it (max_len 1024)
     (8, 4096, 8, 4, 128),    # Llama-3-8B
@@ -316,6 +339,9 @@ def phase_build() -> dict:
     instances = {}
     for src, kernel, label, want in (
             ("transpose_conv2d_phase", "phase_kernelI", "phase {} R{} ks{}", 10),
+            ("transpose_conv2d_gemm", "gemm_kernel", "gemm", 1),
+            ("transpose_conv2d_bwd", "dx_kernel", "dx rich", 1),
+            ("transpose_conv2d_bwd", "dx_poor_kernelI", "dx poor R{}", 4),
             ("transpose_conv2d_pair", "pair_kernelI", "pair R{} D{}", 8),
             ("transpose_conv2d_bwd", "dw_kernelI", "dw rich {}x{}", 2),
             ("transpose_conv2d_bwd", "dw_poor_kernelI", "dw poor R{}", 4),
@@ -324,7 +350,8 @@ def phase_build() -> dict:
         for fn, rep in _build.ptxas_report(logs[src]).items():
             if kernel not in fn:
                 continue
-            args = _build.template_args(fn.split(kernel, 1)[1])
+            args = (_build.template_args(fn.split(kernel, 1)[1])
+                    if kernel.endswith("I") else ())
             if kernel == "phase_kernelI":
                 args = ("rich" if args[0] == 0 else "poor",) + args[1:]
             elif kernel == "split_kernelI":
@@ -338,9 +365,10 @@ def phase_build() -> dict:
             raise AssertionError(f"expected {want} {kernel} instances, got {sorted(found)}")
         instances.update(found)
     spilled = [k for k, v in instances.items()
-               if k.startswith("phase") and (v["spill_stores"] or v["spill_loads"])]
+               if k.startswith(("phase", "gemm", "dx")) and (v["spill_stores"]
+                                                            or v["spill_loads"])]
     if spilled:
-        raise AssertionError(f"per-phase kernel instances spill: {spilled}")
+        raise AssertionError(f"per-phase, GEMM or dx kernel instances spill: {spilled}")
     return {"logs": logs, "fused_ptxas": fused, "ptxas": instances}
 
 
@@ -394,9 +422,11 @@ def phase_check(torch) -> dict:
     if ({g.variant for g in geos} != tcf.fused_variants()
             or len({(g.vx, g.vw) for g in geos}) != 4):
         raise AssertionError("the check shapes miss an instance of the fused kernel")
+    from repro_torch.kernels import transpose_conv2d_gemm as tcg
+
     for name, (launch, plain) in kernels(FORWARD).items():
         worst[name] = 0.0
-        for i, shape in enumerate(fused_shapes if name == "fused" else common):
+        for i, shape in enumerate(fused_shapes if name == "fused" else GEMM_SHAPES):
             x, k, bias = _inputs(torch, shape, seed=i)
             pad = shape[3]
             for epi in epis:
@@ -409,7 +439,8 @@ def phase_check(torch) -> dict:
                 tol = TOL_REL * scale + TOL_ABS
                 tag = epi.tag() if epi else "none"
                 variant = (f" {geos[i].variant} splits {geos[i].splits}"
-                           if name == "fused" else "")
+                           if name == "fused" else
+                           f" splits {tcg.gemm_geometry(*shape).splits}")
                 log(f"[check] {name} {shape}{variant} {tag}: max abs err {err:.3e} "
                     f"rel {err / max(scale, 1e-30):.3e} (tol {tol:.3e})")
                 if not (got.shape == want.shape and err <= tol):
@@ -448,6 +479,7 @@ def _layer_row(torch, i, shape, plain: bool) -> dict:
 
     from repro_torch.kernels.epilogue import Epilogue
     from repro_torch.kernels.plan import cold_method
+    from repro_torch.kernels.transpose_conv2d_gemm import gemm_geometry
     from repro_torch.timing import time_cuda
 
     b, n_in, n_k, pad, cin, cout = shape
@@ -486,12 +518,14 @@ def _layer_row(torch, i, shape, plain: bool) -> dict:
         tcf.SPLIT_TARGET = target
         tcf.fused_geometry.cache_clear()
     row["splits"] = tcf.fused_geometry(*shape).splits
+    row["gemm_splits"] = gemm_geometry(*shape).splits
     dev = row["device_us"]
     log(f"[times] L{i} {shape} fused splits {row['splits']}: {dev['fused']:.2f} us; "
         f"at {2 * target} blocks an image, splits {row['splits_2x_target']}: "
         f"{dev['fused_2x_target']:.2f} us (device-only)")
     log(f"[times] L{i} {shape} path={row['path']}: fused {row['fused_ms']:.4f} ms"
-        f" gemm {row['gemm_ms']:.4f} ms library {row['library_ms']:.4f} ms"
+        f" gemm (splits {row['gemm_splits']}) {row['gemm_ms']:.4f} ms library "
+        f"{row['library_ms']:.4f} ms"
         + (f" | plain fused {row['fused_plain_ms']:.4f} gemm "
            f"{row['gemm_plain_ms']:.4f}" if plain else "")
         + f" | device-only us: fused {dev['fused']:.2f} gemm {dev['gemm']:.2f} "
@@ -571,9 +605,11 @@ def phase_engine(torch) -> dict:
     reqs, arrivals = _dcgan_requests(cfg)
 
     for fn in launchers.values():
-        fn.launches = 0
+        fn.launches = fn.reduce_launches = 0
     eng.replay(reqs, arrivals)
     launches = {name: fn.launches for name, fn in launchers.items()}
+    launches.update({f"{name}_reduce": fn.reduce_launches
+                     for name, fn in launchers.items()})
 
     summary = eng.metrics.summary()
     cons = eng.conservation()
@@ -585,7 +621,7 @@ def phase_engine(torch) -> dict:
         raise AssertionError("executables were built after warm-up")
     if not all(bool(torch.isfinite(r.output).all()) for r in reqs):
         raise AssertionError("non-finite output")
-    if min(launches.values()) < 1:
+    if min(launches[name] for name in launchers) < 1:
         raise AssertionError(f"a kernel of the path never launched: {launches}")
     for r in reqs:
         one = gan.generator_apply(params, cfg, r.z).cpu()
@@ -708,6 +744,15 @@ def _worst(name, shape, tag, pairs, worst) -> None:
         worst[name] = max(worst[name], err)
 
 
+def _offset_view(torch, t, offset=1):
+    """A contiguous copy of ``t`` that starts ``offset`` elements into a
+    larger buffer, so its first element is not 16-byte aligned."""
+    buf = torch.empty(t.numel() + offset, dtype=t.dtype, device=t.device)
+    view = buf[offset:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
 def phase_bwd_check(torch) -> dict:
     """Each backward kernel against its plain version. The plain forward
     gives ``y``; the plain epilogue-grad gives the ``gm`` that both dx and
@@ -719,6 +764,8 @@ def phase_bwd_check(torch) -> dict:
     bwd = kernels(("epilogue_grad", "dx", "dw"))
     if {bw.bwd_geometry(*s).dw_variant for s in BWD_SHAPES} != bw.dw_variants():
         raise AssertionError("the backward check shapes miss an instance of dw")
+    if {bw.bwd_geometry(*s).dx_variant for s in BWD_SHAPES} != bw.dx_variants():
+        raise AssertionError("the backward check shapes miss an instance of dx")
     worst = dict.fromkeys(bwd, 0.0)
     for i, shape in enumerate(BWD_SHAPES):
         x, k, bias, g = _bwd_inputs(torch, shape, seed=200 + i)
@@ -739,8 +786,24 @@ def phase_bwd_check(torch) -> dict:
             _worst("dw", shape, tag,
                    list(zip(got, want)) if with_db else [(got, want)], worst)
         torch.cuda.synchronize()
-        log(f"[bwd-check] {shape}: every epilogue within tolerance; worst so far "
+        geo = bw.bwd_geometry(*shape)
+        log(f"[bwd-check] {shape} dx {geo.dx_variant} splits {geo.dx_splits}, dw "
+            f"{geo.dw_variant} splits {geo.dw_splits}: every epilogue within "
+            f"tolerance; worst so far "
             + ", ".join(f"{n} {e:.3e}" for n, e in worst.items()))
+    for i, shape in enumerate(DX_UNALIGNED_SHAPES):
+        _, k, _, gm = _bwd_inputs(torch, shape, seed=300 + i)
+        n_in, pad = shape[1], shape[3]
+        gu, ku = _offset_view(torch, gm), _offset_view(torch, k)
+        if bw.dx_copy_widths(gu, ku)[0] or not bw.dx_copy_widths(gm, k)[0]:
+            raise AssertionError(f"dx at {shape} does not reach 4-byte copies "
+                                 "through unaligned operands")
+        _worst("dx", shape, "unaligned",
+               [(bwd["dx"][0](gu, ku, n_in, pad), bwd["dx"][1](gm, k, n_in, pad))],
+               worst)
+        torch.cuda.synchronize()
+        log(f"[bwd-check] {shape} dx {bw.bwd_geometry(*shape).dx_variant} with "
+            f"unaligned gm and kernel: within tolerance; worst dx {worst['dx']:.3e}")
     return worst
 
 
@@ -840,7 +903,8 @@ def phase_bwd_times(torch) -> list:
                "dw_plain_ms": time_cuda(bw.transpose_conv2d_dw_plain, x, gm, n_k, pad,
                                         with_db=True, iters=5),
                "dw_library_ms": time_cuda(conv_bwd, *conv_args, [False, True, True]),
-               "geometry": {"dx_splits": bw.bwd_geometry(*shape).dx_splits,
+               "geometry": {"dx_variant": bw.bwd_geometry(*shape).dx_variant,
+                            "dx_splits": bw.bwd_geometry(*shape).dx_splits,
                             "dw_splits": bw.bwd_geometry(*shape).dw_splits}}
         # the events above also hold each call's host cost where that
         # exceeds the kernel's; a graph replay gives the device's own time
@@ -908,6 +972,7 @@ def _counters():
 
     wrappers = {name: fns[0] for name, fns in kernels().items()}
     return wrappers, {"fused_reduce": wrappers["fused"],
+                      "gemm_reduce": wrappers["gemm"],
                       "phase_reduce": wrappers["phase"],
                       "dx_reduce": bw.transpose_conv2d_dx,
                       "dw_reduce": bw.transpose_conv2d_dw,

@@ -96,6 +96,13 @@ __device__ __forceinline__ void cp_quad(float* dst, const float* src,
   }
 }
 
+// Selects, not indexes: an argument array indexed at run time would be
+// copied to the stack.
+__device__ __forceinline__ int pick2(const int (&v)[2], int i) { return i ? v[1] : v[0]; }
+__device__ __forceinline__ int pick4(const int (&v)[4], int i) {
+  return i == 0 ? v[0] : i == 1 ? v[1] : i == 2 ? v[2] : v[3];
+}
+
 // Component k of v; k is a constant of an unrolled loop, so this is a
 // register, not a branch.
 __device__ __forceinline__ float component(const float4& v, int k) {

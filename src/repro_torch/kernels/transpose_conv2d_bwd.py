@@ -47,7 +47,14 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import epilogue as epilib
 from repro_torch.kernels.transpose_conv2d import MAX_R, H100_SMS, check_cuda_operands
 
-DX_TILE = (32, 64)        # (rows = dx positions, cols = Cin) of the dx kernel
+# dx block tiles (rows = dx positions, cols = Cin) by layout: "rich" for
+# Cout > 4 (256 threads of 8 x 8, 16-channel Cout steps on a cp.async ring),
+# "poor" for Cout <= POOR_MAX_COUT (32 groups of DX_POOR_NP positions x 32 Cin)
+DX_TILES = {"rich": (128, 128), "poor": (256, 32)}
+DX_LAYOUT_CODES = {"rich": 0, "poor": 1}
+DX_STAGES = 4             # depth of the rich dx kernel's cp.async ring
+DX_POOR_NP = 8            # consecutive dx positions a poor-layout thread
+DX_MIN_SPLIT_STEPS = 4    # Cout steps a rich dx split keeps at least
 # dw block tiles (rows = Cin, cols = Cout) by layout: "rich" for Cout > 64,
 # "narrow" for 4 < Cout <= 64 (both 256 threads of 8 x 8), "poor" for
 # Cout <= POOR_MAX_COUT (64 Cin x 4 Cout x the R column taps of one row tap)
@@ -57,7 +64,8 @@ POOR_MAX_COUT = 4
 BK = 16                   # contraction step of both GEMM kernels (DW_BK too)
 DW_STAGES = 3             # depth of the dw kernel's cp.async ring
 DW_SLICES = 16            # row slices of a poor dw block
-MIN_BLOCKS = 2 * H100_SMS  # split dx's reduction until the grid has this many blocks
+DX_MIN_BLOCKS = H100_SMS   # split rich dx's contraction while its grid stays within
+                           # this many blocks (one an SM at 202 registers: one wave)
 DW_MIN_BLOCKS = H100_SMS   # split dw's until its grid has this many (one block an SM)
 MIN_DW_STEPS = 8          # ... but keep at least this many BK steps (rich) or
                           # DW_SLICES rows (poor) in each split
@@ -123,10 +131,13 @@ class BwdGeometry:
     wsels: tuple       # output parity -> stacked sub-kernel
     phase_of_sub: tuple  # stacked sub-kernel -> output parity (inverse)
     # dx: rows (b, i, j) x cols Cin, contraction over (parity, p, q, co)
+    dx_layout: str     # "rich" or "poor" (DX_TILES)
     dx_rows: int
-    dx_grid: tuple     # (row blocks, Cin blocks, splits)
-    dx_taps: int       # stacked taps 4 R R
-    dx_taps_per_split: int
+    dx_grid: tuple     # rich: (row blocks, Cin blocks, splits);
+                       # poor: (position-group blocks, Cin blocks, 1)
+    dx_cpt: int        # rich: 16-channel Cout steps a stacked tap
+    dx_steps: int      # rich: 4 R R cpt contraction steps
+    dx_smem_bytes: int
     # dw: one GEMM per HWIO tap, rows Cin x cols Cout, contraction over the
     # B Hp Hp positions of the tap's phase plane
     dw_layout: str     # "rich", "narrow" or "poor" (DW_TILES)
@@ -142,6 +153,18 @@ class BwdGeometry:
         return self.dx_grid[2]
 
     @property
+    def dx_variant(self) -> tuple:
+        """The compiled dx instance this geometry launches: ``("rich",)``
+        or ``("poor", R)``."""
+        return ("poor", self.r) if self.dx_layout == "poor" else ("rich",)
+
+    def dx_split_steps(self, split: int) -> range:
+        """The contraction steps rich dx split ``split`` sums, as the kernel
+        partitions them."""
+        lo = split * self.dx_steps // self.dx_splits
+        return range(lo, (split + 1) * self.dx_steps // self.dx_splits)
+
+    @property
     def dw_variant(self) -> tuple:
         """The compiled dw instance this geometry launches: ``("rich",
         rows, cols)`` or ``("poor", R)``."""
@@ -152,14 +175,25 @@ class BwdGeometry:
         return self.dw_grid[2]
 
 
+def dx_variants() -> set:
+    """Every compiled instance of the dx kernels."""
+    return {("rich",)} | {("poor", r) for r in range(1, MAX_R + 1)}
+
+
+def dx_split_count(blocks: int, steps: int) -> int:
+    """The rich dx split count, from the layer's shape: as many as keep the
+    grid within DX_MIN_BLOCKS (one wave) and DX_MIN_SPLIT_STEPS steps a
+    split."""
+    return max(1, min(DX_MIN_BLOCKS // blocks, steps // DX_MIN_SPLIT_STEPS))
+
+
 def dw_variants() -> set:
     """Every compiled instance of the dw kernels."""
     return ({("rich", *DW_TILES[k]) for k in ("rich", "narrow")}
             | {("poor", r) for r in range(1, MAX_R + 1)})
 
 
-def _splits(blocks: int, steps: int, min_steps: int,
-            min_blocks: int = MIN_BLOCKS) -> int:
+def _splits(blocks: int, steps: int, min_steps: int, min_blocks: int) -> int:
     """Shape-only split count: double while the grid is under
     ``min_blocks`` and each split keeps ``min_steps`` of ``steps``."""
     s = 1
@@ -183,10 +217,19 @@ def bwd_geometry(batch: int, n_in: int, n_k: int, padding: int, cin: int,
     phase_of_sub = tuple(ws.index(s) for s in range(4))
 
     dx_rows = batch * n_in * n_in
-    dx_blocks = _cdiv(dx_rows, DX_TILE[0]) * _cdiv(cin, DX_TILE[1])
-    dx_taps = 4 * r * r
-    dx_splits = _splits(dx_blocks, dx_taps, 1)
-    dx_tps = _cdiv(dx_taps, dx_splits)
+    dx_layout = "poor" if cout <= POOR_MAX_COUT else "rich"
+    dx_tile = DX_TILES[dx_layout]
+    if dx_layout == "poor":
+        groups = batch * n_in * _cdiv(n_in, DX_POOR_NP)
+        dx_grid = (_cdiv(groups, dx_tile[0] // DX_POOR_NP), _cdiv(cin, dx_tile[1]), 1)
+        dx_cpt = dx_steps = 0
+        dx_smem = 4 * 4 * r * r * dx_tile[1] * 4
+    else:
+        dx_blocks = (_cdiv(dx_rows, dx_tile[0]), _cdiv(cin, dx_tile[1]))
+        dx_cpt = _cdiv(cout, BK)
+        dx_steps = 4 * r * r * dx_cpt
+        dx_grid = dx_blocks + (dx_split_count(dx_blocks[0] * dx_blocks[1], dx_steps),)
+        dx_smem = 4 * DX_STAGES * sum(dx_tile) * (BK + 4)
 
     dw_layout = ("poor" if cout <= POOR_MAX_COUT
                  else "narrow" if cout <= DW_TILES["narrow"][1] else "rich")
@@ -210,9 +253,8 @@ def bwd_geometry(batch: int, n_in: int, n_k: int, padding: int, cin: int,
         batch=batch, n_in=n_in, n_k=n_k, padding=padding, cin=cin, cout=cout,
         m=m, hp=hp, r=r, pad_lo=pad_lo, row0s=row0s, col0s=col0s,
         roffs=roffs, coffs=coffs, wsels=ws, phase_of_sub=phase_of_sub,
-        dx_rows=dx_rows,
-        dx_grid=(_cdiv(dx_rows, DX_TILE[0]), _cdiv(cin, DX_TILE[1]), dx_splits),
-        dx_taps=dx_taps, dx_taps_per_split=dx_tps,
+        dx_layout=dx_layout, dx_rows=dx_rows, dx_grid=dx_grid, dx_cpt=dx_cpt,
+        dx_steps=dx_steps, dx_smem_bytes=dx_smem,
         dw_layout=dw_layout, dw_tile=dw_tile, dw_positions=dw_pos,
         dw_grid=(dw_blocks, dw_taps, dw_splits), dw_positions_per_split=dw_pps,
         dw_smem_bytes=dw_smem,
@@ -302,7 +344,7 @@ def _lib():
         [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_float,
                                  ctypes.c_int, ctypes.c_void_p])
     lib.tconv_dx_f32.argtypes = (
-        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 19 + [ctypes.c_void_p])
+        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 26 + [ctypes.c_void_p])
     lib.tconv_dw_f32.argtypes = (
         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 31 + [ctypes.c_void_p])
     lib.tconv_sum_splits_f32.argtypes = (
@@ -369,6 +411,16 @@ def epilogue_grad(g, y, epilogue) -> torch.Tensor:
     return out
 
 
+def dx_copy_widths(gm, kernel) -> tuple:
+    """``(vg, vx)`` of a dx launch: 16-byte gm and weight copies where Cout
+    is a multiple of 4 and both operands start 16-byte aligned, else 4-byte
+    ones; 16-byte dx stores where Cin is a multiple of 4 (dx is allocated
+    aligned). A width never changes a sum."""
+    cout, cin = gm.shape[3], kernel.shape[2]
+    vg = cout % 4 == 0 and gm.data_ptr() % 16 == 0 and kernel.data_ptr() % 16 == 0
+    return vg, cin % 4 == 0
+
+
 def transpose_conv2d_dx(gm, kernel, n_in: int, padding: int = 0) -> torch.Tensor:
     """dx ``(B, N, N, Cin)`` of the unified transpose conv from the masked
     cotangent ``gm (B, M, M, Cout)`` and the HWIO kernel. A CUDA tensor
@@ -386,15 +438,20 @@ def transpose_conv2d_dx(gm, kernel, n_in: int, padding: int = 0) -> torch.Tensor
     if n_k < 2 or m != seg.output_size(n_in, n_k, padding):
         raise ValueError(f"bad geometry: M={m}, N={n_in}, n={n_k}, P={padding}")
     g = bwd_geometry(b, n_in, n_k, padding, cin, cout)
+    if g.dx_layout == "poor" and g.r > MAX_R:
+        raise ValueError(f"the poor dx kernel takes kernels up to {2 * MAX_R}x"
+                         f"{2 * MAX_R}, got {n_k}x{n_k}")
     gm, kernel = gm.contiguous(), kernel.contiguous()
     dx = torch.empty((b, n_in, n_in, cin), device=gm.device, dtype=torch.float32)
     part = dx if g.dx_splits == 1 else torch.empty(
         (g.dx_splits,) + tuple(dx.shape), device=gm.device, dtype=torch.float32)
+    vg, vx = dx_copy_widths(gm, kernel)
     with torch.cuda.device(gm.device):
         err = _lib().tconv_dx_f32(
             gm.data_ptr(), kernel.data_ptr(), part.data_ptr(),
             b, n_in, cin, cout, n_k, g.m, g.r, *g.roffs, *g.coffs, *g.wsels,
-            *g.dx_grid, g.dx_taps_per_split, _stream(gm))
+            DX_LAYOUT_CODES[g.dx_layout], *DX_TILES[g.dx_layout], *g.dx_grid,
+            g.dx_cpt, g.dx_steps, int(vg), int(vx), g.dx_smem_bytes, _stream(gm))
     _check(err, "transpose_conv2d_dx")
     transpose_conv2d_dx.launches += 1
     if g.dx_splits > 1:

@@ -28,6 +28,7 @@ from repro_torch.kernels import ops
 from repro_torch.kernels import plan as planlib
 from repro_torch.kernels import transpose_conv2d as tcf
 from repro_torch.kernels import transpose_conv2d_bwd as bw
+from test_torch_gemm_kernel import _cp_quad, _gather
 
 EPILOGUES = [
     None,
@@ -247,10 +248,18 @@ def test_split_counts_depend_on_the_shape_only():
              (8, 16, 4, 2, 256, 128), (8, 32, 4, 2, 128, 3)]
     got = [(bw.bwd_geometry(*s).dx_splits, bw.bwd_geometry(*s).dw_splits)
            for s in dcgan]
-    assert got == [(8, 1), (4, 2), (2, 8), (1, 16)]
+    assert got == [(16, 1), (8, 2), (4, 8), (1, 16)]
     for s in dcgan:
         g = bw.bwd_geometry(*s)
-        assert g.dx_grid[0] * g.dx_grid[1] * g.dx_splits >= bw.MIN_BLOCKS
+        # a rich dx grid fills the card in one wave; its splits run over
+        # whole contraction steps, each split keeping several
+        if g.dx_layout == "rich":
+            assert bw.DX_MIN_BLOCKS - g.dx_grid[0] * g.dx_grid[1] < (
+                g.dx_grid[0] * g.dx_grid[1] * g.dx_splits) <= bw.DX_MIN_BLOCKS
+            covered = [i for z in range(g.dx_splits) for i in g.dx_split_steps(z)]
+            assert covered == list(range(g.dx_steps))
+            assert min(len(g.dx_split_steps(z)) for z in range(g.dx_splits)) >= (
+                bw.DX_MIN_SPLIT_STEPS)
         assert g.dw_grid[0] * g.dw_grid[1] * g.dw_splits >= bw.DW_MIN_BLOCKS
         # a rich split holds whole ring stages, a poor one whole rows
         step = g.hp if g.dw_layout == "poor" else bw.BK
@@ -275,59 +284,199 @@ def test_card_shape_lists_reach_every_dw_instance():
         assert {bw.bwd_geometry(*s).dw_variant for s in shapes} == bw.dw_variants()
 
 
+def test_card_shape_lists_reach_every_dx_instance_and_copy_width():
+    """The card tests (SHAPES, and DX_UNALIGNED_SHAPES through offset views)
+    and chip_smoke.py's backward check (BWD_SHAPES and its
+    DX_UNALIGNED_SHAPES) each launch every compiled dx instance (the rich
+    tile; the poor layout at R = 1-4); each layout with the 16-byte and the
+    4-byte gm and weight copies that ``bw.dx_copy_widths`` chooses, the
+    4-byte ones both at a ragged Cout and with unaligned operands at a Cout
+    that is a multiple of 4; and the poor layout with 16-byte and 4-byte dx
+    stores."""
+    import os
+    import sys
+    root = os.path.join(os.path.dirname(__file__), "..")
+    sys.path.insert(0, root)
+    try:
+        import chip_smoke
+        from test_torch_cuda import DX_UNALIGNED_SHAPES, SHAPES, offset_view
+    finally:
+        sys.path.remove(root)
+
+    def operands(shape, unaligned):
+        b, n_in, n_k, pad, cin, cout = shape
+        m = 2 * n_in - n_k + 2 * pad
+        gm, k = torch.empty((b, m, m, cout)), torch.empty((n_k, n_k, cin, cout))
+        return (offset_view(gm), offset_view(k)) if unaligned else (gm, k)
+
+    for shapes, unaligned in ((SHAPES, DX_UNALIGNED_SHAPES),
+                              (chip_smoke.BWD_SHAPES, chip_smoke.DX_UNALIGNED_SHAPES)):
+        launches = [(s, False) for s in shapes] + [(s, True) for s in unaligned]
+        geos = [bw.bwd_geometry(*s) for s, _ in launches]
+        assert {g.dx_variant for g in geos} == bw.dx_variants()
+        widths = [(g.dx_layout, g.cout % 4 == 0, *bw.dx_copy_widths(*operands(s, u)))
+                  for (s, u), g in zip(launches, geos)]
+        for layout in ("rich", "poor"):
+            mine = [w[1:] for w in widths if w[0] == layout]
+            assert {vg for _, vg, _ in mine} == {True, False}
+            assert (True, False) in {(c4, vg) for c4, vg, _ in mine}   # unaligned
+            assert (False, False) in {(c4, vg) for c4, vg, _ in mine}  # ragged
+            assert layout == "rich" or {vx for _, _, vx in mine} == {True, False}
+
+
 # ------------------------------------------------- emulation of the kernels
 
-def _gather(flat, idx, mask):
-    """``flat[idx]`` where ``mask``, else 0; an unmasked index past the
-    tensor raises IndexError, as a stray read would fault."""
-    safe = torch.where(mask, idx, torch.zeros_like(idx))
-    if bool((safe >= flat.numel()).any()):
-        raise IndexError("read past the tensor")
-    return torch.where(mask, flat[safe], torch.zeros((), dtype=flat.dtype))
+def _emulate_dx_rich(gm, kernel, g, vg):
+    """``dx_kernel``: per (128-row block, 128-Cin block, split) block, each
+    thread's copies (16-byte where ``vg``) of two gm rows (their pixel for
+    each tap resolved by the thread) and two weight rows into a
+    DX_STAGES-deep ring of 16-channel Cout steps, then 8 x 8 tiles (rows
+    rg + 16 i, Cin cg + 16 j) accumulated one contraction index at a time in
+    the kernel's order."""
+    b, m, _, cout = gm.shape
+    n_k, cin, n_in, r = kernel.shape[0], kernel.shape[2], g.n_in, g.r
+    (bm, bn), bk, st_n = bw.DX_TILES["rich"], bw.BK, bw.DX_STAGES
+    rows, plane = g.dx_rows, n_in * n_in
+    part = torch.full((g.dx_splits, rows, cin), float("nan"), dtype=gm.dtype)
+    writes = torch.zeros(part.shape, dtype=torch.int64)
+    gflat, wflat = gm.reshape(-1), kernel.reshape(-1)
+    tid = torch.arange(256)
+    rg, cg = tid // 16, tid % 16
+    for bx, by, z in itertools.product(*map(range, g.dx_grid)):
+        m0, ci0 = bx * bm, by * bn
+        ring = [None] * st_n
+
+        def stage(step, slot):
+            tap, co0 = step // g.dx_cpt, step % g.dx_cpt * bk
+            ph, p, q = tap // (r * r), tap % (r * r) // r, tap % r
+            pr, pc, s = ph // 2, ph % 2, g.wsels[ph]
+            kh, kw = 2 * p + s // 2, 2 * q + s % 2
+            co = co0 + 4 * (tid % 4)
+            a_st = torch.full((bm, bk), float("nan"), dtype=gm.dtype)
+            b_st = torch.full((bn, bk), float("nan"), dtype=gm.dtype)
+            for h in range(2):
+                row = tid // 4 + 64 * h
+                rr = m0 + row
+                rb = torch.where(rr < rows, rr // plane, -1)
+                ri, rj = rr % plane // n_in, rr % n_in
+                t, u = ri + g.roffs[pr] - p, rj + g.coffs[pc] - q
+                oh, ow = 2 * t + pr, 2 * u + pc
+                ok = (rb >= 0) & (t >= 0) & (u >= 0) & (oh < m) & (ow < m)
+                src = ((rb * m + oh) * m + ow) * cout + co
+                a_st.view(bm, 4, 4)[row, tid % 4] = _cp_quad(
+                    gflat, src, torch.where(ok, cout - co, 0), vg)
+                ci = ci0 + row
+                okw = (kh < n_k) & (kw < n_k) & (ci < cin)
+                wsrc = ((kh * n_k + kw) * cin + ci) * cout + co
+                b_st.view(bn, 4, 4)[row, tid % 4] = _cp_quad(
+                    wflat, wsrc, torch.where(okw, cout - co, 0), vg)
+            assert not (a_st.isnan().any() or b_st.isnan().any())  # every slot staged
+            ring[slot] = (a_st, b_st)
+
+        lo = z * g.dx_steps // g.dx_splits
+        nk = (z + 1) * g.dx_steps // g.dx_splits - lo
+        acc = torch.zeros((bm, bn), dtype=gm.dtype)
+        for st in range(min(st_n - 1, nk)):
+            stage(lo + st, st)
+        for k in range(nk):
+            if k + st_n - 1 < nk:
+                assert (k + st_n - 1) % st_n != k % st_n   # never the slot being read
+                stage(lo + k + st_n - 1, (k + st_n - 1) % st_n)
+            a_st, b_st = ring[k % st_n]
+            for c in range(bk):
+                acc += a_st[:, c, None] * b_st[None, :, c]
+        # thread (rg, cg) writes rows rg + 16 i, Cin cg + 16 j
+        rr = m0 + rg[:, None] + 16 * torch.arange(8)          # (256, 8)
+        cc = ci0 + cg[:, None] + 16 * torch.arange(8)
+        for i in range(8):
+            for j in range(8):
+                ok = (rr[:, i] < rows) & (cc[:, j] < cin)
+                vals = acc[rr[ok, i] - m0, cc[ok, j] - ci0]
+                part[z, rr[ok, i], cc[ok, j]] = vals
+                writes[z, rr[ok, i], cc[ok, j]] += 1
+    return part, writes
 
 
-def emulate_dx_kernel(gm, kernel, n_in, padding):
-    """What ``dx_kernel`` (then ``sum_splits_kernel``) computes, block by
-    block, with its own index arithmetic. Returns dx and the write count of
-    every (split, row, ci) slot."""
+def _emulate_dx_poor(gm, kernel, g, vg):
+    """``dx_poor_kernel``: per (32 position groups, 32 Cin) block, the 4 R R
+    taps x 32 Cin of weights staged [tap][ci][4 co] (Cout zero-padded), and
+    each thread (a group of 8 positions along a row x a Cin quad) walking
+    each parity's row taps with a window of 8 + R - 1 gm pixels, each one
+    float4: a 16-byte load where ``vg``, else Cout 4-byte loads and zeros."""
+    b, m, _, cout = gm.shape
+    n_k, cin, n_in, r = kernel.shape[0], kernel.shape[2], g.n_in, g.r
+    np_, (_, ct) = bw.DX_POOR_NP, bw.DX_TILES["poor"]
+    gpr = -(-n_in // np_)
+    n_groups = b * n_in * gpr
+    part = torch.full((1, g.dx_rows, cin), float("nan"), dtype=gm.dtype)
+    writes = torch.zeros(part.shape, dtype=torch.int64)
+    gflat, wflat = gm.reshape(-1), kernel.reshape(-1)
+
+    def pixel(bb, oh, ow):
+        src = torch.tensor([((bb * m + oh) * m + ow) * cout])
+        return _cp_quad(gflat, src, torch.tensor([cout]), vg)[0]
+
+    for bx, by, _ in itertools.product(*map(range, g.dx_grid)):
+        ci0 = by * ct
+        ws = torch.full((4 * r * r * ct, 4), float("nan"), dtype=gm.dtype)
+        rows = torch.arange(4 * r * r * ct)
+        tap, ci = rows // ct, ci0 + rows % ct
+        ph, p, q = tap // (r * r), tap // r % r, tap % r
+        sub = torch.tensor(g.wsels)[ph]
+        kh, kw = 2 * p + sub // 2, 2 * q + sub % 2
+        ok = (kh < n_k) & (kw < n_k) & (ci < cin)
+        ws[rows] = _cp_quad(wflat, ((kh * n_k + kw) * cin + ci) * cout,
+                            torch.where(ok, cout, 0), vg)
+        assert not ws.isnan().any()
+        ws = ws.reshape(4 * r * r, ct, 4)
+        # the threads of a position group (its Cin quads) at once
+        for grp in range(bx * (256 // (ct // 4)), (bx + 1) * (256 // (ct // 4))):
+            if grp >= n_groups:
+                continue
+            bb, i, j0 = grp // (n_in * gpr), grp // gpr % n_in, grp % gpr * np_
+            acc = torch.zeros((np_, ct), dtype=gm.dtype)
+            for ph_ in range(4):
+                pr, pc = ph_ // 2, ph_ % 2
+                u0 = j0 + g.coffs[pc] - (r - 1)
+                for p_ in range(r):
+                    t = i + g.roffs[pr] - p_
+                    oh = 2 * t + pr
+                    if t < 0 or oh >= m:
+                        continue
+                    win = [pixel(bb, oh, 2 * (u0 + mm) + pc) if u0 + mm >= 0
+                           and 2 * (u0 + mm) + pc < m
+                           else torch.zeros(4, dtype=gm.dtype)
+                           for mm in range(np_ + r - 1)]
+                    for q_ in range(r):
+                        wv = ws[(ph_ * r + p_) * r + q_]          # (ct ci, 4 co)
+                        for n in range(np_):
+                            gv = win[n + r - 1 - q_]
+                            for e in range(4):
+                                acc[n] = acc[n] + gv[e] * wv[:, e]
+            c_idx = ci0 + torch.arange(ct)
+            okc = c_idx < cin
+            for n in range(np_):
+                j = j0 + n
+                if j >= n_in:
+                    break
+                row = (bb * n_in + i) * n_in + j
+                part[0, row, c_idx[okc]] = acc[n, okc]
+                writes[0, row, c_idx[okc]] += 1
+    return part, writes
+
+
+def emulate_dx_kernel(gm, kernel, n_in, padding, vg=None):
+    """What the dx kernel of the layer's layout (then ``sum_splits_kernel``)
+    computes, block by block, with its own index arithmetic; ``vg`` is the
+    gm and weight copy width the wrapper chose (``bw.dx_copy_widths``).
+    Returns dx and the write count of every (split, row, ci) slot."""
     b, m, _, cout = gm.shape
     n_k, cin = kernel.shape[0], kernel.shape[2]
     g = bw.bwd_geometry(b, n_in, n_k, padding, cin, cout)
-    (bm, bn), r = bw.DX_TILE, g.r
-    rows, plane = b * n_in * n_in, n_in * n_in
-    part = torch.full((g.dx_splits, rows, cin), float("nan"), dtype=gm.dtype)
-    writes = torch.zeros((g.dx_splits, rows, cin), dtype=torch.int64)
-    gflat, wflat = gm.reshape(-1), kernel.reshape(-1)
-    for bx, by, z in itertools.product(*map(range, g.dx_grid)):
-        rr = bx * bm + torch.arange(bm)
-        live = rr < rows
-        rb, ri, rj = rr // plane, (rr % plane) // n_in, rr % n_in
-        ci = by * bn + torch.arange(bn)
-        acc = torch.zeros((bm, bn), dtype=gm.dtype)
-        t0 = z * g.dx_taps_per_split
-        for tap in range(t0, min(g.dx_taps, t0 + g.dx_taps_per_split)):
-            ph, p, q = tap // (r * r), (tap // r) % r, tap % r
-            s = g.wsels[ph]
-            kh, kw = 2 * p + s // 2, 2 * q + s % 2
-            if kh >= n_k or kw >= n_k:
-                continue
-            pr, pc = ph // 2, ph % 2
-            t, u = ri + g.roffs[pr] - p, rj + g.coffs[pc] - q
-            oh, ow = 2 * t + pr, 2 * u + pc
-            ok = live & (t >= 0) & (u >= 0) & (oh < m) & (ow < m)
-            if not bool(ok.any()):
-                continue
-            src = ((rb * m + oh) * m + ow) * cout
-            for co0 in range(0, cout, bw.BK):
-                co = co0 + torch.arange(bw.BK)
-                a = _gather(gflat, src[:, None] + co[None, :],
-                            ok[:, None] & (co < cout)[None, :])
-                wi = ((kh * n_k + kw) * cin + ci[:, None]) * cout + co[None, :]
-                bmat = _gather(wflat, wi, (ci < cin)[:, None] & (co < cout)[None, :])
-                acc += a @ bmat.T
-        keep_r, keep_c = rr[live], ci[ci < cin]
-        part[z][keep_r[:, None], keep_c[None, :]] = acc[live][:, ci < cin]
-        writes[z][keep_r[:, None], keep_c[None, :]] += 1
+    if vg is None:
+        vg = bw.dx_copy_widths(gm, kernel)[0]
+    run = _emulate_dx_poor if g.dx_layout == "poor" else _emulate_dx_rich
+    part, writes = run(gm, kernel, g, vg)
     dx = part[0]
     for z in range(1, g.dx_splits):
         dx = dx + part[z]
@@ -502,6 +651,11 @@ EMU_CASES = [   # (b, N, n, P, Cin, Cout)
     (1, 9, 2, 1, 4, 33),     # n = 2, M = 18
     (1, 5, 4, 2, 8, 72),     # the rich dw tile (Cout > 64), ragged in it
     (1, 9, 7, 3, 70, 2),     # the poor layout at R = 4, two Cin blocks, odd M
+    (3, 7, 4, 2, 6, 9),      # two rich dx row blocks
+    (1, 3, 4, 2, 130, 5),    # two rich dx Cin blocks
+    (2, 5, 2, 1, 8, 4),      # poor dx R = 1: 16-byte gm pixels and dx stores
+    (1, 6, 5, 2, 12, 1),     # poor dx R = 3, Cout = 1
+    (2, 17, 4, 2, 6, 3),     # poor dx: 4 blocks of position groups, rows ragged in them
 ]
 
 
@@ -514,6 +668,21 @@ def test_emulated_dx_kernel_writes_once_and_matches(shape):
     assert int(writes.min()) == 1 and int(writes.max()) == 1
     want = bw.transpose_conv2d_dx_plain(tg, tk, n_in, pad)
     torch.testing.assert_close(got, want, rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.parametrize("shape", [(2, 5, 2, 1, 8, 4), (1, 5, 4, 2, 8, 8)], ids=str)
+def test_emulated_dx_kernel_with_4_byte_copies(shape):
+    """The 4-byte gm and weight copies that unaligned operands take at a
+    Cout that is a multiple of 4 (poor at Cout 4, rich at Cout 8) give the
+    same dx as the 16-byte ones."""
+    b, n_in, n_k, pad, cin, cout = shape
+    _, k, _, g = _case(sum(shape) + 2, b, n_in, n_k, pad, cin, cout, dtype=np.float64)
+    tk, tg = torch.from_numpy(k), torch.from_numpy(g)
+    want = bw.transpose_conv2d_dx_plain(tg, tk, n_in, pad)
+    for vg in (True, False):
+        got, writes = emulate_dx_kernel(tg, tk, n_in, pad, vg=vg)
+        assert int(writes.min()) == 1 and int(writes.max()) == 1
+        torch.testing.assert_close(got, want, rtol=1e-12, atol=1e-12)
 
 
 @pytest.mark.parametrize("shape", EMU_CASES, ids=str)

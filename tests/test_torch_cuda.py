@@ -1,13 +1,13 @@
 """Card tests of the port: each CUDA kernel against its plain version (the
-fused and per-phase kernels at shapes for each of their compiled instances
-and copy widths), the fused kernel's rows equal to unbatched calls bit for bit, the
-generator's batch invariance (per layer and through fused pairs), and the
-generator's gradients through the backward kernels, fused pairs and the
-per-phase kernel, the decode attention kernel at the LM shapes, and a
-decode step's independence of the other slots. Every test is marked
-``cuda`` and skips
-itself when no card is present. The file imports no JAX, so it runs on a
-machine that has only PyTorch:
+fused, per-phase, GEMM and dx kernels at shapes for each of their compiled
+instances and copy widths), the fused, per-phase and GEMM kernels' rows equal
+to unbatched calls bit for bit, dx on both sides of its layout boundary and
+with unaligned operands, the generator's batch invariance (per layer and
+through fused pairs), and the generator's gradients through the backward
+kernels, fused pairs and the per-phase kernel, the decode attention kernel
+at the LM shapes, and a decode step's independence of the other slots.
+Every test is marked ``cuda`` and skips itself when no card is present.
+The file imports no JAX, so it runs on a machine that has only PyTorch:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
@@ -66,6 +66,16 @@ PHASE_VARIANT_SHAPES = (
     + [(2, 2, n, pad, cin, cout) for n, pads in ((2, (1, 0)), (4, (2, 3)))
        for pad, (cin, cout) in zip(pads, ((24, 8), (18, 6)))])
 SHAPES += PHASE_VARIANT_SHAPES
+# The implicit-GEMM kernel at bucket 1 (DCGAN L0: 17 splits, a warp past the
+# batch), 4-byte input with 16-byte weight copies, and the poor dx layout
+# with 16-byte gm pixels and dx stores at R = 2.
+SHAPES += [(1, 4, 4, 2, 1024, 512), (3, 5, 4, 2, 30, 12), (2, 6, 4, 2, 12, 4)]
+# dx with gm and the kernel as contiguous views 4 bytes into larger buffers:
+# 4-byte copies at a Cout that is a multiple of 4 (the poor layout at Cout 4,
+# the rich tile at Cout 8)
+DX_UNALIGNED_SHAPES = [(2, 6, 4, 2, 12, 4), (2, 5, 3, 1, 9, 8)]
+# (N, n, P, Cin, Cout) of every zoo layer the plan sends to the GEMM kernel
+ZOO_GEMM_LAYERS = [(4, 4, 2, 512, 256), (4, 4, 2, 1024, 512), (4, 4, 2, 2048, 1024)]
 KERNELS = {
     "fused": (tcf.transpose_conv2d_fused, tcf.transpose_conv2d_fused_plain),
     "gemm": (tcg.transpose_conv2d_gemm, tcg.transpose_conv2d_gemm_plain),
@@ -92,6 +102,15 @@ def card():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda")
+
+
+def offset_view(t, offset=1):
+    """A contiguous copy of ``t`` that starts ``offset`` elements into a
+    larger buffer, so its first element is not 16-byte aligned."""
+    buf = torch.empty(t.numel() + offset, dtype=t.dtype, device=t.device)
+    view = buf[offset:].view(t.shape)
+    view.copy_(t)
+    return view
 
 
 def _case(seed, b, n_in, cin, n_k, cout, device):
@@ -183,6 +202,21 @@ def test_phase_kernel_rows_equal_unbatched_bitwise(card, shape):
         assert torch.equal(one[0], batched[i])
 
 
+@pytest.mark.parametrize("layer", ZOO_GEMM_LAYERS, ids=str)
+@pytest.mark.parametrize("batch", [1, 3, 8])
+def test_gemm_kernel_rows_equal_unbatched_bitwise(card, batch, layer):
+    """Each batch row of the implicit-GEMM kernel equals its batch-1 call
+    bit for bit at every zoo layer it serves: its splits and summation
+    order read the layer's shape, never the batch."""
+    n_in, n_k, pad, cin, cout = layer
+    x, k, bias = _case(sum(layer) + batch, batch, n_in, cin, n_k, cout, card)
+    epi = EPILOGUES[2]
+    batched = tcg.transpose_conv2d_gemm(x, k, pad, epilogue=epi, bias=bias)
+    for i in range(batch):
+        one = tcg.transpose_conv2d_gemm(x[i : i + 1], k, pad, epilogue=epi, bias=bias)
+        assert torch.equal(one[0], batched[i])
+
+
 def _close(got, want):
     """Within 1e-4 * max|ref| + 1e-5: fp32 sums of up to 8192 terms taken in
     another order."""
@@ -228,15 +262,59 @@ def test_dx_and_dw_kernels_match_plain(card, shape, with_db):
         _close(dw, want)
 
 
-def test_backward_kernels_are_deterministic(card):
-    """Two runs of the split dx and dw kernels give the same bits."""
-    b, n_in, n_k, pad, cin, cout = 8, 32, 4, 2, 128, 3
+@pytest.mark.parametrize("shape", [
+    (8, 32, 4, 2, 128, 3),     # DCGAN L3: poor dx, split poor dw
+    (8, 4, 4, 2, 1024, 512),   # DCGAN L0: rich dx in 16 splits
+    (8, 16, 4, 2, 256, 128),   # DCGAN L2: rich dx in 4 splits, split dw
+    (2, 9, 7, 3, 10, 4),       # poor dx at R = 4, 16-byte gm pixels
+], ids=str)
+def test_backward_kernels_are_deterministic(card, shape):
+    """Two runs of the dx and dw kernels (each dx layout, split and not)
+    give the same bits."""
+    b, n_in, n_k, pad, cin, cout = shape
     x, k, _ = _case(3, b, n_in, cin, n_k, cout, card)
-    gm = torch.randn((b, 64, 64, cout), device=card)
+    m = 2 * n_in - n_k + 2 * pad
+    gm = torch.randn((b, m, m, cout), device=card)
     runs = [(bw.transpose_conv2d_dx(gm, k, n_in, pad),
              *bw.transpose_conv2d_dw(x, gm, n_k, pad, with_db=True))
             for _ in range(2)]
     assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+@pytest.mark.parametrize("cout", [3, 4, 5, 64])
+def test_dx_kernel_across_the_layout_boundary(card, cout):
+    """dx at Cout 3 and 4 (the poor layout, 4-byte and 16-byte gm pixels)
+    and 5 and 64 (the rich tile), on a DCGAN L3-like 32 x 32 input, against
+    its plain version."""
+    b, n_in, n_k, pad, cin = 2, 32, 4, 2, 128
+    _, k, _ = _case(cout, b, n_in, cin, n_k, cout, card)
+    gm = torch.randn((b, 64, 64, cout), device=card,
+                     generator=torch.Generator(device=card).manual_seed(cout))
+    want_layout = "poor" if cout <= 4 else "rich"
+    assert bw.bwd_geometry(b, n_in, n_k, pad, cin, cout).dx_layout == want_layout
+    before = bw.transpose_conv2d_dx.launches
+    got = bw.transpose_conv2d_dx(gm, k, n_in, pad)
+    torch.cuda.synchronize()
+    assert bw.transpose_conv2d_dx.launches == before + 1
+    _close(got, bw.transpose_conv2d_dx_plain(gm, k, n_in, pad))
+
+
+@pytest.mark.parametrize("shape", DX_UNALIGNED_SHAPES, ids=str)
+def test_dx_kernel_with_unaligned_operands(card, shape):
+    """dx with gm and the kernel at a 4-byte offset (4-byte copies where the
+    aligned call makes 16-byte ones) against its plain version."""
+    b, n_in, n_k, pad, cin, cout = shape
+    _, k, _ = _case(sum(shape), b, n_in, cin, n_k, cout, card)
+    m = 2 * n_in - n_k + 2 * pad
+    gm = torch.randn((b, m, m, cout), device=card,
+                     generator=torch.Generator(device=card).manual_seed(cout))
+    gu, ku = offset_view(gm), offset_view(k)
+    assert bw.dx_copy_widths(gm, k)[0] and not bw.dx_copy_widths(gu, ku)[0]
+    before = bw.transpose_conv2d_dx.launches
+    got = bw.transpose_conv2d_dx(gu, ku, n_in, pad)
+    torch.cuda.synchronize()
+    assert bw.transpose_conv2d_dx.launches == before + 1
+    _close(got, bw.transpose_conv2d_dx_plain(gm, k, n_in, pad))
 
 
 def test_generator_grads_segregated_match_autograd(card):

@@ -162,3 +162,71 @@ def test_chip_smoke_refuses_to_run_without_a_card(tmp_path):
                              text=True, timeout=120, cwd=os.path.dirname(script))
         assert res.returncode != 0
         assert '"ok"' not in res.stdout
+
+
+def _c_entry_points(source: str) -> dict:
+    """``{name: [ctypes type, ...]}`` of the ``extern "C"`` functions of a
+    CUDA source, from their parameter lists."""
+    import ctypes
+    import re
+
+    text = re.sub(r"//[^\n]*", "", source)
+    kinds = {"float": ctypes.c_float, "int": ctypes.c_int,
+             "long long": ctypes.c_longlong}
+    out = {}
+    for m in re.finditer(r"\bint\s+((?:tconv|decode)_\w+)\s*\(([^)]*)\)\s*\{", text):
+        params = [p.strip() for p in m.group(2).split(",")]
+        out[m.group(1)] = [
+            ctypes.c_void_p if "*" in p
+            else kinds[" ".join(p.replace("const ", "").split()[:-1])]
+            for p in params]
+    return out
+
+
+def test_ctypes_argtypes_match_the_c_signatures(monkeypatch):
+    """Every kernel library's ``argtypes`` list the C parameters one for one
+    (a missing int shifts every later argument; a pointer passed as an int
+    is cut to 32 bits)."""
+    import importlib
+    import types
+
+    from repro_torch.kernels import _build
+
+    csrc = os.path.join(ROOT, "src", "repro_torch", "kernels", "csrc")
+    signatures = {}
+    for name in os.listdir(csrc):
+        if name.endswith(".cu"):
+            with open(os.path.join(csrc, name)) as f:
+                signatures.update(_c_entry_points(f.read()))
+
+    class FakeLib:
+        def __init__(self):
+            self.fns = {}
+
+        def __getattr__(self, name):
+            return self.fns.setdefault(name, types.SimpleNamespace())
+
+    libs = []
+
+    def load(name):
+        libs.append(FakeLib())
+        return libs[-1]
+
+    monkeypatch.setattr(_build, "load", load)
+    for mod, loaders in (("transpose_conv2d", ("_lib", "_phase_lib")),
+                         ("transpose_conv2d_gemm", ("_lib",)),
+                         ("transpose_conv2d_bwd", ("_lib",)),
+                         ("transpose_conv2d_pair", ("_lib",)),
+                         ("decode_attention", ("_lib",))):
+        m = importlib.import_module(f"repro_torch.kernels.{mod}")
+        for loader in loaders:
+            fn = getattr(m, loader)
+            fn.cache_clear()
+            try:
+                fn()
+            finally:
+                fn.cache_clear()
+    bound = {name: list(f.argtypes) for lib in libs for name, f in lib.fns.items()}
+    assert set(bound) == set(signatures)
+    for name, want in signatures.items():
+        assert bound[name] == want, name
