@@ -34,21 +34,29 @@ Phases, in order; any failure raises and the script exits non-zero:
               (batch 8), a one-call library yardstick (F.conv_transpose2d +
               activation, which the port never calls) and the roofline
               bound; then the whole generator per bucket through the kernels
-              and through two PyTorch baselines, and a torch.profiler pass
-              giving the device's busy time and idle share per generator
-              call.
+              (eagerly and as the engine's CUDA graph) and through two
+              PyTorch baselines, and torch.profiler passes giving the
+              device's busy time and idle share per generator call, eager
+              and graphed, with the host wall of one graphed and one eager
+              call that ends in a sync.
 5. engine  -- GanEngine serving full-width DCGAN (random weights from a
-              seed, buckets 1/2/4/8): warm-up, a replayed trace of 32
-              requests of 1-4 samples, then the serving checks (every
-              request done, conservation, no builds after warm-up, finite
-              outputs, both kernels launched, each request bitwise equal to
-              its own unbatched call, agreement with a unified_reshape plan);
-              then whether one batched projection matmul gives each row the
-              bits of its one-row call, at every row count from 1 to 8.
+              seed, buckets 1/2/4/8; one CUDA graph per bucket): warm-up
+              (device memory before and after), each bucket's graph
+              bitwise equal to its eager call and counting its launches, a
+              replayed trace of 32 requests of 1-4 samples, then the
+              serving checks (every request done, conservation, no builds
+              after warm-up, finite outputs, the launch counts exactly the
+              sum of the batches' eager counts, each request bitwise equal
+              to its own unbatched call, agreement with a unified_reshape
+              plan); then whether one batched projection matmul gives each
+              row the bits of its one-row call, at every row count from 1
+              to 8.
 6. serving -- throughput and latency over open-loop Poisson traces of
               SERVE_WINDOW_S seconds at each of SERVE_RATES requests/s
-              (same request mix), each on a freshly warmed engine. The
-              32-request replay of phase 5 is a check, too short to rate.
+              (same request mix), each on a freshly warmed engine, through
+              its graphs, then through eager executables as a yardstick.
+              The 32-request replay of phase 5 is a check, too short to
+              rate.
 7. bwd     -- each backward kernel (epilogue-grad, dx, dw with db) against
               its plain version at the same shapes and epilogues and at
               BWD_SHAPES' extra shapes (every dx and dw instance, every dx
@@ -85,10 +93,12 @@ Phases, in order; any failure raises and the script exits non-zero:
               claim; recorded, not claimed), the plain version, the library
               call (by events and by graph replay) and the bound; the
               whole generator per bucket
-              through fused pairs and per layer, in turns; a profiled fused
-              generator call.
-12. fused engine -- GanEngine(fuse="force") on full-width DCGAN: the 32
-              requests of phase 5, the pair kernel launched, each request
+              through fused pairs and per layer, in turns, eagerly and as
+              the engines' CUDA graphs; a profiled fused generator call.
+12. fused engine -- GanEngine(fuse="force") on full-width DCGAN: each
+              bucket's graph against its eager call as in phase 5, the 32
+              requests of phase 5, the pair launches exactly the batches'
+              eager counts, each request
               bitwise equal to its own unbatched fused call and within
               tolerance of the per-layer generator; save_plans, then a fresh
               engine's warmup(registry_path=...) gives equal plans and
@@ -114,29 +124,37 @@ Phases, in order; any failure raises and the script exits non-zero:
               a CUDA graph's replay (host taken out), and the bytes bound;
               a yardstick that SDPA refuses fails the run.
 16. LM serve -- full-width Llama-3-8B, bf16, random weights from a seed on
-              the card, ServeEngine(slots=8, max_len=1024) serving 16
+              the card, ServeEngine(slots=8, max_len=1024) (its decode step
+              one CUDA graph; device memory before and after) serving 16
               requests (prompts of 16-256 tokens, 16-64 new tokens, from a
               seed): every request done at its length, every token in the
               vocabulary, every step's logits finite, decode-kernel launches
-              n_layers x engine steps; tokens/s, a decode step's ms at 8
-              slots, one profiled step; then one decode step at kv_len
-              32768 over a (8, 32768) cache of random K/V (34.4 GB), its
-              logits finite.
+              n_layers x engine steps; tokens/s; the same requests through
+              the eager decode step give the same tokens (and its tokens/s);
+              a decode step at 8 slots through the graph bitwise equal to
+              the eager step, both timed and profiled; then the same at
+              kv_len 32768 over a (8, 32768) cache of random K/V (34.4 GB),
+              its logits finite.
 17. LM parity -- the same architecture in fp32 (32 GB of weights):
               teacher-forced decode_step logits, through the kernel, against
               the full-sequence apply logits (plain direct attention) at
               batch 2, 40 tokens prefilled and 8 decoded, rtol/atol 2e-3.
 18. train  -- deterministic algorithms on (a bit-exact resume needs them;
               phases 3-17 run and are timed without them), then GanTrainer on
-              full-width DCGAN (GanTrainerConfig defaults, global batch 8):
-              6 steps checkpointing every 3 with every kernel launched; a
+              full-width DCGAN (GanTrainerConfig defaults, global batch 8;
+              each step one CUDA graph): 3 graphed steps bitwise equal to 3
+              eager ones; 6 steps checkpointing every 3 whose launch counts
+              are exactly 6 eager steps', with one capture; a
               resume from step 3 bitwise equal to the uninterrupted run
               (losses, params, moments); a NaN step that leaves the state
               bitwise untouched; the time a step's inputs take to draw;
               TRAIN_WINDOWS alternating windows of 30 timed steps through
-              the kernels and with the plan pinned to bwd="autograd"; one
-              profiled step.
-19. result -- a JSON line of per-kernel numbers, then the last line
+              the graphed step, the graphed step with the plan pinned to
+              bwd="autograd", and the eager step; one profiled step each
+              way.
+19. graph failure -- a capture that reads a device value on the host
+              raises, and the card goes on working.
+20. result -- a JSON line of per-kernel numbers, then the last line
               {"ok": true, "device": {...}}.
 
 Full results also go to chiprun_out/chip_smoke.json.
@@ -547,6 +565,7 @@ def phase_times(torch) -> dict:
 
     cfg = gan.DCGAN
     params = gan.generator_init(torch.Generator().manual_seed(0), cfg)
+    eng = _warm_engine(cfg, params)
     generator = []
     for bucket in (1, 2, 4, 8):
         z = torch.randn((bucket, cfg.z_dim), device="cuda")
@@ -554,10 +573,40 @@ def phase_times(torch) -> dict:
         for method in ("auto", "unified_reshape", "xla"):
             plan = gan.generator_plan(cfg, bucket, method=method)
             row[method] = time_cuda(gan.generator_apply, params, cfg, z, plan=plan)
+        # the engine's executable: one CUDA graph of the auto plan
+        row["graph"] = time_cuda(eng._executable(cfg.name, bucket), params, z)
         generator.append(row)
         log(f"[times] generator b{bucket}: kernels {row['auto']:.4f} ms, "
-            f"unified_reshape {row['unified_reshape']:.4f} ms, xla {row['xla']:.4f} ms")
+            f"unified_reshape {row['unified_reshape']:.4f} ms, xla {row['xla']:.4f} ms; "
+            f"the kernels' CUDA graph {row['graph']:.4f} ms (CUDA events, 20 calls)")
     return {"layers": layers, "layers_b1": layers_b1, "generator": generator}
+
+
+def _warm_engine(cfg, params, fuse="off", registry_path=None):
+    """A GanEngine over full-width ``cfg`` at buckets 1/2/4/8, warmed (from
+    the plan registry at ``registry_path``, if given): one CUDA graph per
+    bucket."""
+    from repro_torch.serve import BucketPolicy, GanEngine
+
+    eng = GanEngine(BucketPolicy(buckets=(1, 2, 4, 8), max_wait_s=0.002,
+                                 max_queue=256), fuse=fuse)
+    eng.register(cfg, params)
+    eng.warmup(registry_path=registry_path)
+    return eng
+
+
+def _call_wall_us(torch, fn, *args, calls: int = 50) -> float:
+    """Median host microseconds of one call of ``fn`` that ends in a
+    synchronise, as a served batch does."""
+    import numpy as np
+
+    walls = []
+    for _ in range(calls + 3):
+        t0 = time.perf_counter()
+        fn(*args)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e6)
+    return float(np.median(walls[3:]))
 
 
 def _kernel_times(prof) -> dict:
@@ -579,37 +628,114 @@ def phase_profile(torch) -> dict:
 
     cfg = gan.DCGAN
     params = gan.generator_init(torch.Generator().manual_seed(0), cfg)
+    eng = _warm_engine(cfg, params)
     out = {}
-    for bucket in (1, BATCH):
+    for bucket in (1, 2, 4, BATCH):
         z = torch.randn((bucket, cfg.z_dim), device="cuda")
         plan = gan.generator_plan(cfg, bucket)
-        out[bucket] = _profile_step(torch, gan.generator_apply, params, cfg, z,
-                                    plan=plan, calls=10, top=6)
-        _log_profile(f"profile b{bucket}", out[bucket])
+        fn = eng._executable(cfg.name, bucket)
+        graphed = out[f"graph_{bucket}"] = _profile_step(torch, fn, params, z, calls=10,
+                                                         top=6)
+        graphed["call_wall_us"] = _call_wall_us(torch, fn, params, z)
+        # the profiler's own cost inflates its wall: the idle share of a
+        # call that ends in a sync, by the host clock, leaves it out
+        graphed["call_idle_share"] = 1 - graphed["device_us"] / graphed["call_wall_us"]
+        out[f"eager_{bucket}_call_wall_us"] = _call_wall_us(
+            torch, lambda zz: gan.generator_apply(params, cfg, zz, plan=plan), z)
+        _log_profile(f"profile b{bucket} graph", graphed)
+        log(f"[profile b{bucket}] one call ending in a sync, median of 50: graph "
+            f"{graphed['call_wall_us']:.1f} us (idle share "
+            f"{graphed['call_idle_share']:.3f}), eager "
+            f"{out[f'eager_{bucket}_call_wall_us']:.1f} us (host clock)")
+        if bucket in (1, BATCH):
+            eager = out[bucket] = _profile_step(torch, gan.generator_apply, params, cfg,
+                                                z, plan=plan, calls=10, top=6)
+            eager["call_idle_share"] = (1 - eager["device_us"]
+                                        / out[f"eager_{bucket}_call_wall_us"])
+            _log_profile(f"profile b{bucket} eager", eager)
+            log(f"[profile b{bucket}] eager call's idle share by the host clock "
+                f"{eager['call_idle_share']:.3f}")
     return out
+
+
+def _count_delta(fn, *args, **kwargs):
+    """``(fn(...), the launch counts the call added)``."""
+    before = _read_counts()
+    out = fn(*args, **kwargs)
+    after = _read_counts()
+    return out, {k: after[k] - before[k] for k in after}
+
+
+def _graphs_against_eager(torch, eng, cfg, params, tag) -> dict:
+    """Each bucket's executable (one CUDA graph) bitwise equal to the eager
+    call of its plan on the same latents, and counting that call's
+    launches: ``{bucket: the eager call's launch counts}``."""
+    from repro_torch.models import gan
+
+    slot = eng.registry[cfg.name]
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    counts = {}
+    for bucket in eng.policy.buckets:
+        z = torch.randn((bucket, cfg.z_dim), device="cuda", generator=gen)
+        want, counts[bucket] = _count_delta(gan.generator_apply, params, cfg, z,
+                                            plan=slot.plans[bucket])
+        got, replayed = _count_delta(eng._executable(cfg.name, bucket), params, z)
+        if not torch.equal(got, want):
+            raise AssertionError(f"{tag}: bucket {bucket}'s graph differs from its eager "
+                                 f"call by {(got - want).abs().max().item()}")
+        if replayed != counts[bucket]:
+            raise AssertionError(f"{tag}: bucket {bucket}'s replay counted {replayed}, "
+                                 f"its eager call {counts[bucket]}")
+    log(f"[{tag}] every bucket's graph bitwise equal to its eager call, and counting "
+        f"its launches: {counts}")
+    return counts
+
+
+def _replay_counted(eng, reqs, arrivals, per_bucket, tag) -> dict:
+    """Replay the trace, recording each batch's bucket; the launch counts of
+    the replay must equal, exactly, the sum of each batch's eager counts."""
+    buckets = []
+    execute = eng._execute
+
+    def recording(name, batch, bucket):
+        buckets.append(bucket)
+        execute(name, batch, bucket)
+
+    eng._execute = recording
+    _reset_counts()
+    eng.replay(reqs, arrivals)
+    launches = _read_counts()
+    eng._execute = execute
+    want = {k: sum(per_bucket[b][k] for b in buckets) for k in launches}
+    if launches != want:
+        raise AssertionError(f"{tag}: the replays counted {launches}, their batches' "
+                             f"eager calls {want}")
+    return launches
+
+
+def _memory(torch) -> dict:
+    """Device bytes held by tensors, their peak, and held by the caching
+    allocator (a graph's pool keeps its intermediates' blocks reserved)."""
+    torch.cuda.synchronize()
+    return {"allocated": torch.cuda.memory_allocated(),
+            "peak": torch.cuda.max_memory_allocated(),
+            "reserved": torch.cuda.memory_reserved()}
 
 
 def phase_engine(torch) -> dict:
     from repro_torch.models import gan
-    from repro_torch.serve import BucketPolicy, GanEngine
 
-    launchers = {name: fns[0] for name, fns in kernels(FORWARD).items()}
     cfg = gan.DCGAN
     params = gan.generator_init(torch.Generator().manual_seed(0), cfg)
-    eng = GanEngine(BucketPolicy(buckets=(1, 2, 4, 8), max_wait_s=0.002,
-                                 max_queue=256))
-    eng.register(cfg, params)
+    torch.cuda.reset_peak_memory_stats()
+    mem = {"before_warmup": _memory(torch)}
     t0 = time.perf_counter()
-    eng.warmup()
+    eng = _warm_engine(cfg, params)
     warm_s = time.perf_counter() - t0
+    mem["after_warmup"] = _memory(torch)
+    per_bucket = _graphs_against_eager(torch, eng, cfg, params, "engine")
     reqs, arrivals = _dcgan_requests(cfg)
-
-    for fn in launchers.values():
-        fn.launches = fn.reduce_launches = 0
-    eng.replay(reqs, arrivals)
-    launches = {name: fn.launches for name, fn in launchers.items()}
-    launches.update({f"{name}_reduce": fn.reduce_launches
-                     for name, fn in launchers.items()})
+    launches = _replay_counted(eng, reqs, arrivals, per_bucket, "engine")
 
     summary = eng.metrics.summary()
     cons = eng.conservation()
@@ -621,7 +747,7 @@ def phase_engine(torch) -> dict:
         raise AssertionError("executables were built after warm-up")
     if not all(bool(torch.isfinite(r.output).all()) for r in reqs):
         raise AssertionError("non-finite output")
-    if min(launches[name] for name in launchers) < 1:
+    if min(launches[name] for name in FORWARD) < 1:
         raise AssertionError(f"a kernel of the path never launched: {launches}")
     for r in reqs:
         one = gan.generator_apply(params, cfg, r.z).cpu()
@@ -643,11 +769,15 @@ def phase_engine(torch) -> dict:
         f" / {summary['samples']} samples in {summary['batches']} batches, "
         f"{summary['samples_per_s']:.1f} samples/s, latency p50 "
         f"{lat['p50'] * 1e3:.3f} ms p99 {lat['p99'] * 1e3:.3f} ms, pad waste "
-        f"{summary['pad_waste']:.3f}, warm-up {warm_s:.2f} s")
-    log(f"[engine] launches during serving {launches}; bitwise batch-invariant; "
-        f"vs unified_reshape max abs err {err:.3e}; conservation {cons}")
+        f"{summary['pad_waste']:.3f}, warm-up {warm_s:.2f} s (4 graphs captured)")
+    log(f"[engine] device memory before / after warm-up {mem['before_warmup']} / "
+        f"{mem['after_warmup']} (bytes)")
+    log(f"[engine] launches during serving {launches}, exactly the batches' eager "
+        f"counts; bitwise batch-invariant; vs unified_reshape max abs err {err:.3e}; "
+        f"conservation {cons}")
     return {"summary": {k: v for k, v in summary.items() if k != "per_model"},
-            "launches": launches, "warmup_s": warm_s, "vs_unified_reshape": err}
+            "launches": launches, "eager_launches_per_bucket": per_bucket,
+            "warmup_s": warm_s, "memory": mem, "vs_unified_reshape": err}
 
 
 def phase_projection(torch) -> dict:
@@ -672,20 +802,26 @@ def phase_projection(torch) -> dict:
     return out
 
 
-def phase_serving(torch, fuse="off") -> list:
+def phase_serving(torch, fuse="off", eager=False) -> list:
+    """Open-loop windows at SERVE_RATES through the engine's CUDA graphs;
+    with ``eager``, through executables that run the generator eagerly (the
+    engine's path before it captured graphs), as a yardstick."""
     import numpy as np
 
     from repro_torch.models import gan
-    from repro_torch.serve import BucketPolicy, GanEngine, GenRequest
+    from repro_torch.serve import GenRequest
 
     cfg = gan.DCGAN
     params = gan.generator_init(torch.Generator().manual_seed(0), cfg)
+    path = "eager" if eager else "graph"
     rows = []
     for rate in SERVE_RATES:
-        eng = GanEngine(BucketPolicy(buckets=(1, 2, 4, 8), max_wait_s=0.002,
-                                     max_queue=256), fuse=fuse)
-        eng.register(cfg, params)
-        eng.warmup()
+        eng = _warm_engine(cfg, params, fuse)
+        if eager:
+            slot = eng.registry[cfg.name]
+            for bucket, plan in slot.plans.items():
+                slot.apply[bucket] = (lambda p, z, _plan=plan:
+                                      gan.generator_apply(p, cfg, z, plan=_plan))
         rng = np.random.default_rng(int(rate))
         count = int(rate * SERVE_WINDOW_S)
         sizes = rng.integers(1, 5, size=count)
@@ -703,7 +839,7 @@ def phase_serving(torch, fuse="off") -> list:
             raise AssertionError("executables were built after warm-up")
         s = eng.metrics.summary()
         lat = s["latency_s"]
-        row = {"fuse": fuse, "offered_requests_per_s": rate,
+        row = {"fuse": fuse, "path": path, "offered_requests_per_s": rate,
                "offered_samples_per_s": rate * float(sizes.mean()),
                "window_s": SERVE_WINDOW_S, "wall_s": wall_s,
                "requests": count, "done": s["requests"], "rejected": s["rejected"],
@@ -712,7 +848,7 @@ def phase_serving(torch, fuse="off") -> list:
                "requests_per_s": s["requests_per_s"], "pad_waste": s["pad_waste"],
                "latency_ms": {k: v * 1e3 for k, v in lat.items()}}
         rows.append(row)
-        log(f"[serve] fuse={fuse} {torch.cuda.get_device_name(0)} offered {rate} req/s "
+        log(f"[serve] fuse={fuse} {path} {torch.cuda.get_device_name(0)} offered {rate} req/s "
             f"({row['offered_samples_per_s']} samples/s) for {SERVE_WINDOW_S} s:"
             f" {s['requests']} done, {s['rejected']} rejected, {s['samples']} "
             f"samples in {s['batches']} batches, {s['samples_per_s']} samples/s,"
@@ -1005,9 +1141,38 @@ def _bitwise(a, b) -> bool:
         x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(la, lb))
 
 
+class _ResetCountsAt:
+    """Trainer hooks that set the launch counts to 0 as step ``at`` starts."""
+
+    def __init__(self, at):
+        self.at = at
+
+    def on_step_start(self, step):
+        if step == self.at:
+            _reset_counts()
+
+
+def _eager_steps(tr, state, steps: int) -> list:
+    """``steps`` steps through the trainer's eager step (no graph), each as
+    ``run`` takes it: inputs drawn, the step, its scalars read back, the NaN
+    guard. Host milliseconds a step."""
+    import numpy as np
+
+    walls = []
+    for i in range(steps):
+        t0 = time.perf_counter()
+        reals, zs = tr._batches(i)
+        new, stats = tr._step_eager(state, reals, zs)
+        if all(np.isfinite(stats.tolist())):
+            state = new
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return walls
+
+
 def phase_train(torch) -> dict:
     """GanTrainer on full-width DCGAN, with deterministic algorithms on:
-    the path's checks, then timings."""
+    the path's checks, then timings. Each step replays the trainer's CUDA
+    graph."""
     import shutil
     import tempfile
 
@@ -1029,8 +1194,8 @@ def phase_train(torch) -> dict:
                            tcfg.global_batch)
     quiet = lambda *a: None  # noqa: E731
 
-    def trainer(ckpt_dir=None, d=data, bwd=None):
-        tr = GanTrainer(cfg, tcfg, d, ckpt_dir=ckpt_dir, log_fn=quiet)
+    def trainer(ckpt_dir=None, d=data, bwd=None, hooks=None):
+        tr = GanTrainer(cfg, tcfg, d, ckpt_dir=ckpt_dir, log_fn=quiet, hooks=hooks)
         if bwd is not None:
             tr.train_plan = gan.generator_plan(cfg, tr.micro, bwd=bwd)
         return tr, tr.init_state(torch.Generator().manual_seed(0))
@@ -1039,18 +1204,38 @@ def phase_train(torch) -> dict:
     log("[train] " + out["plan"].replace("\n", "\n[train] "))
     with tempfile.TemporaryDirectory() as d1, tempfile.TemporaryDirectory() as d2:
         tr, state = trainer(d1)
+        # three graphed steps against three eager ones from the same state;
+        # the graph is captured at the first, before the counted run below
+        eager_state, graph_state = state, state
+        for step in range(3):
+            reals, zs = tr._batches(step)
+            (eager_state, stats), eager_step = _count_delta(tr._step_eager, eager_state,
+                                                            reals, zs)
+            graph_state, metrics = tr._step_fn(graph_state, reals, zs)
+            if ([metrics[k] for k in ("g_loss", "d_loss", "g_gnorm", "d_gnorm")]
+                    != stats.tolist() or not _bitwise(graph_state, eager_state)):
+                raise AssertionError(f"train: graphed step {step} is not bitwise the "
+                                     f"eager step")
+        log(f"[train] 3 graphed steps bitwise equal to 3 eager steps (scalars, params, "
+            f"moments); an eager step's launches {eager_step}")
+        graph = tr._graph
+        torch.cuda.synchronize()
         _reset_counts()
-        full, hist = tr.run(state, steps=6)
+        full, hist = tr.run(state, steps=6)   # the fresh state, copied in
         torch.cuda.synchronize()
         launches = _read_counts()
         if not all(np.isfinite([h["g_loss"], h["d_loss"]]).all() and not h["skipped"]
                    for h in hist):
             raise AssertionError(f"non-finite or skipped step: {hist}")
-        if min(launches[n] for n in TRAINING) < 1:
-            raise AssertionError(f"a kernel of the training path never launched: "
-                                 f"{launches}")
+        want = {k: 6 * v for k, v in eager_step.items()}
+        if launches != want or min(launches[n] for n in TRAINING) < 1:
+            raise AssertionError(f"6 graphed training steps counted {launches}, 6 eager "
+                                 f"steps {want}")
+        if tr._graph is not graph:
+            raise AssertionError("train: the step's graph was captured again")
         log(f"[train] 6 steps, losses {[(h['g_loss'], h['d_loss']) for h in hist]}")
-        log(f"[train] launches in those 6 steps {launches}")
+        log(f"[train] launches in those 6 steps {launches}, exactly 6 eager steps'; "
+            f"one capture")
         shutil.copy(os.path.join(d1, "step_00000003.npz"), d2)
         tr2, state = trainer(d2)
         resumed, hist2 = tr2.run(state, steps=6)
@@ -1066,7 +1251,8 @@ def phase_train(torch) -> dict:
     if hist3[0]["skipped"] != 1 or tr3.skipped_steps != 1 or not _bitwise(before, after):
         raise AssertionError("a NaN step changed the state or was not skipped")
     log("[train] NaN step skipped, state bitwise untouched, skipped_steps 1")
-    out.update({"launches_6_steps": launches, "losses": hist, "resume_bitwise": True,
+    out.update({"launches_6_steps": launches, "eager_step_launches": eager_step,
+                "losses": hist, "graph_bitwise_eager": True, "resume_bitwise": True,
                 "nan_step_skipped": True})
 
     tr, _ = trainer()
@@ -1082,31 +1268,46 @@ def phase_train(torch) -> dict:
         f"steps, one sync)")
 
     steps = TRAIN_WARMUP_STEPS + TRAIN_TIMED_STEPS
-    windows = {"segregated": [], "autograd": []}
-    for w in range(TRAIN_WINDOWS):   # alternate, so drift hits both alike
-        for bwd in windows:
-            tr, state = trainer(bwd=bwd)
-            _reset_counts()
-            state, _ = tr.run(state, steps=steps)
+    windows = {"segregated": [], "autograd": [], "segregated_eager": []}
+    for w in range(TRAIN_WINDOWS):   # alternate, so drift hits all alike
+        for kind in windows:
+            bwd = kind.split("_")[0]
+            tr, state = trainer(bwd=bwd, hooks=_ResetCountsAt(TRAIN_WARMUP_STEPS))
+            if kind.endswith("eager"):   # the step as it ran before it was a graph
+                _reset_counts()
+                walls = np.asarray(_eager_steps(tr, state, steps)[TRAIN_WARMUP_STEPS:])
+            else:
+                state, _ = tr.run(state, steps=steps)
+                walls = np.asarray(tr.timer.steps[TRAIN_WARMUP_STEPS:]) * 1e3
             counts = _read_counts()
-            walls = np.asarray(tr.timer.steps[TRAIN_WARMUP_STEPS:]) * 1e3
-            windows[bwd].append({
+            per = steps if kind.endswith("eager") else TRAIN_TIMED_STEPS
+            windows[kind].append({
                 "step_ms_median": float(np.median(walls)),
                 "step_ms_p90": float(np.percentile(walls, 90)),
                 "step_ms": walls.tolist(),
-                "launches_per_step": {n: c / steps for n, c in counts.items()}})
-            log(f"[train] window {w} bwd={bwd}: {TRAIN_TIMED_STEPS} steps after "
+                "launches_per_step": {n: c / per for n, c in counts.items()}})
+            log(f"[train] window {w} {kind}: {TRAIN_TIMED_STEPS} steps after "
                 f"{TRAIN_WARMUP_STEPS} warm-up, step ms median "
-                f"{windows[bwd][-1]['step_ms_median']:.3f} p90 "
-                f"{windows[bwd][-1]['step_ms_p90']:.3f} (host clock; each step "
+                f"{windows[kind][-1]['step_ms_median']:.3f} p90 "
+                f"{windows[kind][-1]['step_ms_p90']:.3f} (host clock; each step "
                 f"ends in a sync), launches per step "
-                f"{windows[bwd][-1]['launches_per_step']}")
-            if bwd == "segregated" and w == 0:   # one profiled step
+                f"{windows[kind][-1]['launches_per_step']}")
+            if kind == "segregated" and w == 0:   # one profiled step each way
                 reals, zs = tr._batches(steps)
                 out["profile"] = _profile_step(torch, tr._step_fn, state, reals, zs,
                                                top=15)
-                _log_profile("train", out["profile"])
+                _log_profile("train graph", out["profile"])
+                out["eager_profile"] = _profile_step(
+                    torch, lambda: tr._step_eager(state, reals, zs)[1].tolist(), top=15)
+                _log_profile("train eager", out["eager_profile"])
     out["windows"] = windows
+    for kind, prof in (("segregated", out["profile"]),
+                       ("segregated_eager", out["eager_profile"])):
+        wall_us = 1e3 * float(np.median([w["step_ms_median"] for w in windows[kind]]))
+        out[f"{kind}_step_idle_share"] = 1 - prof["device_us"] / wall_us
+        log(f"[train] {kind}: a step's device time {prof['device_us']:.1f} us in a "
+            f"median step of {wall_us:.1f} us: idle share "
+            f"{out[f'{kind}_step_idle_share']:.3f} (host clock)")
     return out
 
 
@@ -1358,21 +1559,31 @@ def phase_pair_times(torch) -> dict:
 
     cfg = gan.DCGAN
     params = gan.generator_init(torch.Generator().manual_seed(0), cfg)
+    engines = {"per_layer": _warm_engine(cfg, params),
+               "pairs": _warm_engine(cfg, params, fuse="force")}
     generator = []
     for bucket in (1, 2, 4, 8):
         z = torch.randn((bucket, cfg.z_dim), device="cuda")
         plans = {"per_layer": gan.generator_plan(cfg, bucket),
                  "pairs": gan.generator_plan(cfg, bucket, fuse="force")}
         turns = {"per_layer": [], "pairs": []}
+        graph_turns = {"per_layer": [], "pairs": []}
         for name in ("per_layer", "pairs", "pairs", "per_layer"):
             turns[name].append(time_cuda(gan.generator_apply, params, cfg, z,
                                          plan=plans[name]))
+            graph_turns[name].append(time_cuda(
+                engines[name]._executable(cfg.name, bucket), params, z))
         row = {"bucket": bucket, **{f"{n}_ms": sum(t) / 2 for n, t in turns.items()},
-               **{f"{n}_turns_ms": t for n, t in turns.items()}}
+               **{f"{n}_turns_ms": t for n, t in turns.items()},
+               **{f"graph_{n}_ms": sum(t) / 2 for n, t in graph_turns.items()},
+               **{f"graph_{n}_turns_ms": t for n, t in graph_turns.items()}}
         generator.append(row)
         log(f"[pair-times] generator b{bucket}: fused pairs {row['pairs_ms']:.4f} ms "
             f"{turns['pairs']}, per layer {row['per_layer_ms']:.4f} ms "
-            f"{turns['per_layer']}")
+            f"{turns['per_layer']}; as CUDA graphs: fused pairs "
+            f"{row['graph_pairs_ms']:.4f} ms {graph_turns['pairs']}, per layer "
+            f"{row['graph_per_layer_ms']:.4f} ms {graph_turns['per_layer']}")
+    del engines
 
     z = torch.randn((BATCH, cfg.z_dim), device="cuda")
     plan = gan.generator_plan(cfg, BATCH, fuse="force")
@@ -1398,35 +1609,25 @@ def _dcgan_requests(cfg):
 
 
 def phase_fused_engine(torch) -> dict:
-    """GanEngine(fuse="force") on full-width DCGAN: the 32-request replay
-    through the pair kernel and its checks, then a registry warm start."""
+    """GanEngine(fuse="force") on full-width DCGAN: each bucket's graph
+    against its eager call, the 32-request replay through the pair kernel
+    and its checks, then a registry warm start."""
     import tempfile
 
     from repro_torch.kernels.plan import FusedPairPlan
     from repro_torch.models import gan
-    from repro_torch.serve import BucketPolicy, GanEngine
 
     cfg = gan.DCGAN
     params = gan.generator_init(torch.Generator().manual_seed(0), cfg)
-
-    def engine():
-        eng = GanEngine(BucketPolicy(buckets=(1, 2, 4, 8), max_wait_s=0.002,
-                                     max_queue=256), fuse="force")
-        eng.register(cfg, params)
-        return eng
-
-    eng = engine()
     t0 = time.perf_counter()
-    eng.warmup()
+    eng = _warm_engine(cfg, params, fuse="force")
     warm_s = time.perf_counter() - t0
     plans = eng.registry["dcgan"].plans
     if not all(isinstance(e, FusedPairPlan) for p in plans.values() for e in p.entries):
         raise AssertionError("a fused engine plan is not all pairs")
+    per_bucket = _graphs_against_eager(torch, eng, cfg, params, "fused-engine")
     reqs, arrivals = _dcgan_requests(cfg)
-    _reset_counts()
-    eng.replay(reqs, arrivals)
-    torch.cuda.synchronize()
-    launches = _read_counts()
+    launches = _replay_counted(eng, reqs, arrivals, per_bucket, "fused-engine")
     summary = eng.metrics.summary()
     cons = eng.conservation()
     if not all(r.done for r in reqs) or not cons["ok"]:
@@ -1454,8 +1655,7 @@ def phase_fused_engine(torch) -> dict:
     with tempfile.TemporaryDirectory() as d:
         path = os.path.join(d, "plans.json")
         eng.save_plans(path)
-        warm = engine()
-        warm.warmup(registry_path=path)
+        warm = _warm_engine(cfg, params, fuse="force", registry_path=path)
     if warm.registry["dcgan"].plans != plans:
         raise AssertionError("the registry warm start gave other plans")
     again, _ = _dcgan_requests(cfg)
@@ -1465,13 +1665,14 @@ def phase_fused_engine(torch) -> dict:
     lat = summary["latency_s"]
     log(f"[fused-engine] {summary['requests']} requests / {summary['samples']} samples "
         f"in {summary['batches']} batches, latency p50 {lat['p50'] * 1e3:.3f} ms, "
-        f"warm-up {warm_s:.2f} s; launches {launches}; bitwise batch-invariant; "
-        f"vs per-layer max abs err {worst:.3e}; registry warm start: equal plans, "
-        f"bitwise equal outputs")
+        f"warm-up {warm_s:.2f} s; launches {launches}, exactly the batches' eager "
+        f"counts; bitwise batch-invariant; vs per-layer max abs err {worst:.3e}; "
+        f"registry warm start: equal plans, bitwise equal outputs")
     log("[fused-engine] " + plans[BATCH].describe().replace("\n", "\n[fused-engine] "))
     return {"summary": {k: v for k, v in summary.items() if k != "per_model"},
-            "launches": launches, "warmup_s": warm_s, "vs_per_layer": worst,
-            "registry_warm_start": True, "plan": plans[BATCH].describe()}
+            "launches": launches, "eager_launches_per_bucket": per_bucket,
+            "warmup_s": warm_s, "vs_per_layer": worst, "registry_warm_start": True,
+            "plan": plans[BATCH].describe()}
 
 
 def phase_pair_autograd(torch) -> dict:
@@ -1665,15 +1866,59 @@ def _log_profile(tag, prof) -> None:
         log(f"[{tag}]   host {us:9.1f} us in {n:g} calls  {name}")
 
 
-def phase_lm_serve(torch) -> dict:
-    """Full-width Llama-3-8B in bf16 served by ServeEngine: the requests'
-    checks, tokens/s, a decode step's time and profile at 8 slots, then one
-    decode step over a full 32k cache."""
+def _lm_requests(cfg):
+    """Phase 16's 16 requests, drawn anew from the same seed."""
     import numpy as np
 
+    from repro_torch.serve import Request
+
+    rng = np.random.default_rng(0)
+    return [Request(prompt=rng.integers(0, cfg.vocab_size,
+                                        size=int(rng.integers(16, 257))).tolist(),
+                    max_new_tokens=int(rng.integers(16, 65)))
+            for _ in range(LM_REQUESTS)]
+
+
+def _serve_lm(torch, eng, cfg, decode) -> dict:
+    """Serve phase 16's requests through ``decode`` (as ``eng._decode``) with
+    every step's logits checked finite on the card: the requests, the
+    launch counts, the steps and the wall."""
+    finite = torch.ones((), dtype=torch.bool, device="cuda")
+
+    def checked(*args):   # every step's logits finite, kept on the card
+        logits, cache = decode(*args)
+        finite.logical_and_(torch.isfinite(logits).all())
+        return logits, cache
+
+    reqs = _lm_requests(cfg)
+    own, steps0 = eng._decode, eng.steps
+    eng._decode = checked
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _read_counts()
+    eng._decode = own
+    if not all(r.done and len(r.output) == r.max_new_tokens for r in reqs):
+        raise AssertionError("LM serve: a request was not served to its length")
+    if not all(0 <= t < cfg.vocab_size for r in reqs for t in r.output):
+        raise AssertionError("LM serve: a token outside the vocabulary")
+    if not bool(finite):
+        raise AssertionError("LM serve: non-finite logits")
+    return {"reqs": reqs, "launches": counts, "steps": eng.steps - steps0, "wall_s": wall}
+
+
+def phase_lm_serve(torch) -> dict:
+    """Full-width Llama-3-8B in bf16 served by ServeEngine through its
+    decode graph: the requests' checks, tokens/s, then the same requests
+    through the eager decode step (equal tokens), a decode step's time and
+    profile at 8 slots through the graph and eagerly (bitwise equal
+    logits), then one decode step over a full 32k cache both ways."""
     from repro_torch.configs import get_config
     from repro_torch.models.lm import build_model
-    from repro_torch.serve import Request, ServeEngine
+    from repro_torch.serve import ServeEngine
     from repro_torch.timing import time_cuda
     from repro_torch.tree import tree_leaves
 
@@ -1686,87 +1931,105 @@ def phase_lm_serve(torch) -> dict:
     out = {"arch": LM_ARCH, "dtype": cfg.dtype, "init_s": time.perf_counter() - t0,
            "params": sum(t.numel() for t in tree_leaves(params)),
            "param_bytes": sum(t.numel() * t.element_size() for t in tree_leaves(params))}
+    torch.cuda.reset_peak_memory_stats()
+    mem = {"before_engine": _memory(torch)}
     eng = ServeEngine(model, params, slots=LM_SLOTS, max_len=LM_MAX_LEN)
-    rng = np.random.default_rng(0)
-    reqs = [Request(prompt=rng.integers(0, cfg.vocab_size,
-                                        size=int(rng.integers(16, 257))).tolist(),
-                    max_new_tokens=int(rng.integers(16, 65)))
-            for _ in range(LM_REQUESTS)]
-    finite = torch.ones((), dtype=torch.bool, device="cuda")
-    decode = eng._decode
-
-    def checked(*args):   # every step's logits finite, kept on the card
-        logits, cache = decode(*args)
-        finite.logical_and_(torch.isfinite(logits).all())
-        return logits, cache
-
-    eng._decode = checked
-    _reset_counts()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    eng.run(reqs)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    counts = _read_counts()
-    eng._decode = decode
+    mem["after_engine"] = _memory(torch)
+    mem["cache_bytes"] = sum(t.numel() * t.element_size() for c in eng.cache for t in c)
+    graphed = _serve_lm(torch, eng, cfg, eng._decode)
+    if graphed["launches"]["decode_attention"] != cfg.n_layers * graphed["steps"]:
+        raise AssertionError(f"LM serve: {graphed['launches']['decode_attention']} decode "
+                             f"launches in {graphed['steps']} steps of {cfg.n_layers} layers")
+    eager = _serve_lm(torch, eng, cfg, model.decode_step)
+    if [r.output for r in eager["reqs"]] != [r.output for r in graphed["reqs"]]:
+        raise AssertionError("LM serve: the eager decode step served other tokens")
+    reqs = graphed["reqs"]
     generated = sum(len(r.output) for r in reqs)
     fed = sum(len(r.prompt) for r in reqs) + generated
-    if not all(r.done and len(r.output) == r.max_new_tokens for r in reqs):
-        raise AssertionError("LM serve: a request was not served to its length")
-    if not all(0 <= t < cfg.vocab_size for r in reqs for t in r.output):
-        raise AssertionError("LM serve: a token outside the vocabulary")
-    if not bool(finite):
-        raise AssertionError("LM serve: non-finite logits")
-    if counts["decode_attention"] != cfg.n_layers * eng.steps:
-        raise AssertionError(f"LM serve: {counts['decode_attention']} decode launches "
-                             f"in {eng.steps} steps of {cfg.n_layers} layers")
-    out.update({"requests": len(reqs), "steps": eng.steps, "generated_tokens": generated,
-                "fed_tokens": fed, "wall_s": wall, "tokens_per_s": generated / wall,
-                "fed_tokens_per_s": fed / wall, "launches": counts,
-                "prompt_lens": [len(r.prompt) for r in reqs],
+    for name, run in (("", graphed), ("eager_", eager)):
+        out.update({f"{name}wall_s": run["wall_s"],
+                    f"{name}tokens_per_s": generated / run["wall_s"],
+                    f"{name}fed_tokens_per_s": fed / run["wall_s"]})
+    out.update({"requests": len(reqs), "steps": graphed["steps"],
+                "generated_tokens": generated, "fed_tokens": fed,
+                "launches": graphed["launches"], "eager_launches": eager["launches"],
+                "memory": mem, "prompt_lens": [len(r.prompt) for r in reqs],
                 "new_tokens": [r.max_new_tokens for r in reqs]})
     log(f"[lm-serve] {LM_ARCH} {cfg.dtype}, {out['params']} params "
         f"({out['param_bytes'] / 1e9:.2f} GB, init {out['init_s']:.1f} s): "
-        f"{len(reqs)} requests, {eng.steps} engine steps, {generated} tokens generated"
-        f" ({fed} fed) in {wall:.3f} s: {generated / wall:.1f} generated tokens/s, "
-        f"{fed / wall:.1f} fed tokens/s (host clock); launches {counts}")
+        f"{len(reqs)} requests, {graphed['steps']} engine steps, {generated} tokens "
+        f"generated ({fed} fed); through the decode graph {graphed['wall_s']:.3f} s: "
+        f"{out['tokens_per_s']:.1f} generated tokens/s, {out['fed_tokens_per_s']:.1f} "
+        f"fed tokens/s; eagerly {eager['wall_s']:.3f} s: {out['eager_tokens_per_s']:.1f}"
+        f" / {out['eager_fed_tokens_per_s']:.1f} (host clock), the same tokens; "
+        f"launches {graphed['launches']}")
+    log(f"[lm-serve] device memory before / after the engine (its {mem['cache_bytes']}"
+        f" B cache and decode graph) {mem['before_engine']} / {mem['after_engine']} "
+        f"(bytes)")
 
     gen = torch.Generator(device="cuda").manual_seed(3)
-    tok = torch.randint(0, cfg.vocab_size, (LM_SLOTS, 1), device="cuda", generator=gen)
+    tok = torch.randint(0, cfg.vocab_size, (LM_SLOTS, 1), device="cuda",
+                        generator=gen).int()
 
     def step(tokens, pos, cache):
         return model.decode_step(params, cache, {"tokens": tokens, "pos": pos})
 
-    pos = torch.full((LM_SLOTS,), 320, device="cuda")   # about the longest request
-    out["step_ms"] = time_cuda(step, tok, pos, eng.cache)
-    out["step_profile"] = _profile_step(torch, step, tok, pos, eng.cache)
-    log(f"[lm-serve] decode step at {LM_SLOTS} slots, pos 320, max_len {LM_MAX_LEN}: "
-        f"{out['step_ms']:.4f} ms (CUDA events, 20 steps)")
-    _log_profile("lm-serve", out["step_profile"])
+    def graph_step(engine, pos):
+        return engine._decode(params, engine.cache, {"tokens": tok, "pos": pos})
 
-    del eng, reqs
+    def bitwise(engine, pos, where):
+        if not hasattr(engine._decode, "graph"):
+            raise AssertionError("LM serve: the engine's decode step is not its graph")
+        got = graph_step(engine, pos)[0].clone()
+        want = step(tok, pos, engine.cache)[0]
+        if got.shape != (LM_SLOTS, 1, cfg.vocab_size) or not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"LM serve: the graphed step's logits at {where} are not "
+                                 f"finite or of shape {tuple(got.shape)}")
+        if not torch.equal(got, want):
+            raise AssertionError(f"LM serve: the graphed decode step at {where} differs "
+                                 f"from the eager one by {(got - want).abs().max().item()}")
+
+    pos = torch.full((LM_SLOTS,), 320, dtype=torch.int32, device="cuda")
+    bitwise(eng, pos, "pos 320")
+    out["step_ms"] = time_cuda(step, tok, pos, eng.cache)
+    out["graph_step_ms"] = time_cuda(graph_step, eng, pos)
+    out["step_profile"] = _profile_step(torch, step, tok, pos, eng.cache)
+    out["graph_step_profile"] = _profile_step(torch, graph_step, eng, pos)
+    for name in ("", "eager_"):   # a served step's wall against a step's device time
+        per_step_us = 1e6 * out[f"{name}wall_s"] / out["steps"]
+        out[f"{name}served_step_idle_share"] = (
+            1 - out["graph_step_profile"]["device_us"] / per_step_us)
+    log(f"[lm-serve] decode step at {LM_SLOTS} slots, pos 320, max_len {LM_MAX_LEN}: "
+        f"graph {out['graph_step_ms']:.4f} ms, eager {out['step_ms']:.4f} ms (CUDA "
+        f"events, 20 steps); graph bitwise equal to the eager step; a served step's "
+        f"idle share (host clock) graph {out['served_step_idle_share']:.3f}, eager "
+        f"{out['eager_served_step_idle_share']:.3f}")
+    _log_profile("lm-serve graph", out["graph_step_profile"])
+    _log_profile("lm-serve eager", out["step_profile"])
+
+    del eng, reqs, graphed, eager
     torch.cuda.empty_cache()
-    cache = model.init_cache(LM_SLOTS, LM_LONG)
-    for c in cache:
+    long_eng = ServeEngine(model, params, slots=LM_SLOTS, max_len=LM_LONG)
+    for c in long_eng.cache:
         for t in c:
             t.normal_(generator=gen)
     torch.cuda.synchronize()
-    pos = torch.full((LM_SLOTS,), LM_LONG - 1, device="cuda")
-    out["long_cache_bytes"] = sum(t.numel() * t.element_size() for c in cache for t in c)
-    out["long_step_ms"] = time_cuda(step, tok, pos, cache, iters=5, warmup=1)
-    logits, _ = step(tok, pos, cache)
-    if logits.shape != (LM_SLOTS, 1, cfg.vocab_size) or not bool(
-            torch.isfinite(logits).all()):
-        raise AssertionError(f"LM serve: the {LM_LONG}-position step's logits are "
-                             f"not finite or of shape {tuple(logits.shape)}")
-    del logits
-    out["long_step_profile"] = _profile_step(torch, step, tok, pos, cache)
+    pos = torch.full((LM_SLOTS,), LM_LONG - 1, dtype=torch.int32, device="cuda")
+    out["long_cache_bytes"] = sum(t.numel() * t.element_size()
+                                  for c in long_eng.cache for t in c)
+    bitwise(long_eng, pos, f"kv_len {LM_LONG}")
+    out["long_step_ms"] = time_cuda(step, tok, pos, long_eng.cache, iters=5, warmup=1)
+    out["long_graph_step_ms"] = time_cuda(graph_step, long_eng, pos, iters=5, warmup=1)
+    out["long_step_profile"] = _profile_step(torch, step, tok, pos, long_eng.cache)
+    out["long_graph_step_profile"] = _profile_step(torch, graph_step, long_eng, pos)
     log(f"[lm-serve] decode step at {LM_SLOTS} slots, kv_len {LM_LONG} "
-        f"({out['long_cache_bytes'] / 1e9:.1f} GB of random K/V): "
-        f"{out['long_step_ms']:.4f} ms (CUDA events, 5 steps); peak memory "
+        f"({out['long_cache_bytes'] / 1e9:.1f} GB of random K/V): graph "
+        f"{out['long_graph_step_ms']:.4f} ms, eager {out['long_step_ms']:.4f} ms (CUDA "
+        f"events, 5 steps); graph bitwise equal to the eager step; peak memory "
         f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
-    _log_profile("lm-serve 32k", out["long_step_profile"])
-    del cache, params
+    _log_profile("lm-serve 32k graph", out["long_graph_step_profile"])
+    _log_profile("lm-serve 32k eager", out["long_step_profile"])
+    del long_eng, params
     torch.cuda.empty_cache()
     return out
 
@@ -1824,6 +2087,25 @@ def phase_lm_parity(torch) -> dict:
     return out
 
 
+def phase_graph_failure(torch) -> dict:
+    """A function that reads a device value on the host cannot be captured:
+    building its graph raises (nothing falls back to eager launches), and
+    the card goes on working."""
+    from repro_torch.graphs import CudaGraph
+
+    x = torch.ones(4, device="cuda")
+    try:
+        CudaGraph(lambda t: t * t.sum().item(), x)
+    except RuntimeError as e:
+        message = str(e).strip().splitlines()[0]
+    else:
+        raise AssertionError("a capture that synchronises did not raise")
+    if (x + 1).sum().item() != 8.0:
+        raise AssertionError("the card did not recover from a failed capture")
+    log(f"[graph-failure] a capture that reads a device value raised: {message}")
+    return {"raised": message}
+
+
 def _entry(name, launches, err, rows, times_of, bound_of) -> dict:
     """One kernel's line of the result: times summed over the DCGAN layers
     it runs at batch 8 (``rows``; ``times_of(row, suffix)`` and
@@ -1867,7 +2149,7 @@ def main() -> int:
     profiled = phase_profile(torch)
     engine = phase_engine(torch)
     projection = phase_projection(torch)
-    serving = phase_serving(torch)
+    serving = phase_serving(torch) + phase_serving(torch, eager=True)
     worst.update(phase_bwd_check(torch))
     grads = phase_autograd(torch)
     bwd_times = phase_bwd_times(torch)
@@ -1883,6 +2165,7 @@ def main() -> int:
     lm_serve = phase_lm_serve(torch)
     lm_parity = phase_lm_parity(torch)
     train = phase_train(torch)
+    graph_failure = phase_graph_failure(torch)
 
     entries = []
     for name in FORWARD:   # launches: the serving run of phase 5
@@ -1924,7 +2207,7 @@ def main() -> int:
                    "fused_engine": fused_engine, "fused_serving": fused_serving,
                    "pair_grads": pair_grads, "decode_check": decode_check,
                    "decode_times": decode_times, "lm_serve": lm_serve,
-                   "lm_parity": lm_parity, "train": train,
+                   "lm_parity": lm_parity, "train": train, "graph_failure": graph_failure,
                    "seconds": time.perf_counter() - t_start}, f, indent=1)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": entries}))

@@ -16,7 +16,8 @@ bf16 model; its Pallas kernel, which this replaces, does not).
 :func:`decode_attention_ref` for CPU tensors; it never falls back from one
 to the other. It counts the first pass's launches in ``.launches`` and the
 second pass (the combine of more than one split) apart, in
-``.reduce_launches``. It does not synchronise to read ``kv_len``: a caller
+``.reduce_launches``; a CUDA graph's replay adds the launches it captured
+(:mod:`repro_torch.graphs`). It does not synchronise to read ``kv_len``: a caller
 keeps it in ``[1, S]`` (the kernel clamps it to ``[0, S]`` to stay inside
 the cache; a row with ``kv_len`` 0 gives zeros there, and the mean of ``v``
 in the plain version, as in the reference).

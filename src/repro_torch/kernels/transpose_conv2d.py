@@ -22,7 +22,8 @@ gives each sample its unbatched bits.
 :func:`transpose_conv2d_fused` launches the kernel for a CUDA tensor and
 runs :func:`transpose_conv2d_fused_plain` for a CPU tensor; it never falls
 back from one to the other. ``transpose_conv2d_fused.launches`` counts
-kernel launches, ``.reduce_launches`` the split passes.
+kernel launches, ``.reduce_launches`` the split passes; a CUDA graph's
+replay adds the launches it captured (:mod:`repro_torch.graphs`).
 
 The per-phase kernel (``csrc/transpose_conv2d_phase.cu``) computes the same
 function with one output parity per block, each block staging its own input

@@ -30,7 +30,8 @@ Each wrapper launches its kernel for a CUDA tensor and runs its plain
 version for a CPU tensor; it never falls back from one to the other. Each
 counts its kernel launches in ``.launches``; ``transpose_conv2d_dx`` and
 ``transpose_conv2d_dw`` count the split-K reduce pass apart, in
-``.reduce_launches``. No kernel uses float atomics: a split reduction
+``.reduce_launches``; a CUDA graph's replay adds the launches it captured
+(:mod:`repro_torch.graphs`). No kernel uses float atomics: a split reduction
 writes its partial sums and a second pass adds them in split order.
 """
 from __future__ import annotations

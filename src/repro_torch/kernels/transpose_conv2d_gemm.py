@@ -17,7 +17,8 @@ the batch), and a second pass adds the splits in order.
 :func:`transpose_conv2d_gemm` launches the kernel for a CUDA tensor and
 runs :func:`transpose_conv2d_gemm_plain` for a CPU tensor; it never falls
 back from one to the other. ``transpose_conv2d_gemm.launches`` counts
-kernel launches, ``.reduce_launches`` the split passes.
+kernel launches, ``.reduce_launches`` the split passes; a CUDA graph's
+replay adds the launches it captured (:mod:`repro_torch.graphs`).
 """
 from __future__ import annotations
 

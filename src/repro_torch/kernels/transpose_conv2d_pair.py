@@ -23,7 +23,8 @@ block of it asks for at launch, which the plan pass budgets against
 runs :func:`transpose_conv2d_pair_plain` for a CPU tensor; it never falls
 back from one to the other, and raises for a pair whose blocks would need
 more shared memory than a block may have. ``transpose_conv2d_pair.launches``
-counts kernel launches.
+counts kernel launches; a CUDA graph's replay adds the launches it captured
+(:mod:`repro_torch.graphs`).
 """
 from __future__ import annotations
 

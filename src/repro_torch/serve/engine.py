@@ -10,6 +10,15 @@ an idle slot runs through the step with token 0 at its stale position, as
 in the reference, and its rows are masked by ``kv_len`` once it is reused.
 Every step's attention runs the hand-written flash-decode kernel on the
 card (:mod:`repro_torch.kernels.decode_attention`).
+
+On the card the decode step is one CUDA graph (:mod:`repro_torch.graphs`),
+the counterpart of the reference's ``jax.jit(model.decode_step)``,
+captured at construction over the engine's parameters and cache (by
+address) at its fixed ``slots`` and ``max_len``: each step copies the
+tokens and positions into the graph's static inputs and replays; the cache
+is written in place and the logits are the graph's static ``(B, 1, V)``
+buffer, which the next step overwrites (the sampler copies what it reads
+to the host first). On the CPU the step runs eagerly.
 """
 from __future__ import annotations
 
@@ -22,6 +31,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.graphs import CudaGraph, require_captured
 
 
 @dataclasses.dataclass
@@ -40,7 +50,8 @@ class ServeEngine:
     logits; the default is greedy argmax, taken on the device for the whole
     batch with one copy of ``B`` ids to the host a step (a custom sampler
     costs one copy of the ``(B, V)`` logits a step). ``device=None`` means
-    the CUDA card; ``params`` must live on the engine's device."""
+    the CUDA card; ``params`` must live on the engine's device, and on the
+    card they and :attr:`cache` are the ones the decode graph captured."""
 
     def __init__(self, model, params, *, slots: int = 4, max_len: int = 256,
                  sampler: Callable | None = None, device=None):
@@ -58,10 +69,32 @@ class ServeEngine:
         self.active: list[Request | None] = [None] * slots
         self.pos = np.zeros(slots, np.int32)       # next position per slot
         self.cache = model.init_cache(slots, max_len, device=self.device)
-        self._decode = model.decode_step
+        self._decode = (self._graphed_decode() if self.device.type == "cuda"
+                        else model.decode_step)
         self._next_tok = np.zeros((slots, 1), np.int32)
         self._pending_prompt: dict[int, list] = {}
         self.steps = 0
+
+    def _graphed_decode(self) -> Callable:
+        """``decode(params, cache, batch) -> (logits, cache)`` as
+        ``model.decode_step`` is called, replaying one CUDA graph of it over
+        this engine's params and cache. The graph's warm-up step writes
+        token 0's K/V at position 0 of every slot, a row each request's
+        first token overwrites (and ``kv_len`` masks until then)."""
+        params, cache, model = self.params, self.cache, self.model
+        tokens = torch.zeros((self.B, 1), dtype=torch.int32, device=self.device)
+        graph = CudaGraph(
+            lambda tok, pos: model.decode_step(params, cache,
+                                               {"tokens": tok, "pos": pos})[0],
+            tokens, tokens[:, 0])
+
+        def decode(p, c, batch):
+            require_captured(p, params, "params")
+            require_captured(c, cache, "KV cache")
+            return graph(batch["tokens"], batch["pos"]), c
+
+        decode.graph = graph
+        return decode
 
     # ------------------------------------------------------------- intake
 
@@ -112,10 +145,10 @@ class ServeEngine:
                 tokens[slot, 0] = pending[slot].pop(0)
             else:
                 tokens[slot, 0] = self._next_tok[slot, 0]
+        # host arrays: the eager step moves them, the graph copies them in
         logits, self.cache = self._decode(
             self.params, self.cache,
-            {"tokens": torch.from_numpy(tokens).to(self.device),
-             "pos": torch.from_numpy(self.pos).to(self.device)},
+            {"tokens": torch.from_numpy(tokens), "pos": torch.from_numpy(self.pos)},
         )
         pick = self._sampler(logits)
         for slot, req in enumerate(self.active):

@@ -24,6 +24,14 @@ precompiled :class:`~repro_torch.kernels.plan.TconvPlan`s. Mirrors
    tensor. A max-wait deadline flushes partial batches.
 
 The engine runs on the CUDA card unless constructed with another device.
+On the card each executable is one CUDA graph (:mod:`repro_torch.graphs`),
+the counterpart of the reference's ``jax.jit``: the buckets of one model
+share a memory pool, the registered parameters are captured by address
+(an executable called with any other parameters raises), and a call
+copies the padded latents into the graph's static input, replays, and
+copies the static output to the host before the next replay (of any of
+the model's graphs, which share their pool) can overwrite it. On the CPU
+each executable runs the generator eagerly.
 The reference's observability spans and request timelines wait for a later
 slice.
 """
@@ -38,6 +46,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.graphs import CudaGraph, require_captured
 from repro_torch.kernels.plan import (
     check_fuse,
     compile_plan_buckets,
@@ -109,6 +118,34 @@ class _ModelSlot:
     plans: dict = dataclasses.field(default_factory=dict)   # bucket -> plan
     apply: dict = dataclasses.field(default_factory=dict)   # bucket -> fn
     queue: deque = dataclasses.field(default_factory=deque)
+    pool: object = None        # the buckets' shared CUDA graph memory pool
+
+
+def generator_executable(params: dict, cfg, plan, batch: int, device, *,
+                         pool=None):
+    """``fn(params, z)``: the whole generator at ``batch`` under ``plan``.
+    On a CUDA device one CUDA graph, captured here over ``params`` (which
+    each call must pass again, the same dict) and replayed per call; its
+    output is the graph's static buffer, which the next call of this
+    executable, or of any other whose graph shares ``pool``, may overwrite.
+    On another device the generator runs eagerly."""
+    if device.type != "cuda":
+
+        def run(p, z):
+            return generator_apply(p, cfg, z, plan=plan, device=device)
+
+        return run
+    dtype = params["proj"]["w"].dtype
+    graph = CudaGraph(
+        lambda z: generator_apply(params, cfg, z, plan=plan, device=device),
+        torch.zeros((batch, cfg.z_dim), dtype=dtype, device=device), pool=pool)
+
+    def replay(p, z):
+        require_captured(p, params, "params")
+        return graph(torch.as_tensor(z, dtype=dtype))
+
+    replay.graph = graph
+    return replay
 
 
 class GanEngine:
@@ -200,9 +237,10 @@ class GanEngine:
             torch.cuda.synchronize(self.device)
 
     def _executable(self, name: str, bucket: int):
-        """The whole-generator callable for one (model, bucket), built
-        lazily: an un-warmed engine still serves, and the recompile counter
-        shows the inline build."""
+        """The whole-generator callable ``fn(params, z)`` for one (model,
+        bucket) (:func:`generator_executable`; on the card, a CUDA graph in
+        the model's pool), built lazily: an un-warmed engine still serves,
+        and the recompile counter shows the inline build."""
         slot = self.registry[name]
         fn = slot.apply.get(bucket)
         if fn is None:
@@ -211,11 +249,10 @@ class GanEngine:
                     slot.cfg, [bucket], epilogues=generator_epilogues(slot.cfg),
                     fuse=self.fuse,
                 ))
-            plan, cfg, device = slot.plans[bucket], slot.cfg, self.device
-
-            def fn(params, z):
-                return generator_apply(params, cfg, z, plan=plan, device=device)
-
+            if self.device.type == "cuda" and slot.pool is None:
+                slot.pool = torch.cuda.graph_pool_handle()
+            fn = generator_executable(slot.params, slot.cfg, slot.plans[bucket],
+                                      bucket, self.device, pool=slot.pool)
             slot.apply[bucket] = fn
             self.metrics.count_recompile()
         return fn
@@ -349,13 +386,14 @@ class GanEngine:
             self.completed.append(r)
 
     def _execute(self, name: str, reqs: list, bucket: int) -> None:
-        """Pad-and-mask dispatch: move the packed latents to the device, run
-        the executable, wait for it, and slice the CPU copy per request."""
+        """Pad-and-mask dispatch: run the executable on the packed latents
+        (copied to the device), wait for it, and slice the CPU copy per
+        request. The copy is taken before the next call, which on the card
+        overwrites the graph's output."""
         slot = self.registry[name]
         z, n_real = self._pack_latents(reqs, bucket)
         t0 = self.clock()
-        zt = torch.from_numpy(z).to(self.device)
-        out = self._executable(name, bucket)(slot.params, zt)
+        out = self._executable(name, bucket)(slot.params, torch.from_numpy(z))
         self._sync()
         self._finalize(name, reqs, out.cpu(), n_real, bucket, t0)
 
@@ -420,17 +458,17 @@ class GanEngine:
 def sequential_executables(cfg, params: dict, sizes, *, device=None) -> dict:
     """Warmed per-size executables ``{n: fn(params, z)}``, each running the
     whole generator at exactly batch ``n``: the sequential per-request
-    baseline the bucketed engine is compared against."""
+    baseline the bucketed engine is compared against. On the card each is
+    one CUDA graph captured over ``params`` (:func:`generator_executable`;
+    the sizes share one memory pool, so a call may overwrite another size's
+    last output), called with that same dict."""
     dev = resolve_device(device)
     plans = compile_plan_buckets(cfg, sizes, epilogues=generator_epilogues(cfg))
+    pool = torch.cuda.graph_pool_handle() if dev.type == "cuda" else None
     fns = {}
     for n, plan in plans.items():
-
-        def run(p, z, _plan=plan):
-            return generator_apply(p, cfg, z, plan=_plan, device=dev)
-
-        run(params, torch.zeros((n, cfg.z_dim), device=dev))
-        fns[n] = run
+        fns[n] = generator_executable(params, cfg, plan, n, dev, pool=pool)
+        fns[n](params, torch.zeros((n, cfg.z_dim), device=dev))
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     return fns

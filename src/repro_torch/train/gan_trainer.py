@@ -31,6 +31,19 @@ reference (where XLA drops the unused branch), no generator backward runs
 there. The step takes ``reals`` and ``zs`` explicitly
 (``_step_fn(state, reals, zs)``), so tests can feed the reference's arrays.
 
+**One executable a step.** On the card the whole step -- both phases,
+AdamW for both nets, the optional compression, the four scalars -- is one
+CUDA graph (:mod:`repro_torch.graphs`), the counterpart of the reference's
+``jax.jit(step, donate_argnums=(0,))``, captured at the first step (so a
+``train_plan`` set after construction is the one captured). The state is
+donated: the state a step returns is the trainer's static buffer, which
+the next step overwrites in place, so a caller who keeps an older state
+clones it; a state that is not that buffer (a fresh ``init_state``, one
+``resume`` placed) is copied in. The host reads the four scalars after the
+replay, and only a step whose scalars are all finite copies the graph's
+new state into the buffer. On the CPU the step runs eagerly and returns
+new tensors.
+
 Still to port: ``shard_plan_apply`` with the reference's ``data_parallel``
 switch, the obs spans, the flight recorder and the fault-injection harness.
 """
@@ -46,6 +59,7 @@ import torch
 from repro_torch.data.pipeline import step_generator
 from repro_torch.device import resolve_device
 from repro_torch.distributed.fault_tolerance import elastic_batch_schedule
+from repro_torch.graphs import CudaGraph
 from repro_torch.models import gan
 from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update
 from repro_torch.optim.compression import error_feedback_compress, zero_error_state
@@ -128,6 +142,8 @@ class GanTrainer:
         self.resumed_step = None
         self.timer = StepTimer()
         self._stop = False
+        self._graph = None          # the step's CUDA graph, at the first step
+        self._graph_plan = None     # the train_plan it captured
 
     # ------------------------------------------------------------- state
 
@@ -185,9 +201,12 @@ class GanTrainer:
         return error_feedback_compress(grads, opt_state["err"])
 
     @torch.no_grad()
-    def _step_fn(self, state, reals, zs):
+    def _step_eager(self, state, reals, zs):
         """One training step on ``reals (accum, micro, H, W, C)`` and ``zs
-        (accum, micro, z_dim)``: ``(new state, metrics)``."""
+        (accum, micro, z_dim)``: ``(new state, stats)``, ``stats`` the
+        device tensor ``[g_loss, d_loss, g_gnorm, d_gnorm]``. It reads
+        nothing back to the host and writes into none of its inputs, so the
+        step's CUDA graph captures it whole (:meth:`_step_fn`)."""
         opt = self.tcfg.opt
         gp, dp = state["g_params"], state["d_params"]
         g_opt, d_opt = state["g_opt"], state["d_opt"]
@@ -207,14 +226,45 @@ class GanTrainer:
             d_opt_new = dict(d_opt_new, err=d_err)
             g_opt_new = dict(g_opt_new, err=g_err)
 
-        vals = torch.stack([gl, dl, g_gnorm, d_gnorm]).tolist()
+        return ({"g_params": gp_new, "d_params": dp_new,
+                 "g_opt": g_opt_new, "d_opt": d_opt_new},
+                torch.stack([gl, dl, g_gnorm, d_gnorm]))
+
+    def _step_graph(self, state, reals, zs) -> CudaGraph:
+        """The step's CUDA graph, captured at the first CUDA step over
+        static copies of the state and the inputs. Its warm-up runs one
+        step eagerly and drops the result: :meth:`_step_eager` writes into
+        none of its inputs, so the warm-up advances no state."""
+        if self._graph is None:
+            self._graph_plan = self.train_plan
+            self._graph = CudaGraph(self._step_eager, state, reals, zs)
+        elif self._graph_plan is not self.train_plan:
+            raise ValueError("train_plan was replaced after the step's CUDA graph "
+                             "was captured; set it before the first step")
+        return self._graph
+
+    def _step_fn(self, state, reals, zs):
+        """One training step (:meth:`_step_eager`) behind the NaN guard:
+        ``(state, metrics)``. On the card it replays the step's graph and
+        returns the static state buffer, into which the new state was
+        copied only if the step was finite (see the module docstring); on
+        the CPU it returns the new state, or ``state`` itself."""
+        if self.device.type == "cuda":
+            graph = self._step_graph(state, reals, zs)
+            new, stats = graph(state, reals, zs)
+            state = graph.inputs[0]   # the donated buffer, the caller's state in it
+        else:
+            new, stats = self._step_eager(state, reals, zs)
+        vals = stats.tolist()
         ok = all(np.isfinite(vals))
         metrics = {"g_loss": vals[0], "d_loss": vals[1], "g_gnorm": vals[2],
                    "d_gnorm": vals[3], "skipped": int(not ok)}
-        if not ok:   # the old state, whole: nothing above wrote into it
+        if not ok:   # the old state, whole: nothing wrote into it
             return state, metrics
-        return {"g_params": gp_new, "d_params": dp_new,
-                "g_opt": g_opt_new, "d_opt": d_opt_new}, metrics
+        if self.device.type == "cuda":   # commit the graph's new state
+            torch._foreach_copy_(tree_leaves(state), tree_leaves(new))
+            return state, metrics
+        return new, metrics
 
     # ------------------------------------------------------------ inputs
 

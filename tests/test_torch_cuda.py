@@ -5,16 +5,24 @@ to unbatched calls bit for bit, dx on both sides of its layout boundary and
 with unaligned operands, the generator's batch invariance (per layer and
 through fused pairs), and the generator's gradients through the backward
 kernels, fused pairs and the per-phase kernel, the decode attention kernel
-at the LM shapes, and a decode step's independence of the other slots.
+at the LM shapes, and a decode step's independence of the other slots;
+then the CUDA graphs of the main path (repro_torch.graphs): each kind of
+executable (a generator per bucket, per layer and through pairs, the
+sequential executables, the decode step, the training step) bitwise equal
+to its eager call, the launch counters counting replays, the lifetime of
+the buffers a replay overwrites, and a failed capture raising.
 Every test is marked ``cuda`` and skips itself when no card is present.
 The file imports no JAX, so it runs on a machine that has only PyTorch:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
+import os
+
 import numpy as np
 import pytest
 import torch
 
+from repro_torch import graphs
 from repro_torch.configs import get_config, reduced
 from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import epilogue as epilib
@@ -24,6 +32,11 @@ from repro_torch.kernels import transpose_conv2d_gemm as tcg
 from repro_torch.kernels import transpose_conv2d_pair as tcp
 from repro_torch.models import gan
 from repro_torch.models.lm import build_model
+from repro_torch.tree import tree_leaves, tree_map
+
+# cuBLAS sums in a fixed order only with a fixed workspace, which it reads
+# when it starts: the training step's graph-against-eager test needs it
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 pytestmark = pytest.mark.cuda
 
@@ -495,3 +508,243 @@ def test_decode_step_of_a_slot_ignores_the_other_slots(card):
     assert torch.equal(runs[0][0], runs[1][0])
     for a, b in zip(runs[0][1], runs[1][1]):
         assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+# --------------------------------------------------------------- CUDA graphs
+
+@pytest.fixture
+def deterministic(card):
+    """Deterministic algorithms on (cuDNN's discriminator and cuBLAS), as a
+    bit-exact training run needs them, and off again after the test."""
+    fill = torch.utils.deterministic.fill_uninitialized_memory
+    torch.use_deterministic_algorithms(True)
+    torch.utils.deterministic.fill_uninitialized_memory = False
+    yield card
+    torch.use_deterministic_algorithms(False)
+    torch.utils.deterministic.fill_uninitialized_memory = fill
+
+
+def _counted(fn, *args, **kwargs):
+    """``(result, counts added)``: the kernel counters across one call."""
+    counters = graphs.kernel_counters()
+    before = counters.read()
+    out = fn(*args, **kwargs)
+    return out, [a - b for a, b in zip(counters.read(), before)]
+
+
+def test_kernel_graph_counts_its_replays(card):
+    """A graph of one fused-kernel call (with its split pass): its output
+    bitwise the eager call's, the warm-up counted as the launches it made,
+    the capture as none, and each replay as one call's launches."""
+    x, k, b = _case(0, 1, 8, 512, 4, 256, card)   # DCGAN L1 at batch 1: splits
+    epi = EPILOGUES[2]
+    want, eager = _counted(tcf.transpose_conv2d_fused, x, k, 2, epilogue=epi, bias=b)
+    assert eager[:2] == [1, 1]   # the fused counters come first: one launch, one split pass
+    graph, built = _counted(graphs.CudaGraph,
+                            lambda xx: tcf.transpose_conv2d_fused(xx, k, 2, epilogue=epi,
+                                                                  bias=b), x)
+    assert built == eager and graph.launches == eager
+    for _ in range(3):
+        out, replayed = _counted(graph, x)
+        assert replayed == eager
+    assert torch.equal(out, want)
+
+
+@pytest.mark.parametrize("fuse", ["off", "force"])
+def test_engine_graphs_equal_eager_calls_bitwise(card, fuse):
+    """Every bucket's executable, per layer and through pairs, is one graph
+    in the model's pool: bitwise the eager call of its plan, counting the
+    eager call's launches, and refusing parameters other than the
+    registered ones."""
+    from repro_torch.serve import BucketPolicy, GanEngine
+
+    cfg = gan.reduced_config(gan.DCGAN, 4)
+    params = gan.generator_init(torch.Generator().manual_seed(0), cfg, device=card)
+    eng = GanEngine(BucketPolicy(buckets=(1, 2, 4, 8)), fuse=fuse)
+    eng.register(cfg, params)
+    eng.warmup()
+    slot = eng.registry[cfg.name]
+    assert slot.pool is not None and eng.metrics.recompiles == 4
+    rng = np.random.default_rng(1)
+    for bucket, fn in slot.apply.items():
+        z = torch.from_numpy(rng.standard_normal((bucket, cfg.z_dim)).astype(np.float32))
+        want, eager = _counted(gan.generator_apply, params, cfg, z,
+                               plan=slot.plans[bucket], device=card)
+        got, replayed = _counted(fn, params, z)
+        assert torch.equal(got, want) and replayed == eager and any(eager)
+        assert fn.graph.launches == eager
+    with pytest.raises(ValueError, match="captured over its own params"):
+        slot.apply[1](dict(params), torch.zeros((1, cfg.z_dim)))
+    assert eng.metrics.recompiles == 4
+
+
+def test_generator_graph_output_lifetime(card):
+    """The executable's output is the graph's buffer: the next call
+    overwrites it, and a copy the caller took first keeps its bits."""
+    from repro_torch.serve.gan_engine import sequential_executables
+
+    cfg = gan.reduced_config(gan.DCGAN, 4)
+    params = gan.generator_init(torch.Generator().manual_seed(0), cfg, device=card)
+    fns = sequential_executables(cfg, params, [1, 3])
+    z1, z2 = (torch.randn((3, cfg.z_dim), generator=torch.Generator().manual_seed(s))
+              for s in (2, 3))
+    out1 = fns[3](params, z1)
+    kept = out1.cpu()
+    out2 = fns[3](params, z2)
+    assert out2 is out1
+    assert torch.equal(kept, gan.generator_apply(params, cfg, z1).cpu())
+    assert torch.equal(out2.cpu(), gan.generator_apply(params, cfg, z2).cpu())
+    assert not torch.equal(kept, out2.cpu())
+    with pytest.raises(ValueError, match="captured over its own params"):
+        fns[1](gan.generator_init(torch.Generator().manual_seed(0), cfg, device=card),
+               z1[:1])
+
+
+def _lm(card, slots=4, max_len=64):
+    from repro_torch.serve import ServeEngine
+
+    cfg = reduced(get_config("llama3-8b"))   # bf16, 2 layers
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=card).manual_seed(0), device=card)
+    return cfg, model, params, ServeEngine(model, params, slots=slots, max_len=max_len)
+
+
+def test_decode_graph_equals_eager_step_bitwise(card):
+    """One decode step through the engine's graph against model.decode_step
+    on a copy of the cache: logits and written cache rows bitwise equal,
+    n_layers decode launches a replay; the logits buffer is overwritten by
+    the next step; other params or another cache raise."""
+    from repro_torch.models import layers as L
+
+    cfg, model, params, eng = _lm(card)
+    gen = torch.Generator(device=card).manual_seed(1)
+    for c in eng.cache:
+        for t in c:
+            t.copy_(torch.randn(t.shape, generator=gen, device=card))
+    copy = [L.KVCache(c.k.clone(), c.v.clone()) for c in eng.cache]
+    batch = {"tokens": torch.tensor([[5], [1], [9], [3]], dtype=torch.int32),
+             "pos": torch.tensor([40, 3, 63, 0], dtype=torch.int32)}
+    (got, cache), replayed = _counted(eng._decode, params, eng.cache, batch)
+    assert cache is eng.cache
+    want, _ = model.decode_step(params, copy, {k: v.to(card) for k, v in batch.items()})
+    assert torch.equal(got, want)
+    for c, w in zip(eng.cache, copy):
+        assert torch.equal(c.k, w.k) and torch.equal(c.v, w.v)
+    decode = {name: d for (fn, name), d in zip(graphs.kernel_counters().slots, replayed)
+              if fn is da.decode_attention}
+    assert decode["launches"] == cfg.n_layers and sum(replayed) == sum(decode.values())
+    kept = got.clone()
+    again, _ = eng._decode(params, eng.cache, {"tokens": batch["tokens"] + 1,
+                                               "pos": batch["pos"]})
+    assert again is got and not torch.equal(again, kept)
+    with pytest.raises(ValueError, match="params"):
+        eng._decode(dict(params), eng.cache, batch)
+    with pytest.raises(ValueError, match="KV cache"):
+        eng._decode(params, copy, batch)
+
+
+def test_decode_graph_serves_the_eager_engines_tokens(card):
+    """The same requests through the graphed engine and through the same
+    engine with its decode step swapped for the eager one: equal tokens."""
+    from repro_torch.serve import Request
+
+    cfg, model, params, eng = _lm(card)
+    rng = np.random.default_rng(0)
+    specs = [(rng.integers(0, cfg.vocab_size, size=int(n)).tolist(), int(m))
+             for n, m in zip(rng.integers(2, 20, size=6), rng.integers(3, 12, size=6))]
+    outs = []
+    for decode in (eng._decode, model.decode_step):
+        eng._decode = decode
+        reqs = [Request(prompt=p, max_new_tokens=m) for p, m in specs]
+        eng.run(reqs)
+        assert all(r.done and len(r.output) == r.max_new_tokens for r in reqs)
+        outs.append([r.output for r in reqs])
+    assert outs[0] == outs[1]
+
+
+class _NanAt:
+    """Data whose batch is all NaN at the given step indices."""
+
+    def __init__(self, data, steps):
+        self.data, self.steps = data, set(steps)
+
+    def batch(self, i):
+        x = self.data.batch(i)
+        return torch.full_like(x, float("nan")) if i in self.steps else x
+
+
+def _trainer(card, nan_at=(), batch=4):
+    from repro_torch.data import SyntheticImages
+    from repro_torch.train.gan_trainer import GanTrainer, GanTrainerConfig
+
+    cfg = gan.reduced_config(gan.DCGAN, 8)
+    data = SyntheticImages(cfg.out_hw(cfg.layers[-1][0]), cfg.layers[-1][2], batch,
+                           device=card)
+    return GanTrainer(cfg, GanTrainerConfig(global_batch=batch), _NanAt(data, nan_at),
+                      log_fn=lambda *a: None)
+
+
+def _equal_trees(a, b):
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(torch.equal(x, y) for x, y in zip(la, lb))
+
+
+def test_trainer_graph_steps_equal_eager_steps_bitwise(deterministic):
+    """Three graphed steps against three eager ones from the same state:
+    equal scalars and states bit for bit, the eager step's launches a
+    replay, one capture; the returned state is the trainer's one buffer
+    (an older state the caller kept must be cloned), and the caller's
+    first state is copied in, never written."""
+    tr = _trainer(deterministic)
+    state0 = tr.init_state(torch.Generator().manual_seed(0))
+    kept0 = tree_map(torch.clone, state0)
+    eager_state, graph_state, buffers = state0, state0, set()
+    for step in range(3):
+        reals, zs = tr._batches(step)
+        (eager_state, stats), eager = _counted(tr._step_eager, eager_state, reals, zs)
+        before = tree_map(torch.clone, graph_state)
+        (graph_state, metrics), replayed = _counted(tr._step_fn, graph_state, reals, zs)
+        assert [metrics[k] for k in ("g_loss", "d_loss", "g_gnorm", "d_gnorm")] \
+            == stats.tolist() and not metrics["skipped"]
+        assert _equal_trees(graph_state, eager_state)
+        if step:   # the first call also ran the warm-up
+            assert replayed == eager and tr._graph.launches == eager
+            assert not _equal_trees(before, graph_state)
+        buffers.add(id(tree_leaves(graph_state)[0]))
+    assert len(buffers) == 1 and tree_leaves(graph_state)[0] is \
+        tree_leaves(tr._graph.inputs[0])[0]
+    assert _equal_trees(state0, kept0)
+
+
+def test_trainer_graph_nan_step_commits_nothing(deterministic):
+    """A non-finite step replays the graph but copies nothing into the
+    state buffer: the state is bitwise the one before it, and the next
+    finite step commits again."""
+    tr = _trainer(deterministic, nan_at=(1,))
+    state = tr.init_state(torch.Generator().manual_seed(0))
+    state, m0 = tr._step_fn(state, *tr._batches(0))
+    after0 = tree_map(torch.clone, state)
+    state, m1 = tr._step_fn(state, *tr._batches(1))
+    assert (m0["skipped"], m1["skipped"]) == (0, 1)
+    assert _equal_trees(state, after0)
+    state, m2 = tr._step_fn(state, *tr._batches(2))
+    assert m2["skipped"] == 0 and not _equal_trees(state, after0)
+
+
+def test_trainer_refuses_a_plan_replaced_after_capture(card):
+    tr = _trainer(card)
+    state = tr.init_state(torch.Generator().manual_seed(0))
+    state, _ = tr._step_fn(state, *tr._batches(0))
+    tr.train_plan = gan.generator_plan(tr.cfg, tr.micro, bwd="autograd")
+    with pytest.raises(ValueError, match="train_plan"):
+        tr._step_fn(state, *tr._batches(1))
+
+
+def test_failed_capture_raises(card):
+    """A function that reads a device value on the host cannot be captured:
+    the graph raises, never runs it eagerly instead, and the card goes on
+    working."""
+    x = torch.ones(4, device=card)
+    with pytest.raises(RuntimeError):
+        graphs.CudaGraph(lambda t: t * t.sum().item(), x)
+    assert (x + 1).sum().item() == 8.0
