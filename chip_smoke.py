@@ -139,8 +139,34 @@ Phases, in order; any failure raises and the script exits non-zero:
               teacher-forced decode_step logits, through the kernel, against
               the full-sequence apply logits (plain direct attention) at
               batch 2, 40 tokens prefilled and 8 decoded, rtol/atol 2e-3.
-18. train  -- deterministic algorithms on (a bit-exact resume needs them;
-              phases 3-17 run and are timed without them), then GanTrainer on
+18. zoo    -- every method name of transpose_conv2d (the baselines, auto
+              and the Pallas spellings), with a bias and relu, at the paper's
+              Table-2 shapes (224 x 224 x 3 images at batch 4, kernels 5/4/3,
+              P = 2) and at every distinct Table-4 layer of the four GANs at
+              batch 1, against the tap-by-tap oracle on the card; the fused
+              and per-phase kernels against their plain versions at the
+              Table-2 shapes with every epilogue; the segregated dilated
+              convolution against the dense one at (4, 224, 224, 3) with a
+              3x3 kernel; same tolerance.
+19. paper  -- the paper's three claims, fp32, TF32 off, each forward by
+              graph replay (host taken out). Tables 2-3: the tap-by-tap
+              oracle ("naive"), the entry's baselines, the fused kernel
+              ("pallas"), the per-phase kernel and auto at the Table-2 shapes,
+              per image and per dataset (Table 1's sample counts), with the
+              mean over n of t(conventional) / t(proposed) for the fused
+              kernel and for unified; the fused and per-phase kernels also by
+              events, with their plain versions, F.conv_transpose2d and the
+              bound. Table 4: every layer of the four GANs at batch 1, each
+              forward, and the backward and full step (autograd of .sum()) of
+              conventional, unified and auto; per model t(naive) / t(auto)
+              and t(conventional) / t(auto), and their means. Memory: one
+              eager EB-GAN generator call at batch 1 and one Table-2 image
+              through conventional, unified and the default plan: the peak,
+              the bytes allocated and (from the allocator's history) each
+              allocation of 256 KiB or more, beside the analytic saving and
+              the padded upsampled buffers found among conventional's.
+20. train  -- deterministic algorithms on (a bit-exact resume needs them;
+              phases 3-19 run and are timed without them), then GanTrainer on
               full-width DCGAN (GanTrainerConfig defaults, global batch 8;
               each step one CUDA graph): 3 graphed steps bitwise equal to 3
               eager ones; 6 steps checkpointing every 3 whose launch counts
@@ -152,9 +178,9 @@ Phases, in order; any failure raises and the script exits non-zero:
               the graphed step, the graphed step with the plan pinned to
               bwd="autograd", and the eager step; one profiled step each
               way.
-19. graph failure -- a capture that reads a device value on the host
+21. graph failure -- a capture that reads a device value on the host
               raises, and the card goes on working.
-20. result -- a JSON line of per-kernel numbers, then the last line
+22. result -- a JSON line of per-kernel numbers, then the last line
               {"ok": true, "device": {...}}.
 
 Full results also go to chiprun_out/chip_smoke.json.
@@ -280,6 +306,23 @@ DECODE_CHECKS = [  # (B, S, KV, G, hd) of the decode kernel's check
 ]
 DECODE_TIMES = [(8, 4096, 8, 4, 128), (8, 32768, 8, 4, 128), (8, 32768, 2, 7, 64),
                 (8, 1024, 8, 4, 128)]   # the last: Llama-3-8B as phase 16 serves it
+# The paper's Tables 2-3 workload (its own copy of benchmarks/table2_flowers.py
+# and table3_coco_pascal.py): 224 x 224 x 3 images at batch 4, kernels 5/4/3,
+# P = 2, 3 output channels; each dataset's total is its sample count times the
+# time an image takes, so the speedup per kernel does not depend on the group
+PAPER_BATCH = 4
+TABLE2_SHAPES = [(PAPER_BATCH, 224, n, 2, 3, 3) for n in (5, 4, 3)]
+TABLE2_GROUPS = {"sunflower": 734, "tulip": 984, "daisy": 769, "rose": 784,
+                 "dandelion": 1052}
+TABLE3_DATASETS = {"mscoco2017_10pct": 11828,
+                   "pascal_voc2012_classification": 17125,
+                   "pascal_voc2012_segmentation": 2913}
+# the forwards the paper phase times: the tap-by-tap oracle (the paper's
+# naive baseline) and the entry's methods, "pallas" the fused kernel
+PAPER_FORWARDS = ("naive", "conventional", "xla", "grouped", "unified",
+                  "unified_reshape", "unified_fused", "unified_matmul", "pallas",
+                  "pallas_phase", "auto")
+PAPER_TRAINING = ("conventional", "unified", "auto")
 LM_ARCH = "llama3-8b"
 LM_SLOTS, LM_MAX_LEN, LM_REQUESTS = 8, 1024, 16
 LM_LONG = 32768          # the decode_32k cache length of one timed step
@@ -2087,6 +2130,323 @@ def phase_lm_parity(torch) -> dict:
     return out
 
 
+def _zoo_layer_shapes():
+    """``{model: [(1, N, n, P, Cin, Cout), ...]}``: every Table-4 layer of
+    the four GANs at batch 1."""
+    from repro_torch.models import gan
+
+    return {name: [(1, hw, cfg.kernel, cfg.padding, cin, cout)
+                   for hw, cin, cout in cfg.layers]
+            for name, cfg in gan.GAN_ZOO.items()}
+
+
+def _max_err(torch, got, want) -> tuple:
+    """The largest absolute difference and its tolerance
+    ``TOL_REL * max|want| + TOL_ABS``; a shape mismatch raises."""
+    if got.shape != want.shape:
+        raise AssertionError(f"shape {tuple(got.shape)} != {tuple(want.shape)}")
+    torch.cuda.synchronize()
+    return ((got - want).abs().max().item(),
+            TOL_REL * want.abs().max().item() + TOL_ABS)
+
+
+def phase_zoo_check(torch) -> dict:
+    """Every method name of ``transpose_conv2d`` (with a bias and relu) at
+    the Table-2 shapes and at every distinct Table-4 layer at batch 1,
+    against the tap-by-tap oracle on the card; the fused and per-phase
+    kernels against their plain versions at the Table-2 shapes with every
+    epilogue; the segregated dilated convolution against the dense one."""
+    from repro_torch.core import transpose_conv as tc
+    from repro_torch.core.dilated_conv import dilated_conv2d
+    from repro_torch.kernels.ref import conventional_ref
+
+    names = sorted(tc.METHODS) + sorted(tc.KERNEL_METHODS)
+    shapes = TABLE2_SHAPES + sorted({s for layers in _zoo_layer_shapes().values()
+                                     for s in layers})
+    worst = {}
+    for i, shape in enumerate(shapes):
+        x, k, bias = _inputs(torch, shape, seed=900 + i)
+        pad = shape[3]
+        want = torch.relu(conventional_ref(x, k, pad) + bias)
+        errs = {}
+        for name in names:
+            got = tc.transpose_conv2d(x, k, pad, method=name, bias=bias, act="relu")
+            err, tol = _max_err(torch, got, want)
+            if not err <= tol:
+                raise AssertionError(f"transpose_conv2d(method={name!r}) misses the "
+                                     f"oracle at {shape}: {err} > {tol}")
+            errs[name] = err
+            worst[name] = max(worst.get(name, 0.0), err)
+        log(f"[zoo] {shape}: {len(names)} methods within {tol:.3e} of the oracle, "
+            f"worst {max(errs, key=errs.get)} {max(errs.values()):.3e}")
+    for name, (launch, plain) in kernels(("fused", "phase")).items():
+        for i, shape in enumerate(TABLE2_SHAPES):
+            x, k, bias = _inputs(torch, shape, seed=950 + i)
+            for epi in epilogues():
+                b = bias if epi is not None else None
+                err, tol = _max_err(torch, launch(x, k, shape[3], epilogue=epi, bias=b),
+                                    plain(x, k, shape[3], epilogue=epi, bias=b))
+                if not err <= tol:
+                    raise AssertionError(f"{name} kernel disagrees with its plain "
+                                         f"version at {shape} {_tag(epi)}: {err} > {tol}")
+                worst[f"{name}_table2"] = max(worst.get(f"{name}_table2", 0.0), err)
+        log(f"[zoo] {name} kernel at the Table-2 shapes, every epilogue: max abs err "
+            f"{worst[f'{name}_table2']:.3e} against its plain version")
+    x, k, _ = _inputs(torch, (PAPER_BATCH, 224, 3, 0, 3, 3), seed=999)
+    err, tol = _max_err(torch, dilated_conv2d(x, k, method="segregated"),
+                        dilated_conv2d(x, k, method="conventional"))
+    if not err <= tol:
+        raise AssertionError(f"segregated dilated conv misses the dense one: {err} > {tol}")
+    worst["dilated"] = err
+    log(f"[zoo] dilated conv (4, 224, 224, 3) * 3x3: segregated against dense "
+        f"{err:.3e} (tol {tol:.3e}); zoo check passed")
+    return worst
+
+
+def _paper_forwards(pad: int) -> dict:
+    """``{name: fn(x, k)}`` of PAPER_FORWARDS at padding ``pad``."""
+    import functools
+
+    from repro_torch.core import transpose_conv as tc
+    from repro_torch.kernels.ref import conventional_ref
+
+    fns = {"naive": functools.partial(conventional_ref, padding=pad)}
+    for name in PAPER_FORWARDS[1:]:
+        fns[name] = functools.partial(tc.transpose_conv2d, padding=pad, method=name)
+    return fns
+
+
+def _vjp(x, k, g, *, pad, method):
+    """The forward and its vector-Jacobian product with ``g``, as
+    ``jax.vjp(f, x, k)[1](g)`` runs under jit."""
+    import torch
+
+    from repro_torch.core import transpose_conv as tc
+
+    return torch.autograd.grad(tc.transpose_conv2d(x, k, pad, method=method), (x, k), g)
+
+
+def _step(x, k, *, pad, method):
+    """Value and gradients of ``sum(tconv(x, k))``, as ``value_and_grad``."""
+    import torch
+
+    from repro_torch.core import transpose_conv as tc
+
+    y = tc.transpose_conv2d(x, k, pad, method=method).sum()
+    return (y,) + torch.autograd.grad(y, (x, k))
+
+
+def _call_memory(torch, fn, *args, **kwargs) -> dict:
+    """Device memory of one eager call under ``inference_mode``, after one
+    warm-up call: the peak above what was allocated before it, the bytes it
+    allocated in all (``allocated_bytes.all.allocated``'s growth), and, from
+    the allocator's history of the call, each allocation size of 256 KiB or
+    more with its count (largest first) and the bytes of the smaller ones."""
+    with torch.inference_mode():
+        fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_stats()["allocated_bytes.all.allocated"]
+        torch.cuda.memory._record_memory_history(enabled="all", context=None,
+                                                 stacks="python", clear_history=True)
+        try:
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            trace = torch.cuda.memory._snapshot()["device_traces"]
+        finally:
+            torch.cuda.memory._record_memory_history(enabled=None)
+        peak = torch.cuda.max_memory_allocated() - base
+        total = torch.cuda.memory_stats()["allocated_bytes.all.allocated"] - before
+    del out
+    sizes = [e["size"] for dev in trace for e in dev if e["action"] == "alloc"]
+    large = {}
+    for size in sizes:
+        if size >= 1 << 18:
+            large[size] = large.get(size, 0) + 1
+    return {"peak_bytes": peak, "allocated_bytes": total,
+            "large_allocations": sorted(large.items(), reverse=True),
+            "small_allocated_bytes": sum(x for x in sizes if x < 1 << 18)}
+
+
+def _found_bytes(reading: dict, sizes) -> int:
+    """The bytes of ``sizes`` among a call's allocations of 256 KiB or more,
+    each size matched to one allocation at most."""
+    left = dict(reading["large_allocations"])
+    found = 0
+    for size in sizes:
+        if left.get(size, 0):
+            left[size] -= 1
+            found += size
+    return found
+
+
+def _memory_saved(torch, fn) -> dict:
+    """Both readings of ``fn(method)`` for ``conventional``, ``unified`` (the
+    same PyTorch convolutions and post-ops without the upsampled map) and
+    ``auto`` (the default plan: the GEMM and fused kernels), and what each
+    of the last two saves against ``conventional`` in each reading."""
+    got = {m: _call_memory(torch, fn, m) for m in ("conventional", "unified", "auto")}
+    for m in ("unified", "auto"):
+        for reading in ("peak_bytes", "allocated_bytes"):
+            got[m][f"{reading}_saved"] = (got["conventional"][reading]
+                                          - got[m][reading])
+    return got
+
+
+def phase_paper(torch) -> dict:
+    """The paper's three claims on the card. Tables 2-3: each forward of
+    PAPER_FORWARDS at TABLE2_SHAPES by graph replay (host taken out), per
+    image and per dataset, the speedups over n with the fused kernel and
+    with ``unified`` as the proposed method, the fused and per-phase kernels
+    also by events with their plain versions, the library call and the
+    bound. Table 4: every layer of the four GANs at batch 1, each forward,
+    and the backward and full step of PAPER_TRAINING. Memory: one eager
+    EB-GAN generator call and one Table-2 image (:func:`_memory_saved`)."""
+    import torch.nn.functional as F
+
+    from repro_torch.core import transpose_conv as tc
+    from repro_torch.core.segregation import memory_savings_bytes, output_size
+    from repro_torch.models import gan
+    from repro_torch.timing import time_cuda
+
+    table2 = []
+    for i, shape in enumerate(TABLE2_SHAPES):
+        b, n_in, n_k, pad, cin, cout = shape
+        x, k, _ = _inputs(torch, shape, seed=1000 + i)
+        dev = {name: _device_us(torch, fn, x, k)
+               for name, fn in _paper_forwards(pad).items()}
+        x_nchw, w_t = x.permute(0, 3, 1, 2).contiguous(), _flipped(torch, k)
+
+        def library(xx, ww, _pad=n_k - 1 - pad):
+            return F.conv_transpose2d(xx, ww, stride=2, padding=_pad)
+
+        dev["library"] = _device_us(torch, library, x_nchw, w_t)
+        per_image = {name: us / b for name, us in dev.items()}
+        row = {"n": n_k, "shape": shape, **_bound(shape), "device_us": dev,
+               "per_image_us": per_image,
+               "events_us": {"pallas": time_cuda(tc.transpose_conv2d, x, k, pad,
+                                                 method="pallas") * 1e3,
+                             "pallas_phase": time_cuda(tc.transpose_conv2d, x, k, pad,
+                                                       method="pallas_phase") * 1e3,
+                             "library": time_cuda(library, x_nchw, w_t) * 1e3},
+               "plain_us": {name: time_cuda(plain, x, k, pad, iters=5) * 1e3
+                            for name, (_, plain) in kernels(("fused", "phase")).items()},
+               "speedup": {p: dev["conventional"] / dev[p] for p in ("pallas", "unified")},
+               "naive_ratio": {p: dev["naive"] / dev[p] for p in ("pallas", "unified")},
+               "datasets_s": {group: {name: per_image[name] * count * 1e-6
+                                      for name in ("naive", "conventional", "unified",
+                                                   "pallas")}
+                              for group, count in {**TABLE2_GROUPS,
+                                                   **TABLE3_DATASETS}.items()}}
+        table2.append(row)
+        log(f"[paper] Table 2 n={n_k} {shape}: device us a call ({b} images) "
+            + ", ".join(f"{name} {us:.2f}" for name, us in dev.items())
+            + f" | bound {row['bound_ms'] * 1e3:.2f} us ({row['bound_by']}: "
+            f"{row['bytes']} B, {row['flops']} FLOP) | events us {row['events_us']} "
+            f"plain us {row['plain_us']}")
+        log(f"[paper] Table 2 n={n_k}: conventional / pallas "
+            f"{row['speedup']['pallas']:.3f}, conventional / unified "
+            f"{row['speedup']['unified']:.3f}; naive / pallas "
+            f"{row['naive_ratio']['pallas']:.3f}, naive / unified "
+            f"{row['naive_ratio']['unified']:.3f}")
+        for group, secs in row["datasets_s"].items():
+            log(f"[paper] Table {2 if group in TABLE2_GROUPS else 3} {group} n={n_k}: "
+                + ", ".join(f"{name} {t:.6f} s" for name, t in secs.items()))
+    claims = {f"table2_{ratio}_{p}": sum(r[ratio][p] for r in table2) / len(table2)
+              for ratio in ("speedup", "naive_ratio") for p in ("pallas", "unified")}
+    log(f"[paper] Tables 2-3, mean over n of t(conventional) / t(proposed): pallas "
+        f"{claims['table2_speedup_pallas']:.3f}, unified "
+        f"{claims['table2_speedup_unified']:.3f} (the paper: 2.03); naive / proposed: "
+        f"pallas {claims['table2_naive_ratio_pallas']:.3f}, unified "
+        f"{claims['table2_naive_ratio_unified']:.3f}")
+
+    table4 = {}
+    for model, shapes in _zoo_layer_shapes().items():
+        layers = []
+        for i, shape in enumerate(shapes):
+            b, n_in, n_k, pad, cin, cout = shape
+            x, k, _ = _inputs(torch, shape, seed=1100 + i)
+            fwd = {name: _device_us(torch, fn, x, k)
+                   for name, fn in _paper_forwards(pad).items()}
+            m = output_size(n_in, n_k, pad)
+            xg, kg = x.requires_grad_(True), k.requires_grad_(True)
+            g = torch.randn((b, m, m, cout), device=x.device,
+                            generator=torch.Generator(x.device).manual_seed(i))
+            bwd = {m: _device_us(torch, _vjp, xg, kg, g, pad=pad, method=m)
+                   for m in PAPER_TRAINING}
+            step = {m: _device_us(torch, _step, xg, kg, pad=pad, method=m)
+                    for m in PAPER_TRAINING}
+            layers.append({"layer": f"L{i}", "shape": shape, "fwd_us": fwd,
+                           "bwd_us": bwd, "step_us": step,
+                           "mem_savings_bytes": memory_savings_bytes(
+                               n_in, cin, 4, pad, mode="buffer")})
+            log(f"[paper] Table 4 {model} L{i} {shape}: fwd us "
+                + ", ".join(f"{n} {t:.2f}" for n, t in fwd.items())
+                + " | bwd us " + ", ".join(f"{n} {t:.2f}" for n, t in bwd.items())
+                + " | step us " + ", ".join(f"{n} {t:.2f}" for n, t in step.items()))
+        tot = {key: {n: sum(r[key][n] for r in layers) for n in layers[0][key]}
+               for key in ("fwd_us", "bwd_us", "step_us")}
+        ratios = {"naive_over_auto": tot["fwd_us"]["naive"] / tot["fwd_us"]["auto"],
+                  "conventional_over_auto": (tot["fwd_us"]["conventional"]
+                                             / tot["fwd_us"]["auto"]),
+                  "step_conventional_over_auto": (tot["step_us"]["conventional"]
+                                                  / tot["step_us"]["auto"])}
+        table4[model] = {"layers": layers, "totals": tot, **ratios,
+                         "mem_savings_bytes": sum(r["mem_savings_bytes"] for r in layers)}
+        log(f"[paper] Table 4 {model} total: fwd us "
+            + ", ".join(f"{n} {t:.2f}" for n, t in tot["fwd_us"].items())
+            + f" | step us {tot['step_us']} | naive / auto "
+            f"{ratios['naive_over_auto']:.3f}, conventional / auto "
+            f"{ratios['conventional_over_auto']:.3f}, step conventional / auto "
+            f"{ratios['step_conventional_over_auto']:.3f}")
+    for key in ("naive_over_auto", "conventional_over_auto",
+                "step_conventional_over_auto"):
+        claims[f"table4_{key}"] = sum(m[key] for m in table4.values()) / len(table4)
+    log(f"[paper] Table 4, mean over the four models: naive / auto "
+        f"{claims['table4_naive_over_auto']:.3f}, conventional / auto "
+        f"{claims['table4_conventional_over_auto']:.3f}, step conventional / auto "
+        f"{claims['table4_step_conventional_over_auto']:.3f} (the paper: 3.5)")
+
+    cfg = gan.EBGAN
+    params = gan.generator_init(torch.Generator().manual_seed(0), cfg)
+    z = torch.randn((1, cfg.z_dim), generator=torch.Generator().manual_seed(0))
+    memory = {"ebgan": _memory_saved(
+        torch, lambda method: gan.generator_apply(params, cfg, z, method=method))}
+    memory["ebgan"]["analytic_bytes"] = gan.generator_memory_savings(cfg)
+    memory["ebgan"]["upsampled_found_bytes"] = _found_bytes(
+        memory["ebgan"]["conventional"],
+        [4 * (2 * hw - 1 + 2 * cfg.padding) ** 2 * cin for hw, cin, _ in cfg.layers])
+    memory["ebgan"]["analytic_with_epilogue_bytes"] = gan.generator_memory_savings(
+        cfg, include_epilogue=True)
+    for i, shape in enumerate(TABLE2_SHAPES):
+        _, n_in, n_k, pad, cin, _ = shape
+        x, k, _ = _inputs(torch, (1,) + shape[1:], seed=1200 + i)
+        memory[f"table2_n{n_k}"] = _memory_saved(
+            torch, lambda method: tc.transpose_conv2d(x, k, pad, method=method))
+        memory[f"table2_n{n_k}"]["analytic_bytes"] = memory_savings_bytes(n_in, cin, 4, pad)
+        memory[f"table2_n{n_k}"]["upsampled_found_bytes"] = _found_bytes(
+            memory[f"table2_n{n_k}"]["conventional"], [4 * (2 * n_in - 1 + 2 * pad) ** 2 * cin])
+    for name, m in memory.items():
+        log(f"[paper] memory {name}: " + "; ".join(
+            f"{meth} peak {m[meth]['peak_bytes']} B, allocated "
+            f"{m[meth]['allocated_bytes']} B"
+            + (f" (saves {m[meth]['peak_bytes_saved']} B of peak, "
+               f"{m[meth]['allocated_bytes_saved']} B allocated)"
+               if meth != "conventional" else "")
+            for meth in ("conventional", "unified", "auto"))
+            + f"; analytic (the upsampled buffers never made) {m['analytic_bytes']} B; "
+            f"the padded upsampled buffers among conventional's allocations "
+            f"{m['upsampled_found_bytes']} B")
+        for meth in ("conventional", "unified", "auto"):
+            log(f"[paper] memory {name} {meth}: allocations of 256 KiB or more "
+                f"[size B, count] {m[meth]['large_allocations']}, smaller ones "
+                f"{m[meth]['small_allocated_bytes']} B in all")
+    del params
+    return {"table2": table2, "table4": table4, "memory": memory, "claims": claims}
+
+
+
 def phase_graph_failure(torch) -> dict:
     """A function that reads a device value on the host cannot be captured:
     building its graph raises (nothing falls back to eager launches), and
@@ -2164,6 +2524,8 @@ def main() -> int:
     decode_times = phase_decode_times(torch)
     lm_serve = phase_lm_serve(torch)
     lm_parity = phase_lm_parity(torch)
+    zoo = phase_zoo_check(torch)
+    paper = phase_paper(torch)
     train = phase_train(torch)
     graph_failure = phase_graph_failure(torch)
 
@@ -2207,7 +2569,9 @@ def main() -> int:
                    "fused_engine": fused_engine, "fused_serving": fused_serving,
                    "pair_grads": pair_grads, "decode_check": decode_check,
                    "decode_times": decode_times, "lm_serve": lm_serve,
-                   "lm_parity": lm_parity, "train": train, "graph_failure": graph_failure,
+                   "lm_parity": lm_parity, "zoo_check": zoo, "paper": paper,
+                   "train": train,
+                   "graph_failure": graph_failure,
                    "seconds": time.perf_counter() - t_start}, f, indent=1)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": entries}))

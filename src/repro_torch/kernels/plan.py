@@ -23,7 +23,8 @@ Methods a plan resolves to:
   phase            the per-phase CUDA kernel (the reference's
                    ``pallas_phase``), likewise; pinned only, never chosen
                    by the cold rule.
-  conventional, xla, unified, unified_reshape
+  conventional, xla, grouped, unified, unified_reshape, unified_fused,
+  unified_matmul
                    the PyTorch baselines of
                    :mod:`repro_torch.core.transpose_conv` (the reference's
                    lax methods), with the epilogue composed as post-ops.
@@ -72,7 +73,8 @@ from repro_torch.kernels.ops import (
     TconvPhaseFn,
 )
 
-METHODS = ("fused", "gemm", "phase") + tuple(tc.METHODS)
+# every method but "auto", which a plan resolves and never holds
+METHODS = ("fused", "gemm", "phase") + tuple(m for m in tc.METHODS if m != "auto")
 _KERNEL_FNS = {"fused": TconvFusedFn, "gemm": TconvGemmFn, "phase": TconvPhaseFn}
 
 

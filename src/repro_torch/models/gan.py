@@ -136,7 +136,9 @@ def generator_apply(params: dict, cfg: GANConfig, z, *, method: str = "auto",
     :func:`generator_plan`) runs every entry as the plan resolved it, a
     fused pair as one pair-kernel launch
     (:func:`~repro_torch.kernels.plan.execute_pair`); without one each layer
-    resolves a memoized plan for ``method``. Differentiable in ``params``.
+    runs ``transpose_conv2d`` with ``method`` (``auto``: a memoized plan by
+    the cold rule; or any other name the entry takes). Differentiable in
+    ``params``.
     """
     dev = resolve_device(device)
     if plan is not None and len(plan) != len(cfg.layers):

@@ -20,8 +20,7 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.kernels import epilogue as epilib
-from repro_torch.kernels import plan as planlib
+from repro_torch.core.transpose_conv import transpose_conv2d
 from repro_torch.kernels.decode_attention import decode_attention
 
 NEG_INF = -1e30
@@ -43,29 +42,16 @@ def tconv_apply(p: dict, x: torch.Tensor, padding: int, *,
                 method: str = "auto", plan=None,
                 act: str = "none"):
     """Stride-2 transpose convolution + bias + activation as one unit,
-    differentiable in ``x``, ``p["w"]`` and ``p["b"]``.
+    differentiable in ``x``, ``p["w"]`` and ``p["b"]``: the entry
+    :func:`~repro_torch.core.transpose_conv.transpose_conv2d` with the
+    layer's bias and activation.
 
     ``plan=`` (a :class:`~repro_torch.kernels.plan.LayerPlan` compiled
     with this layer's epilogue) runs exactly what the plan resolved;
-    without one, a memoized single-layer plan is resolved for ``method``.
+    without one, ``method`` is any name the entry takes.
     """
-    w, b = p["w"], p["b"]
-    epi = epilib.make(b, act)
-    if plan is None:
-        plan = planlib.plan_layer_cached(
-            x.shape[0], x.shape[1], w.shape[0], w.shape[2], w.shape[3],
-            padding, x.dtype, method=method, epilogue=epi,
-        )
-    if plan.padding != padding:
-        raise ValueError(
-            f"plan was compiled for padding={plan.padding}, got {padding}"
-        )
-    if plan.epilogue != epi:
-        raise ValueError(
-            f"plan was compiled for epilogue="
-            f"{plan.epilogue.tag() if plan.epilogue else None}, got {epi.tag()}"
-        )
-    return planlib.execute_layer(plan, x, w, bias=b)
+    return transpose_conv2d(x, p["w"], padding, method=method, plan=plan,
+                            bias=p["b"], act=act)
 
 
 # ------------------------------------------------------------ dense layers

@@ -10,7 +10,12 @@ then the CUDA graphs of the main path (repro_torch.graphs): each kind of
 executable (a generator per bucket, per layer and through pairs, the
 sequential executables, the decode step, the training step) bitwise equal
 to its eager call, the launch counters counting replays, the lifetime of
-the buffers a replay overwrites, and a failed capture raising.
+the buffers a replay overwrites, and a failed capture raising; then the
+operator zoo: every method name of ``transpose_conv2d`` at the paper's
+Table-2 shapes and at every Table-4 layer against the tap-by-tap oracle,
+the fused and per-phase kernels against their plain versions at the
+Table-2 shapes, a kernel spelling past the kernels' largest kernel raising,
+and the segregated dilated convolution.
 Every test is marked ``cuda`` and skips itself when no card is present.
 The file imports no JAX, so it runs on a machine that has only PyTorch:
 
@@ -24,8 +29,11 @@ import torch
 
 from repro_torch import graphs
 from repro_torch.configs import get_config, reduced
+from repro_torch.core import transpose_conv as tc
+from repro_torch.core.dilated_conv import dilated_conv2d
 from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import epilogue as epilib
+from repro_torch.kernels import ref
 from repro_torch.kernels import transpose_conv2d as tcf
 from repro_torch.kernels import transpose_conv2d_bwd as bw
 from repro_torch.kernels import transpose_conv2d_gemm as tcg
@@ -748,3 +756,66 @@ def test_failed_capture_raises(card):
     with pytest.raises(RuntimeError):
         graphs.CudaGraph(lambda t: t * t.sum().item(), x)
     assert (x + 1).sum().item() == 8.0
+
+
+# ------------------------------------------------------------ operator zoo
+
+# (B, N, n, P, Cin, Cout): the paper's Table 2 (224 x 224 x 3 images at
+# batch 4, odd outputs M = 447 and 449 at n = 5 and 3), then every distinct
+# Table-4 layer of the four GANs at batch 1
+TABLE2_SHAPES = [(4, 224, n, 2, 3, 3) for n in (5, 4, 3)]
+ZOO_SHAPES = sorted({(1, hw, cfg.kernel, cfg.padding, cin, cout)
+                     for cfg in gan.GAN_ZOO.values()
+                     for hw, cin, cout in cfg.layers})
+ENTRY_NAMES = sorted(tc.METHODS) + sorted(tc.KERNEL_METHODS)
+
+
+@pytest.mark.parametrize("shape", TABLE2_SHAPES + ZOO_SHAPES, ids=str)
+@pytest.mark.parametrize("name", ENTRY_NAMES)
+def test_entry_matches_conventional_ref(card, name, shape):
+    """Every method name of the entry, with a bias and relu, within
+    1e-4 * max|ref| + 1e-5 of the tap-by-tap oracle on the card."""
+    b, n_in, n_k, pad, cin, cout = shape
+    x, k, bias = _case(sum(shape), b, n_in, cin, n_k, cout, card)
+    got = tc.transpose_conv2d(x, k, pad, method=name, bias=bias, act="relu")
+    want = torch.relu(ref.conventional_ref(x, k, pad) + bias)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape
+    err = (got - want).abs().max().item()
+    assert err <= 1e-4 * want.abs().max().item() + 1e-5
+
+
+@pytest.mark.parametrize("kernel", ["fused", "phase"])
+@pytest.mark.parametrize("epi", EPILOGUES, ids=EPI_IDS)
+@pytest.mark.parametrize("shape", TABLE2_SHAPES, ids=str)
+def test_kernels_match_plain_at_table2_shapes(card, kernel, epi, shape):
+    """Planes of 224 x 224 with 3 channels: the poor layouts, 4-byte
+    copies, odd M."""
+    b, n_in, n_k, pad, cin, cout = shape
+    x, k, bias = _case(sum(shape), b, n_in, cin, n_k, cout, card)
+    bias = bias if epi is not None else None
+    launch, plain = KERNELS[kernel]
+    got = launch(x, k, pad, epilogue=epi, bias=bias)
+    want = plain(x, k, pad, epilogue=epi, bias=bias)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    assert err <= 1e-4 * want.abs().max().item() + 1e-5
+
+
+@pytest.mark.parametrize("name", ["pallas", "pallas_fused", "pallas_phase"])
+def test_kernel_spelling_past_the_largest_kernel_raises(card, name):
+    """n = 10 (R = 5 > MAX_R): the kernel's wrapper raises; the entry does
+    not give way to a baseline."""
+    x, k, _ = _case(0, 1, 8, 4, 10, 4, card)
+    with pytest.raises(ValueError, match="takes kernels up to"):
+        tc.transpose_conv2d(x, k, 0, method=name)
+
+
+def test_dilated_segregated_matches_conventional(card):
+    x, k, _ = _case(1, 4, 224, 3, 3, 3, card)
+    want = dilated_conv2d(x, k, method="conventional")
+    got = dilated_conv2d(x, k, method="segregated")
+    torch.cuda.synchronize()
+    assert got.shape == want.shape == (4, 220, 220, 3)
+    err = (got - want).abs().max().item()
+    assert err <= 1e-4 * want.abs().max().item() + 1e-5
