@@ -178,9 +178,30 @@ Phases, in order; any failure raises and the script exits non-zero:
               the graphed step, the graphed step with the plan pinned to
               bwd="autograd", and the eager step; one profiled step each
               way.
-21. graph failure -- a capture that reads a device value on the host
+21. obs and replicas -- (a) phase 6's 2000 req/s window on the per-layer
+              engine with the tracer off, on, on and off (a fresh engine
+              each), each counting exactly its batches' eager launches:
+              samples/s, latency, batches, the replay's sleep a batch; from
+              the first traced one, the medians over requests of the timelines'
+              queue_s / dispatch_s / execute_s and, per batch, of the
+              serve.pack / serve.dispatch / serve.slice span walls, the
+              batch period and its rest; every timeline complete and
+              reconciled with conservation(), the Chrome trace
+              (chiprun_out/obs_trace.json) valid, the Prometheus text
+              round-trips; (b) the same window through a ReplicaSupervisor
+              over two replicas (zero retries and timeouts, no builds after
+              warm-up, dispatches within 1 of round robin, 64 requests
+              bitwise their unbatched calls); (c) 32 requests under a fault
+              plan (a crash, a NaN plane, a transient error, a 60 ms hang,
+              then the second replica's crash and the inline fallback):
+              every request served bitwise, flight dumps under
+              chiprun_out/flight/ that load; (d) six traced graphed training
+              steps (spans, observations, launches exactly a warm-up and six
+              eager steps'), a NaN step's nan_guard dump and untouched state,
+              a kill's crash dump and a bitwise resume.
+22. graph failure -- a capture that reads a device value on the host
               raises, and the card goes on working.
-22. result -- a JSON line of per-kernel numbers, then the last line
+23. result -- a JSON line of per-kernel numbers, then the last line
               {"ok": true, "device": {...}}.
 
 Full results also go to chiprun_out/chip_smoke.json.
@@ -235,6 +256,7 @@ PHASE_VARIANT_SHAPES = (
        for pad, (cin, cout) in zip(pads, ((24, 8), (18, 6)))])
 SERVE_RATES = (250.0, 1000.0, 2000.0)   # offered requests/s, open loop
 SERVE_WINDOW_S = 5.0
+OBS_RATE = 2000.0   # offered requests/s of phase 21's windows, open loop
 TRAIN_TIMED_STEPS, TRAIN_WARMUP_STEPS, TRAIN_WINDOWS = 30, 5, 3
 BWD_CU = "src/repro_torch/kernels/csrc/transpose_conv2d_bwd.cu"
 SOURCES = {
@@ -2447,6 +2469,440 @@ def phase_paper(torch) -> dict:
 
 
 
+def _obs_requests(cfg, rate):
+    """An open-loop Poisson trace of SERVE_WINDOW_S seconds at ``rate``
+    requests/s, drawn as phase 6 draws it (the same seed, sizes and
+    latents)."""
+    import numpy as np
+
+    from repro_torch.serve import GenRequest
+
+    rng = np.random.default_rng(int(rate))
+    count = int(rate * SERVE_WINDOW_S)
+    sizes = rng.integers(1, 5, size=count)
+    zs = rng.standard_normal((int(sizes.sum()), cfg.z_dim)).astype(np.float32)
+    ends = np.cumsum(sizes)
+    reqs = [GenRequest("dcgan", zs[e - n : e]) for n, e in zip(sizes, ends)]
+    arrivals = np.cumsum(rng.exponential(1.0 / rate, size=count)).tolist()
+    return reqs, arrivals, float(sizes.mean())
+
+
+def _obs_window(torch, eng, cfg, rate, per_bucket, tag) -> dict:
+    """One open-loop window through ``eng`` (a GanEngine or a supervisor),
+    its batches' buckets recorded and its sleeps timed: the serving row,
+    and the launch counts of the window equal, exactly, the sum of its
+    batches' eager counts (a replay, traced or not, launches what its eager
+    call does)."""
+    reqs, arrivals, mean_n = _obs_requests(cfg, rate)
+    buckets, slept = [], []
+    execute = eng._execute
+
+    def recording(name, batch, bucket):
+        buckets.append(bucket)
+        execute(name, batch, bucket)
+
+    def timed_sleep(s):
+        t0 = time.perf_counter()
+        time.sleep(s)
+        slept.append(time.perf_counter() - t0)
+
+    eng._execute = recording
+    _reset_counts()
+    t0 = time.perf_counter()
+    eng.replay(reqs, arrivals, sleep=timed_sleep)
+    wall_s = time.perf_counter() - t0
+    launches = _read_counts()
+    eng._execute = execute
+    want = {k: sum(per_bucket[b][k] for b in buckets) for k in launches}
+    if launches != want or min(launches[n] for n in FORWARD) < 1:
+        raise AssertionError(f"{tag}: the window counted {launches}, its batches' "
+                             f"eager calls {want}")
+    # a request refused at admission (the queue bound, when the loop falls
+    # behind) is counted and reported; every admitted one must be served
+    cons = eng.conservation()
+    if not cons["ok"] or cons["failed"] or cons["expired"]:
+        raise AssertionError(f"{tag}: {cons}")
+    if not all(r.done for r in reqs if not r.rejected):
+        raise AssertionError(f"{tag}: an admitted request was not served")
+    s = eng.metrics.summary()
+    lat = s["latency_s"]
+    return {"tag": tag, "offered_requests_per_s": rate,
+            "offered_samples_per_s": rate * mean_n, "window_s": SERVE_WINDOW_S,
+            "wall_s": wall_s, "requests": len(reqs), "done": s["requests"],
+            "rejected": s["rejected"],
+            "samples": s["samples"], "batches": s["batches"],
+            "samples_per_s": s["samples_per_s"], "pad_waste": s["pad_waste"],
+            "latency_ms": {k: v * 1e3 for k, v in lat.items()},
+            "batch_period_ms_mean": wall_s * 1e3 / s["batches"],
+            "sleep_ms_per_batch_mean": sum(slept) * 1e3 / s["batches"],
+            "launches": launches, "reqs": reqs}
+
+
+def _log_window(card, row) -> None:
+    lat = row["latency_ms"]
+    log(f"[obs] {row['tag']} on {card}: offered {row['offered_requests_per_s']} req/s "
+        f"({row['offered_samples_per_s']} samples/s) for {row['window_s']} s: "
+        f"{row['done']}/{row['requests']} done, {row['rejected']} rejected at "
+        f"admission, {row['samples_per_s']} samples/s, "
+        f"{row['batches']} batches, latency ms p50 {lat['p50']} p95 {lat['p95']} "
+        f"p99 {lat['p99']}, pad waste {row['pad_waste']}; a batch every "
+        f"{row['batch_period_ms_mean']} ms (mean; of it asleep "
+        f"{row['sleep_ms_per_batch_mean']} ms); launches {row['launches']}, exactly "
+        f"the batches' eager counts (host clock)")
+
+
+def _host_loop_split(tracer, eng, row) -> dict:
+    """The traced window's host loop: per request the medians of the
+    timeline segments, per batch the medians (and means) of the
+    serve.pack / serve.dispatch / serve.slice span walls, of the batch
+    period (one serve.pack start to the next) and of the rest of it."""
+    import numpy as np
+
+    spans = {n: [s for s in tracer.spans if s["name"] == n]
+             for n in ("serve.pack", "serve.dispatch", "serve.slice")}
+    n = len(spans["serve.pack"])
+    if not n == len(spans["serve.dispatch"]) == len(spans["serve.slice"]) \
+            == row["batches"]:
+        raise AssertionError(f"obs: spans {[len(v) for v in spans.values()]} for "
+                             f"{row['batches']} batches")
+    walls = {k: np.array([s["dur"] for s in v]) * 1e3 for k, v in spans.items()}
+    starts = np.array([s["ts"] for s in spans["serve.pack"]])
+    period = np.diff(starts) * 1e3
+    rest = period - sum(w[:-1] for w in walls.values())
+    segments = [tl.segments() for tl in eng.timeline.timelines()
+                if tl.terminal_event == "reply"]
+    out = {"per_request_ms_median": {
+        k: float(np.median([s[k] for s in segments])) * 1e3
+        for k in ("queue_s", "dispatch_s", "execute_s", "total_s")}}
+    out["per_batch_ms_median"] = {k.split(".")[1]: float(np.median(w))
+                                  for k, w in walls.items()}
+    out["per_batch_ms_median"].update(period=float(np.median(period)),
+                                      rest=float(np.median(rest)))
+    out["per_batch_ms_mean"] = {k.split(".")[1]: float(w.mean())
+                                for k, w in walls.items()}
+    out["per_batch_ms_mean"].update(period=float(period.mean()),
+                                    rest=float(rest.mean()),
+                                    asleep=row["sleep_ms_per_batch_mean"])
+    return out
+
+
+def _bitwise_unbatched(torch, params, cfg, reqs, tag) -> None:
+    from repro_torch.models import gan
+
+    for r in reqs:
+        one = gan.generator_apply(params, cfg, r.z).cpu()
+        if not torch.equal(one, r.output):
+            raise AssertionError(f"{tag}: request {r.rid} (n={r.n}) differs from its "
+                                 f"unbatched call by {(one - r.output).abs().max().item()}")
+
+
+def phase_obs(torch, dev, per_bucket, train) -> dict:
+    """Observability and replicas: the engine's 2000 req/s window with the
+    tracer off and on (the host loop's split), a clean two-replica
+    supervised window, a chaos run with flight dumps and the inline
+    fallback, and six traced training steps with their fault dumps."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.data import SyntheticImages
+    from repro_torch.models import gan
+    from repro_torch.obs import trace as obs
+    from repro_torch.obs.export import (
+        metric_name,
+        parse_prometheus_text,
+        prometheus_text,
+        validate_chrome_trace,
+        write_chrome_trace,
+    )
+    from repro_torch.obs.flight_recorder import FlightRecorder
+    from repro_torch.obs.timeline import TimelineStore
+    from repro_torch.serve import BucketPolicy, GenRequest, Replica, ReplicaSupervisor
+    from repro_torch.serve.fault_injection import ServeFaultInjector, ServeFaultPlan
+    from repro_torch.train.fault_injection import (
+        FaultInjector,
+        FaultPlan,
+        NaNInjectionData,
+        SimulatedCrash,
+    )
+    from repro_torch.train.gan_trainer import GanTrainer, GanTrainerConfig
+    from repro_torch.tree import tree_map
+
+    t_phase = time.perf_counter()
+    card = f"{torch.cuda.get_device_name(0)} ({dev['nvidia_smi']})"
+    out_dir = os.path.join(ROOT, "chiprun_out")   # absent from a fresh checkout
+    flight_dir = os.path.join(out_dir, "flight")
+    shutil.rmtree(flight_dir, ignore_errors=True)
+    os.makedirs(out_dir, exist_ok=True)
+    cfg = gan.DCGAN
+    params = gan.generator_init(torch.Generator().manual_seed(0), cfg)
+    rate = OBS_RATE
+    out = {"card": card}
+
+    def isolated_tracer():
+        tracer = obs.Tracer()
+        obs.set_tracer(tracer)
+        obs.enable()
+        return tracer
+
+    # 1. the engine's window, tracer off and on in turns (the loop runs near
+    # its capacity at this rate, so one pair alone would read run-to-run
+    # swings); the first traced window is split and exported
+    windows = []
+    for traced in (False, True, True, False):
+        eng = _warm_engine(cfg, params)
+        eng.timeline = TimelineStore(capacity=int(rate * SERVE_WINDOW_S) + 16)
+        tracer = isolated_tracer() if traced else None
+        try:
+            row = _obs_window(torch, eng, cfg, rate, per_bucket,
+                              "engine traced" if traced else "engine untraced")
+        finally:
+            obs.disable()
+        reqs = row.pop("reqs")
+        _log_window(card, row)
+        if traced and "split" not in out:
+            if len(eng.timeline) != len(reqs) or eng.timeline.incomplete():
+                raise AssertionError(f"obs: {len(eng.timeline)} timelines for "
+                                     f"{len(reqs)} requests, "
+                                     f"{len(eng.timeline.incomplete())} incomplete")
+            rec = eng.timeline.reconcile(eng.conservation())
+            if not rec["ok"]:
+                raise AssertionError(f"obs: timelines do not reconcile: {rec}")
+            row["split"] = out["split"] = _host_loop_split(tracer, eng, row)
+            path = os.path.join(out_dir, "obs_trace.json")
+            write_chrome_trace(tracer, path, timeline=eng.timeline)
+            with open(path) as f:
+                problems = validate_chrome_trace(json.load(f))
+            if problems:
+                raise AssertionError(f"obs: the Chrome trace is malformed: {problems[:5]}")
+            eng.metrics.publish(tracer)
+            parsed = parse_prometheus_text(prometheus_text(tracer))["metrics"]
+            for name, value in {**tracer.counters, **tracer.gauges}.items():
+                if parsed[metric_name(name)] != value:
+                    raise AssertionError(f"obs: {name} {value} read back as "
+                                         f"{parsed[metric_name(name)]}")
+            for name, series in tracer.observations.items():
+                if parsed[metric_name(name) + "_count"] != len(series):
+                    raise AssertionError(f"obs: {name} count read back wrong")
+            row.update(trace_path=os.path.relpath(path, ROOT),
+                       trace_bytes=os.path.getsize(path),
+                       spans=tracer.span_names(), counters=dict(tracer.counters),
+                       prometheus_metrics=len(parsed))
+            split = row["split"]
+            log(f"[obs] host loop at {rate} req/s on {card}, per request (median of "
+                f"{row['done']} served requests' timelines): queue_s {split['per_request_ms_median']['queue_s']}"
+                f" ms, dispatch_s {split['per_request_ms_median']['dispatch_s']} ms, "
+                f"execute_s {split['per_request_ms_median']['execute_s']} ms, total "
+                f"{split['per_request_ms_median']['total_s']} ms")
+            log(f"[obs] host loop on {card}, per batch (ms) median "
+                f"{split['per_batch_ms_median']}; mean {split['per_batch_ms_mean']} "
+                f"(rest = period - pack - dispatch - slice; asleep: the replay's "
+                f"sleeps; host clock)")
+            log(f"[obs] Chrome trace {row['trace_path']} ({row['trace_bytes']} B) "
+                f"valid; spans {row['spans']}; Prometheus text of "
+                f"{row['prometheus_metrics']} samples round-trips; timelines "
+                f"complete and reconcile with conservation()")
+        row["traced"] = traced
+        windows.append(row)
+        del eng, reqs
+    out["engine"] = windows
+
+    # 2. a clean supervised window: two replicas on the card
+    replicas = [Replica(f"r{i}") for i in range(2)]
+    sup = ReplicaSupervisor(replicas, BucketPolicy(buckets=(1, 2, 4, 8),
+                                                   max_wait_s=0.002, max_queue=256))
+    sup.register(cfg, params)
+    sup.warmup()
+    warm = dict(sup.replica_recompiles)
+    row = _obs_window(torch, sup, cfg, rate, per_bucket, "supervisor (2 replicas)")
+    reqs = row.pop("reqs")
+    _log_window(card, row)
+    m = sup.metrics
+    dispatches = {r.replica_id: r.dispatches for r in replicas}
+    if m.retries or m.timeouts or m.requeues or m.nonfinite or m.recompiles:
+        raise AssertionError(f"supervisor: a clean window retried, timed out or "
+                             f"built: {m.summary()}")
+    if sup.replica_recompiles != warm or warm != {"r0": 4, "r1": 4}:
+        raise AssertionError(f"supervisor: recompiles {warm} -> "
+                             f"{sup.replica_recompiles}")
+    if abs(dispatches["r0"] - dispatches["r1"]) > 1 \
+            or sum(dispatches.values()) != m.batches:
+        raise AssertionError(f"supervisor: dispatches {dispatches} for {m.batches} "
+                             f"batches")
+    served = [r for r in reqs if r.done]
+    checked = served[:: max(1, len(served) // 64)][:64]
+    _bitwise_unbatched(torch, params, cfg, checked, "supervisor")
+    row.update(dispatches=dispatches, timeouts_s={
+        str(b): sup.timeout_for(cfg.name, b) for b in sup.policy.buckets},
+        baselines_ms={f"{rid}:{b}": s.replica.baseline_s[(cfg.name, b)] * 1e3
+                      for rid, s in sup.rslots.items() for b in sup.policy.buckets})
+    log(f"[obs] supervisor on {card}: dispatches {dispatches}, 0 retries, 0 "
+        f"timeouts, recompiles {sup.replica_recompiles} as after warm-up, "
+        f"{len(checked)} served requests bitwise their unbatched calls; warm-up "
+        f"synced call ms {row['baselines_ms']}, timeouts s {row['timeouts_s']}")
+    log(f"[obs] at {rate} req/s on {card}, samples/s and p95 ms (rejected), in "
+        f"turns: " + "; ".join(
+            f"engine {'traced' if w['traced'] else 'untraced'} {w['samples_per_s']}, "
+            f"{w['latency_ms']['p95']} ({w['rejected']})" for w in windows)
+        + f"; supervisor {row['samples_per_s']}, {row['latency_ms']['p95']} "
+        f"({row['rejected']})")
+    out["supervisor"] = row
+    del sup, replicas, reqs
+
+    # 3. chaos: crash, NaN plane, transient error, a 60 ms hang, then the
+    # second replica's crash leaves the inline fallback
+    plan = ServeFaultPlan(crash_at=(("r0", 3), ("r1", 9)), nan_at=(("r1", 6),),
+                          transient_at=(("r1", 2),), hang_at=(("r1", 4, 0.06),))
+    inj = ServeFaultInjector(plan)   # the real clock: the hang sleeps
+    recorder = FlightRecorder(dump_dir=flight_dir)
+    replicas = [Replica(f"r{i}", dispatch_hook=inj.hook) for i in range(2)]
+    sup = ReplicaSupervisor(replicas, BucketPolicy(buckets=(1, 2, 4, 8),
+                                                   max_wait_s=0.0),
+                            retry_budget=8, recorder=recorder)
+    sup.register(cfg, params)
+    sup.warmup()
+    warm = dict(sup.replica_recompiles)
+    tracer = isolated_tracer()
+    rng = np.random.default_rng(5)
+    reqs = []
+    try:
+        for i in range(32):
+            r = GenRequest("dcgan", rng.standard_normal(
+                (int(rng.integers(1, 5)), cfg.z_dim)).astype(np.float32))
+            reqs.append(r)
+            sup.serve([r])
+    finally:
+        obs.disable()
+    fired = [f[0] for f in inj.fired]
+    if sorted(set(fired)) != ["crash", "hang", "nan", "transient"]:
+        raise AssertionError(f"chaos: fired {inj.fired}")
+    if not all(r.done for r in reqs) or not sup.conservation()["ok"]:
+        raise AssertionError(f"chaos: {sup.conservation()}")
+    if not all(bool(torch.isfinite(r.output).all()) for r in reqs):
+        raise AssertionError("chaos: a non-finite output was served")
+    _bitwise_unbatched(torch, params, cfg, reqs, "chaos")
+    inline = [r for r in reqs if r.replica == "inline"]
+    inline_buckets = {sup.policy.bucket_for(r.n) for r in inline}
+    if (sup.replica_states() != {"r0": "DEAD", "r1": "DEAD"} or not inline
+            or sup.metrics.recompiles != len(inline_buckets)
+            or len(sup.registry[cfg.name].apply) != len(inline_buckets)
+            or sup.replica_recompiles != warm):
+        raise AssertionError(
+            f"chaos: states {sup.replica_states()}, {len(inline)} inline requests in "
+            f"buckets {inline_buckets}, recompiles {sup.metrics.recompiles}, "
+            f"replicas {sup.replica_recompiles}")
+    dumps = {}
+    for path in recorder.dumps:
+        blob = FlightRecorder.load(path)
+        dumps[os.path.relpath(path, ROOT)] = {"trigger": blob["trigger"],
+                                              "events": blob["n_events"]}
+    triggers = {d["trigger"] for d in dumps.values()}
+    if not {"replica_dead:r0", "replica_dead:r1", "nonfinite:r1"} <= triggers:
+        raise AssertionError(f"chaos: dumps {dumps}")
+    m = sup.metrics
+    out["chaos"] = {"fired": inj.fired, "dumps": dumps,
+                    "transitions": list(m.transitions),
+                    "summary": {k: v for k, v in m.summary().items() if k != "per_model"},
+                    "inline_requests": len(inline), "inline_buckets": sorted(inline_buckets),
+                    "spans": tracer.span_names(),
+                    "events": len(tracer.instants)}
+    log(f"[obs] chaos on {card}: fired {inj.fired}; {len(reqs)} requests served "
+        f"bitwise their unbatched calls, none non-finite, conservation ok; retries "
+        f"{m.retries}, requeues {m.requeues}, timeouts {m.timeouts}, non-finite "
+        f"{m.nonfinite}, probes {m.probes} ({m.probe_failures} failed); transitions "
+        f"{m.transition_counts}; {len(inline)} requests inline after both replicas "
+        f"died, recompiles {m.recompiles} (its captures, buckets "
+        f"{sorted(inline_buckets)}), replicas {sup.replica_recompiles} as after "
+        f"warm-up; spans {tracer.span_names()}")
+    log(f"[obs] chaos flight dumps (loaded): {dumps}")
+    del sup, replicas, reqs
+
+    # 4. the trainer: six traced graphed steps, then its NaN and crash dumps
+    tcfg = GanTrainerConfig(ckpt_every=3)
+    data = SyntheticImages(cfg.out_hw(cfg.layers[-1][0]), cfg.layers[-1][2],
+                           tcfg.global_batch)
+    recorder = FlightRecorder(dump_dir=flight_dir)
+    quiet = lambda *a: None  # noqa: E731
+
+    def trainer(ckpt_dir=None, d=data, hooks=None):
+        tr = GanTrainer(cfg, tcfg, d, ckpt_dir=ckpt_dir, log_fn=quiet, hooks=hooks,
+                        recorder=recorder)
+        return tr, tr.init_state(torch.Generator().manual_seed(0))
+
+    eager_step = train["eager_step_launches"]
+    with tempfile.TemporaryDirectory() as d1, tempfile.TemporaryDirectory() as d2:
+        tr, state = trainer(d1)
+        tracer = isolated_tracer()
+        _reset_counts()
+        try:
+            full, hist = tr.run(state, steps=6)
+        finally:
+            obs.disable()
+        launches = _read_counts()
+        # the capture's eager warm-up at the first step, then six replays
+        want = {k: 7 * v for k, v in eager_step.items()}
+        names = tracer.span_names()
+        if (names.get("train.step") != 6 or names.get("train.batch") != 6
+                or names.get("train.step_fn") != 6
+                or len(tracer.observations.get("train.step_s", ())) != 6
+                or tracer.counters.get("train.steps") != 6.0):
+            raise AssertionError(f"train: spans {names}, observations "
+                                 f"{ {k: len(v) for k, v in tracer.observations.items()} }")
+        if launches != want or min(launches[n] for n in TRAINING) < 1:
+            raise AssertionError(f"train: 6 traced steps counted {launches}, a warm-up "
+                                 f"and 6 eager steps {want}")
+        if any(h["skipped"] for h in hist):
+            raise AssertionError(f"train: a traced step was skipped: {hist}")
+        walls = {k: [s["dur"] * 1e3 for s in tracer.spans if s["name"] == k]
+                 for k in ("train.step", "train.batch", "train.step_fn")}
+        out["train"] = {"spans": names, "launches": launches,
+                        "span_ms": walls,
+                        "step_s": list(tracer.observations["train.step_s"])}
+        log(f"[obs] train on {card}: 6 traced graphed steps, spans {names}, "
+            f"train.step_s observed {len(tracer.observations['train.step_s'])}x; "
+            f"launches {launches}, exactly the capture's warm-up and 6 eager steps'; "
+            f"span ms (host clock) step {walls['train.step']}, batch "
+            f"{walls['train.batch']}, step_fn {walls['train.step_fn']}")
+
+        tr_nan, state = trainer(d=NaNInjectionData(data, (0,)))
+        before = tree_map(torch.clone, state)
+        n_dumps = len(recorder.dumps)
+        after, hist_nan = tr_nan.run(state, steps=1)
+        if (hist_nan[0]["skipped"] != 1 or not _bitwise(before, after)
+                or len(recorder.dumps) != n_dumps + 1
+                or FlightRecorder.load(recorder.dumps[-1])["trigger"] != "nan_guard"):
+            raise AssertionError("train: the NaN step changed the state or did not "
+                                 "dump nan_guard")
+        inj = FaultInjector(FaultPlan(kill_at_step=4))
+        tr_crash, state = trainer(d2, hooks=inj)
+        try:
+            tr_crash.run(state, steps=6)
+        except SimulatedCrash:
+            pass
+        else:
+            raise AssertionError("train: the injected kill did not fire")
+        crash_dump = FlightRecorder.load(recorder.dumps[-1])
+        if crash_dump["trigger"] != "crash:SimulatedCrash" \
+                or crash_dump["extra"]["step"] != 4:
+            raise AssertionError(f"train: crash dump {crash_dump['trigger']}")
+        tr_res, state = trainer(d2)
+        resumed, hist_res = tr_res.run(state, steps=6)
+        if tr_res.resumed_step != 3 or hist_res != hist[3:] \
+                or not _bitwise(resumed, full):
+            raise AssertionError(f"train: the resume after the kill is not bitwise "
+                                 f"the clean run: {hist_res} vs {hist[3:]}")
+    out["train"]["dumps"] = [os.path.relpath(p, ROOT) for p in recorder.dumps]
+    log(f"[obs] train on {card}: a NaN step dumped nan_guard and left the state "
+        f"bitwise untouched; a kill at step 4 dumped crash:SimulatedCrash and the "
+        f"run resumed from step 3 bitwise equal to the clean one (losses, params, "
+        f"moments); dumps {out['train']['dumps']}")
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[obs] phase 21 took {out['seconds']:.1f} s")
+    return out
+
+
+
 def phase_graph_failure(torch) -> dict:
     """A function that reads a device value on the host cannot be captured:
     building its graph raises (nothing falls back to eager launches), and
@@ -2527,6 +2983,7 @@ def main() -> int:
     zoo = phase_zoo_check(torch)
     paper = phase_paper(torch)
     train = phase_train(torch)
+    obs_replicas = phase_obs(torch, dev, engine["eager_launches_per_bucket"], train)
     graph_failure = phase_graph_failure(torch)
 
     entries = []
@@ -2570,7 +3027,7 @@ def main() -> int:
                    "pair_grads": pair_grads, "decode_check": decode_check,
                    "decode_times": decode_times, "lm_serve": lm_serve,
                    "lm_parity": lm_parity, "zoo_check": zoo, "paper": paper,
-                   "train": train,
+                   "train": train, "obs": obs_replicas,
                    "graph_failure": graph_failure,
                    "seconds": time.perf_counter() - t_start}, f, indent=1)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")

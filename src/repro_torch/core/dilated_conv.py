@@ -26,7 +26,11 @@ def _conv(x: torch.Tensor, k: torch.Tensor, dilation: int = 1) -> torch.Tensor:
 
 def dilated_conv_conventional(x, kernel):
     """Baseline: one convolution with ``dilation=2`` (the kernel
-    bed-of-nails)."""
+    bed-of-nails). An input too small for the dilated kernel gives the empty
+    ``(B, 0, 0, Cout)`` output, as the reference's ``lax`` convolution does."""
+    if x.shape[1] - 2 * (kernel.shape[0] - 1) <= 0:
+        return x.new_zeros((x.shape[0], 0, 0, kernel.shape[3]),
+                           dtype=torch.promote_types(x.dtype, kernel.dtype))
     return _conv(x, kernel, dilation=2)
 
 

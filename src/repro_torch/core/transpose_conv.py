@@ -57,16 +57,29 @@ def upsample_bed_of_nails(x: torch.Tensor, padding: int = 0) -> torch.Tensor:
     return _pad_hw(up, padding, padding) if padding else up
 
 
+def _empty(x, kernel):
+    """The ``(B, 0, 0, Cout)`` output of a non-positive output extent, which
+    the reference's ``lax`` convolutions return where PyTorch's raise."""
+    return x.new_zeros((x.shape[0], 0, 0, kernel.shape[3]),
+                       dtype=torch.promote_types(x.dtype, kernel.dtype))
+
+
 def transpose_conv_conventional(x, kernel, padding: int = 0):
-    """Paper Algorithm 1: explicit upsampled buffer + one dense convolution."""
+    """Paper Algorithm 1: explicit upsampled buffer + one dense convolution.
+    A non-positive output extent gives the empty ``(B, 0, 0, Cout)`` output."""
+    if 2 * x.shape[1] - kernel.shape[0] + 2 * padding <= 0:
+        return _empty(x, kernel)
     return _conv(upsample_bed_of_nails(x, padding), kernel)
 
 
 def transpose_conv_xla(x, kernel, padding: int = 0):
     """``F.conv_transpose2d`` with the flipped kernel: its padding
     ``n - 1 - P`` is this operator's ``P``. ``P > n - 1`` only adds border
-    rows that see no input, so those are padded on explicitly."""
+    rows that see no input, so those are padded on explicitly. A non-positive
+    output extent gives the empty ``(B, 0, 0, Cout)`` output."""
     n = kernel.shape[0]
+    if 2 * x.shape[1] - n + 2 * padding <= 0:
+        return _empty(x, kernel)
     w = torch.flip(kernel, (0, 1)).permute(2, 3, 0, 1)  # (Cin, Cout, n, n)
     pt = n - 1 - padding
     y = F.conv_transpose2d(x.permute(0, 3, 1, 2), w, stride=2,

@@ -32,8 +32,18 @@ copies the padded latents into the graph's static input, replays, and
 copies the static output to the host before the next replay (of any of
 the model's graphs, which share their pool) can overwrite it. On the CPU
 each executable runs the generator eagerly.
-The reference's observability spans and request timelines wait for a later
-slice.
+
+Observability (:mod:`repro_torch.obs`), as in the reference: while tracing
+is enabled the engine records each request's lifecycle in
+:attr:`GanEngine.timeline` and the spans ``serve.pack``,
+``serve.dispatch`` (the executable's call, the graph's replay on the card,
+and the host copy of its output, the one sync a batch has) and
+``serve.slice``, with the counters ``serve.admitted``,
+``serve.completed``, ``serve.rejected``, ``serve.expired`` and
+``serve.malformed`` and the observation ``serve.batch_wall_s``. With
+tracing off each seam is one flag check. The
+:class:`~repro_torch.serve.supervisor.ReplicaSupervisor` subclasses this
+engine and routes the packed batches across replicas.
 """
 from __future__ import annotations
 
@@ -57,6 +67,8 @@ from repro_torch.kernels.plan_registry import (
     save_plan_registry,
 )
 from repro_torch.models.gan import generator_apply, generator_epilogues
+from repro_torch.obs import trace as obs
+from repro_torch.obs.timeline import TimelineStore
 from repro_torch.serve.batching import BucketPolicy, QueueFull
 from repro_torch.serve.metrics import ServeMetrics
 
@@ -69,8 +81,12 @@ class GenRequest:
     seconds from admission; a request still queued past it is **expired**,
     never served stale. Every request reaches exactly one terminal state:
     ``done`` (``output`` holds the samples), ``expired``, ``rejected``
-    (backpressure at admission) or ``failed`` (malformed in replay mode).
-    ``t_done`` is stamped at every terminal resolution.
+    (backpressure at admission) or ``failed`` (malformed in replay mode,
+    retry budget exhausted, or shed with every replica dead under the
+    :class:`~repro_torch.serve.supervisor.ReplicaSupervisor`). ``t_done``
+    is stamped at every terminal resolution. ``retries`` counts dispatch
+    attempts beyond the first; ``replica`` records which replica (or
+    ``"inline"``) served the request, when a supervisor did.
     """
 
     model: str
@@ -85,6 +101,8 @@ class GenRequest:
     expired: bool = False
     rejected: bool = False
     failed: bool = False
+    retries: int = 0
+    replica: str | None = None
 
     @property
     def n(self) -> int:
@@ -155,11 +173,13 @@ class GanEngine:
     registered parameters must live there. ``fuse`` is the plans' pair pass:
     ``"off"`` (per layer) or ``"force"`` (every legal adjacent pair as one
     pair-kernel launch). ``clock`` is injectable for deterministic deadline
-    tests.
+    tests. ``recorder`` is an optional
+    :class:`~repro_torch.obs.flight_recorder.FlightRecorder` that the
+    supervisor dumps into on a replica's death or a non-finite output.
     """
 
     def __init__(self, policy: BucketPolicy | None = None, *, device=None,
-                 fuse="off", clock=time.monotonic):
+                 fuse="off", clock=time.monotonic, recorder=None):
         check_fuse(fuse)
         self.policy = policy or BucketPolicy()
         self.device = resolve_device(device)
@@ -170,6 +190,19 @@ class GanEngine:
         self.completed: list[GenRequest] = []   # completion order
         self.warmup_recompiles: int | None = None
         self._rid = itertools.count()
+        # per-request lifecycle timelines, recorded only while tracing is
+        # enabled; the flight recorder records whatever the flag says
+        self.timeline = TimelineStore()
+        self.recorder = recorder
+
+    def _tl(self, rid, event: str, t: float, *, model=None, **attrs) -> None:
+        """Record one request-lifecycle edge: one flag check when off. The
+        hot seams check :func:`obs.enabled` once before building any
+        argument (a queue depth is a scan of the queues), so with tracing
+        off they evaluate and allocate nothing."""
+        if not obs.enabled():
+            return
+        self.timeline.event(rid, event, t, model=model, **attrs)
 
     # ----------------------------------------------------------- registry
 
@@ -297,6 +330,10 @@ class GanEngine:
             req.rejected = True
             req.t_submit = req.t_done = self.clock()
             self.metrics.record_reject(req.model)
+            if obs.enabled():   # no rid is assigned before backpressure
+                self._tl(f"reject#{self.metrics.rejected}", "reject",
+                         req.t_done, model=req.model, n=n)
+                obs.counter("serve.rejected")
             raise QueueFull(
                 f"queue holds {self.queued_samples} samples, request of {n} "
                 f"exceeds max_queue={self.policy.max_queue}"
@@ -305,6 +342,12 @@ class GanEngine:
         req.t_submit = self.clock()
         self.metrics.record_admit(req.t_submit, req.model)
         slot.queue.append(req)
+        if obs.enabled():
+            self._tl(req.rid, "admit", req.t_submit, model=req.model, n=n,
+                     deadline_s=req.deadline_s)
+            self._tl(req.rid, "queue", req.t_submit, depth=len(slot.queue),
+                     queued_samples=self.queued_samples)
+            obs.counter("serve.admitted")
         return req.rid
 
     # --------------------------------------------------------------- step
@@ -322,6 +365,10 @@ class GanEngine:
                     self.metrics.record_expired(
                         now, residence_s=now - r.t_submit, model=name
                     )
+                    if obs.enabled():
+                        self._tl(r.rid, "expire", now, model=name,
+                                 residence_s=now - r.t_submit)
+                        obs.counter("serve.expired")
                     dropped += 1
                 else:
                     keep.append(r)
@@ -360,42 +407,74 @@ class GanEngine:
     def _pack_latents(self, reqs: list, bucket: int):
         """The requests' latents, padded with zero rows up to the bucket:
         ``(z, n_real)`` with ``z`` a host array of ``bucket`` rows."""
-        z = np.concatenate(
-            [np.asarray(r.z, dtype=np.float32) for r in reqs], axis=0
-        )
-        n_real = z.shape[0]
-        if n_real < bucket:
+        tracing = obs.enabled()
+        with (obs.span("serve.pack", bucket=bucket, reqs=len(reqs))
+              if tracing else obs.NOOP_SPAN):
             z = np.concatenate(
-                [z, np.zeros((bucket - n_real, z.shape[1]), z.dtype)], axis=0
+                [np.asarray(r.z, dtype=np.float32) for r in reqs], axis=0
             )
+            n_real = z.shape[0]
+            if n_real < bucket:
+                z = np.concatenate(
+                    [z, np.zeros((bucket - n_real, z.shape[1]), z.dtype)],
+                    axis=0,
+                )
+        if tracing:
+            t = self.clock()
+            for r in reqs:
+                self._tl(r.rid, "pack", t, model=r.model, bucket=bucket,
+                         n_real=n_real)
         return z, n_real
 
     def _finalize(self, name: str, reqs: list, out: torch.Tensor,
-                  n_real: int, bucket: int, t0: float) -> None:
+                  n_real: int, bucket: int, t0: float, *,
+                  replica: str | None = None) -> None:
         """Record the batch and hand each request its contiguous rows; pad
         rows never reach a client."""
         now = self.clock()
         self.metrics.record_batch(n_real, bucket, now - t0, now, model=name)
-        row = 0
-        for r in reqs:
-            r.output = out[row : row + r.n]
-            row += r.n
-            r.done = True
-            r.t_done = now
-            self.metrics.record_completion(r.latency_s, model=name)
-            self.completed.append(r)
+        tracing = obs.enabled()
+        with (obs.span("serve.slice", model=name, reqs=len(reqs))
+              if tracing else obs.NOOP_SPAN):
+            row = 0
+            for r in reqs:
+                r.output = out[row : row + r.n]
+                row += r.n
+                r.done = True
+                r.t_done = now
+                r.replica = replica
+                self.metrics.record_completion(r.latency_s, model=name)
+                self.completed.append(r)
+                if tracing:
+                    self._tl(r.rid, "slice", now, model=name, rows=r.n)
+                    self._tl(r.rid, "reply", now, model=name,
+                             latency_s=r.latency_s, replica=replica)
+        if tracing:
+            obs.counter("serve.completed", len(reqs))
+            obs.observe("serve.batch_wall_s", now - t0)
 
     def _execute(self, name: str, reqs: list, bucket: int) -> None:
         """Pad-and-mask dispatch: run the executable on the packed latents
         (copied to the device), wait for it, and slice the CPU copy per
         request. The copy is taken before the next call, which on the card
-        overwrites the graph's output."""
+        overwrites the graph's output. The
+        :class:`~repro_torch.serve.supervisor.ReplicaSupervisor` overrides
+        this method (same pack and finalize helpers) to route the batch
+        through health-checked replicas."""
         slot = self.registry[name]
         z, n_real = self._pack_latents(reqs, bucket)
         t0 = self.clock()
-        out = self._executable(name, bucket)(slot.params, torch.from_numpy(z))
-        self._sync()
-        self._finalize(name, reqs, out.cpu(), n_real, bucket, t0)
+        tracing = obs.enabled()
+        if tracing:
+            for r in reqs:
+                self._tl(r.rid, "dispatch", t0, model=name, bucket=bucket)
+        with (obs.span("serve.dispatch", model=name, bucket=bucket,
+                       n_real=n_real) if tracing else obs.NOOP_SPAN):
+            out = self._executable(name, bucket)(slot.params,
+                                                 torch.from_numpy(z))
+            self._sync()
+            out = out.cpu()
+        self._finalize(name, reqs, out, n_real, bucket, t0)
 
     # -------------------------------------------------------- conservation
 
@@ -441,6 +520,11 @@ class GanEngine:
                     req.failed = True
                     req.t_submit = req.t_done = self.clock()
                     self.metrics.record_malformed(getattr(req, "model", None))
+                    if obs.enabled():
+                        self._tl(f"malformed#{self.metrics.malformed}", "fail",
+                                 req.t_done, model=getattr(req, "model", None),
+                                 reason="malformed")
+                        obs.counter("serve.malformed")
                 i += 1
             if self.step():
                 continue

@@ -1,7 +1,7 @@
 """Serving metrics. Mirrors ``repro/serve/metrics.py``.
 
-Throughput, latency percentiles, pad waste and recompiles of the
-serving engine.
+Throughput, latency percentiles, pad waste and recompiles of the serving
+engine, and the resilience counters of the replica supervisor.
 
 One :class:`ServeMetrics` instance rides inside each engine. Everything is
 recorded in plain Python (no device sync beyond what the engine already
@@ -18,13 +18,28 @@ The four signals the bucket policy is tuned against:
   High pad waste means the bucket set is too coarse for the traffic's size
   distribution (or ``max_wait_s`` is too small, flushing half-empty).
 * **recompile counter** — incremented once per executable the engine
-  builds (a plan resolved for one (model, bucket)). After warmup this must
-  stay flat: a moving counter in steady state means some (model, bucket,
-  dtype) signature was not warmed and a request paid its build inline.
+  builds (a plan resolved for one (model, bucket); on the card, one CUDA
+  graph captured). After warmup this must stay flat: a moving counter in
+  steady state means some (model, bucket) signature was not warmed and a
+  request paid its build inline.
 
-The reference's resilience counters (retries, requeues, timeouts,
-nonfinite, failed, shed, probes, probe_failures, degraded_batches) come
-across as plain fields, zero until the replica supervisor is ported.
+The resilience counters the
+:class:`~repro_torch.serve.supervisor.ReplicaSupervisor` records (all zero
+for a plain :class:`~repro_torch.serve.gan_engine.GanEngine`):
+
+* **retries / requeues / timeouts / nonfinite** — per-request retry
+  attempts, batches put back at the queue head after a dispatch failure,
+  dispatches past the per-(model, bucket) timeout, and dispatches whose
+  output failed the finiteness guard (retried, never served).
+* **failed / shed** — admitted requests that terminally failed (retry
+  budget exhausted, or shed with every replica dead); ``shed`` counts the
+  subset dropped because no replica was available.
+* **probes / probe_failures / degraded_batches** — health probes of
+  suspect or dead replicas, how many failed, and batches served by the
+  inline fallback with every replica dead.
+* **replica transitions** — every health-state edge
+  (``HEALTHY→SUSPECT→DEAD→RECOVERING``) with timestamp, replica id and
+  reason, plus an edge-count histogram for cheap assertions.
 
 **Conservation accounting** (the serving layer's headline invariant —
 every admitted request terminally resolves as exactly one of
@@ -40,28 +55,23 @@ additionally recorded under its model name, so multi-model degradation is
 attributable — ``summary()["per_model"]`` and the extra ``describe()``
 lines break latency, throughput, and retries down by model.
 
-Percentiles come from :func:`percentiles` below (the reference shares
-:func:`repro.obs.trace.percentiles`; the port keeps its own copy).
-Publishing to an observability registry waits for the port of
-``repro.obs``.
+Percentile math lives in :func:`repro_torch.obs.trace.percentiles`
+(shared with the training timer and the Prometheus exporter);
+:meth:`publish` flattens the counters and latency series into an obs
+tracer, so one :func:`repro_torch.obs.export.prometheus_text` call
+exposes serving and training through a single registry.
 """
 from __future__ import annotations
 
-import numpy as np
+from collections import deque
 
+from repro_torch.obs.trace import get_tracer
+from repro_torch.obs.trace import percentiles as _percentiles
 
-def percentiles(values) -> dict:
-    """``{p50, p95, p99, mean, max}`` of ``values`` (all 0.0 when empty)."""
-    if len(values) == 0:
-        return {"p50": 0.0, "p95": 0.0, "p99": 0.0, "mean": 0.0, "max": 0.0}
-    a = np.asarray(values)
-    return {
-        "p50": float(np.percentile(a, 50)),
-        "p95": float(np.percentile(a, 95)),
-        "p99": float(np.percentile(a, 99)),
-        "mean": float(a.mean()),
-        "max": float(a.max()),
-    }
+# Bounded history rings: the edge/probe COUNTS stay exact forever; only the
+# per-event logs are capped so long chaos runs cannot grow without limit.
+TRANSITION_LOG_CAP = 256
+PROBE_LOG_CAP = 256
 
 
 class ServeMetrics:
@@ -93,6 +103,10 @@ class ServeMetrics:
         self.probes: int = 0              # replica health probes
         self.probe_failures: int = 0
         self.degraded_batches: int = 0    # inline-fallback dispatches
+        # bounded event logs (counts above stay exact; see module docstring)
+        self.transitions: deque = deque(maxlen=TRANSITION_LOG_CAP)
+        self.probe_log: deque = deque(maxlen=PROBE_LOG_CAP)
+        self.transition_counts: dict = {}  # "OLD->NEW" -> count
         self.per_model: dict = {}         # model -> label dict
 
     # --------------------------------------------------- per-model labels
@@ -170,6 +184,67 @@ class ServeMetrics:
             pm["requests"] += 1
             pm["latencies_s"].append(latency_s)
 
+    # ------------------------------------------ resilience recording
+
+    def record_retry(self, model: str | None = None, n: int = 1) -> None:
+        self.retries += n
+        pm = self._pm(model)
+        if pm is not None:
+            pm["retries"] += n
+
+    def record_requeue(self) -> None:
+        self.requeues += 1
+
+    def record_timeout(self) -> None:
+        self.timeouts += 1
+
+    def record_nonfinite(self) -> None:
+        self.nonfinite += 1
+
+    def record_failed(self, now: float, model: str | None = None,
+                      shed: bool = False) -> None:
+        """An ADMITTED request terminally failed (retry budget exhausted or
+        shed with every replica dead) — counted, never silently lost."""
+        self.failed += 1
+        if shed:
+            self.shed += 1
+        self.t_last = now if self.t_last is None else max(self.t_last, now)
+        pm = self._pm(model)
+        if pm is not None:
+            pm["failed"] += 1
+
+    def record_probe(self, ok: bool, *, now: float | None = None,
+                     replica: str | None = None, state: str | None = None,
+                     backoff_s: float | None = None,
+                     next_probe_at: float | None = None) -> None:
+        """Count a health probe; when the supervisor passes the stamping
+        kwargs, the outcome also lands in the bounded ``probe_log`` with the
+        resulting state, current backoff, and the deadline of the NEXT probe
+        — enough to reconstruct the DEAD→RECOVERING arc offline."""
+        self.probes += 1
+        if not ok:
+            self.probe_failures += 1
+        if now is not None or replica is not None:
+            self.probe_log.append({
+                "t": now, "replica": replica, "ok": ok, "state": state,
+                "backoff_s": backoff_s, "next_probe_at": next_probe_at,
+            })
+
+    def record_degraded_batch(self) -> None:
+        self.degraded_batches += 1
+
+    def record_transition(self, now: float, replica: str, old: str,
+                          new: str, reason: str, *,
+                          backoff_s: float | None = None,
+                          next_probe_at: float | None = None) -> None:
+        self.transitions.append({
+            "t": now, "replica": replica, "old": old, "new": new,
+            "reason": reason, "backoff_s": backoff_s,
+            "next_probe_at": next_probe_at,
+        })
+        key = f"{old}->{new}"
+        self.transition_counts[key] = self.transition_counts.get(key, 0) + 1
+
     # ---------------------------------------------------------- summaries
 
     @property
@@ -184,7 +259,33 @@ class ServeMetrics:
         return max(self.t_last - self.t_first, 0.0)
 
     def latency_percentiles(self) -> dict:
-        return percentiles(self.latencies_s)
+        return _percentiles(self.latencies_s)
+
+    def publish(self, tracer=None, prefix: str = "serve") -> None:
+        """Flatten the current counters, gauges, and latency series into an
+        obs :class:`~repro_torch.obs.trace.Tracer` (the process-global one
+        by default) so :func:`repro_torch.obs.export.prometheus_text`
+        exposes serving next to training. Counters are published as
+        absolute totals (gauge-set, not incremented) so repeated publishes
+        are idempotent."""
+        tr = tracer if tracer is not None else get_tracer()
+        s = self.summary()
+        for key in ("admitted", "requests", "samples", "batches", "rejected",
+                    "malformed", "expired", "failed", "recompiles", "retries",
+                    "requeues", "timeouts", "nonfinite", "shed", "probes",
+                    "probe_failures", "degraded_batches"):
+            tr.gauge(f"{prefix}.{key}_total", float(s[key]))
+        for key in ("requests_per_s", "samples_per_s", "pad_waste",
+                    "elapsed_s", "batch_wall_s"):
+            tr.gauge(f"{prefix}.{key}", float(s[key]))
+        for edge, n in self.transition_counts.items():
+            tr.gauge(f"{prefix}.transition.{edge}", float(n))
+        for name, series in ((f"{prefix}.latency_s", self.latencies_s),
+                             (f"{prefix}.expired_residence_s",
+                              self.expired_residence_s)):
+            tr.observations.pop(name, None)  # republish, don't duplicate
+            for v in series:
+                tr.observe(name, v)
 
     def conservation(self) -> dict:
         """The terminal-state ledger: every admitted request must end as
@@ -209,7 +310,7 @@ class ServeMetrics:
             per_model[name] = {
                 k: v for k, v in pm.items() if k != "latencies_s"
             }
-            per_model[name]["latency_s"] = percentiles(pm["latencies_s"])
+            per_model[name]["latency_s"] = _percentiles(pm["latencies_s"])
             per_model[name]["samples_per_s"] = (
                 pm["samples"] / el if el else 0.0
             )
@@ -221,7 +322,7 @@ class ServeMetrics:
             "rejected": self.rejected,
             "malformed": self.malformed,
             "expired": self.expired,
-            "expired_residence_s": percentiles(self.expired_residence_s),
+            "expired_residence_s": _percentiles(self.expired_residence_s),
             "failed": self.failed,
             "recompiles": self.recompiles,
             "retries": self.retries,
@@ -232,6 +333,7 @@ class ServeMetrics:
             "probes": self.probes,
             "probe_failures": self.probe_failures,
             "degraded_batches": self.degraded_batches,
+            "replica_transitions": dict(self.transition_counts),
             "elapsed_s": el,
             "batch_wall_s": self.batch_wall_s,
             "requests_per_s": self.requests / el if el else 0.0,
@@ -254,6 +356,16 @@ class ServeMetrics:
             f"latency ms p50 {lat['p50'] * 1e3:.1f} "
             f"p95 {lat['p95'] * 1e3:.1f} p99 {lat['p99'] * 1e3:.1f}"
         ]
+        if (self.retries or self.timeouts or self.requeues or self.probes
+                or self.degraded_batches or self.transitions):
+            lines.append(
+                f"resilience: {s['retries']} retries, {s['requeues']} "
+                f"requeues, {s['timeouts']} timeouts, {s['nonfinite']} "
+                f"non-finite, {s['shed']} shed, {s['probes']} probes "
+                f"({s['probe_failures']} failed), "
+                f"{s['degraded_batches']} degraded batches, transitions "
+                f"{s['replica_transitions']}"
+            )
         for name, pm in sorted(s["per_model"].items()):
             plat = pm["latency_s"]
             lines.append(

@@ -16,7 +16,7 @@ import time
 
 import torch
 
-from repro_torch.serve.metrics import percentiles
+from repro_torch.obs.trace import percentiles
 
 
 def time_cuda(fn, *args, iters: int = 20, warmup: int = 3, **kwargs) -> float:

@@ -25,6 +25,10 @@ import torch
 
 _SEP = "|"
 _BF16_TAG = "::bf16"
+# the atomic publish of save_checkpoint goes through this indirection, so a
+# chaos test can kill the save between writing the temp file and publishing
+# it (repro_torch.train.fault_injection.arm_crash_before_publish)
+_REPLACE = os.replace
 
 
 def _flatten(tree, prefix: str = "") -> dict:
@@ -75,7 +79,7 @@ def save_checkpoint(ckpt_dir, step: int, params, opt_state, extra=None) -> str:
     fd, tmp = tempfile.mkstemp(dir=ckpt_dir, suffix=".tmp")
     with os.fdopen(fd, "wb") as f:
         np.savez(f, **flat)
-    os.replace(tmp, path)  # atomic publish
+    _REPLACE(tmp, path)  # atomic publish
     return path
 
 

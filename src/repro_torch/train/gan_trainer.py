@@ -44,8 +44,20 @@ replay, and only a step whose scalars are all finite copies the graph's
 new state into the buffer. On the CPU the step runs eagerly and returns
 new tensors.
 
+**Observability** (:mod:`repro_torch.obs`), as in the reference: while
+tracing is enabled each step records the spans ``train.step`` (the hook,
+the inputs and the step), ``train.batch`` (drawing the inputs) and
+``train.step_fn`` (the graph's replay and the read-back of the four
+scalars, the step's one sync), the observation ``train.step_s`` and the
+counters ``train.steps`` and ``train.skipped_steps``. An optional
+:class:`~repro_torch.obs.flight_recorder.FlightRecorder` (``recorder=``)
+records every step and dumps on a NaN-guard skip (``nan_guard``), on an
+exception (``crash:<ExcType>``) and after SIGTERM's checkpoint
+(``sigterm``). The fault-injection harness is
+:mod:`repro_torch.train.fault_injection`.
+
 Still to port: ``shard_plan_apply`` with the reference's ``data_parallel``
-switch, the obs spans, the flight recorder and the fault-injection harness.
+switch.
 """
 from __future__ import annotations
 
@@ -61,6 +73,7 @@ from repro_torch.device import resolve_device
 from repro_torch.distributed.fault_tolerance import elastic_batch_schedule
 from repro_torch.graphs import CudaGraph
 from repro_torch.models import gan
+from repro_torch.obs import trace as obs
 from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update
 from repro_torch.optim.compression import error_feedback_compress, zero_error_state
 from repro_torch.timing import StepTimer
@@ -120,12 +133,14 @@ class GanTrainer:
     ``data.batch(index) -> (micro, H, W, C)`` must be a pure function of
     ``index`` (e.g. :class:`repro_torch.data.SyntheticImages` at the micro
     batch size). ``hooks`` is an optional object with an
-    ``on_step_start(step)`` callback. The trainer runs on ``device``, the
-    CUDA card unless the caller names another.
+    ``on_step_start(step)`` callback (the seam
+    :class:`~repro_torch.train.fault_injection.FaultInjector` drives).
+    ``recorder`` is an optional flight recorder. The trainer runs on
+    ``device``, the CUDA card unless the caller names another.
     """
 
     def __init__(self, cfg, tcfg: GanTrainerConfig, data, *, ckpt_dir=None,
-                 hooks=None, log_fn=print, device=None):
+                 hooks=None, log_fn=print, device=None, recorder=None):
         self.cfg = cfg
         self.tcfg = tcfg
         self.data = data
@@ -133,6 +148,7 @@ class GanTrainer:
         self.ckpt_dir = str(ckpt_dir) if ckpt_dir is not None else None
         self.hooks = hooks
         self.log = log_fn
+        self.recorder = recorder
         self.micro, self.accum = tcfg.micro_accum
         # the generator's step plan, compiled once at the micro batch size
         self.train_plan = gan.generator_plan(cfg, self.micro, method=tcfg.method)
@@ -336,31 +352,64 @@ class GanTrainer:
             history = []
             t0 = time.time()
             self.timer = StepTimer()
-            while step < steps and not self._stop:
-                if self.hooks is not None:
-                    self.hooks.on_step_start(step)
-                reals, zs = self._batches(step)
-                state, metrics = self._step_fn(state, reals, zs)
-                dt = self.timer.tick()
-                skipped = metrics["skipped"]
-                self.skipped_steps += skipped
-                if skipped:
-                    self.log(f"[gan-trainer] step {step}: non-finite step; params "
-                             f"untouched (total skipped {self.skipped_steps})")
-                history.append({"step": step, "g_loss": metrics["g_loss"],
-                                "d_loss": metrics["d_loss"], "skipped": skipped})
-                if step % self.tcfg.log_every == 0:
-                    self.log(f"[gan-trainer] step {step} g_loss "
-                             f"{metrics['g_loss']:.4f} d_loss {metrics['d_loss']:.4f} "
-                             f"({dt * 1e3:.1f}ms, {time.time() - t0:.1f}s total)")
-                if self.ckpt_dir and (step + 1) % self.tcfg.ckpt_every == 0:
-                    self._save(step + 1, state)
-                step += 1
+            try:
+                while step < steps and not self._stop:
+                    tracing = obs.enabled()
+                    with (obs.span("train.step", step=step) if tracing
+                          else obs.NOOP_SPAN):
+                        if self.hooks is not None:
+                            self.hooks.on_step_start(step)
+                        with (obs.span("train.batch", step=step) if tracing
+                              else obs.NOOP_SPAN):
+                            reals, zs = self._batches(step)
+                        with (obs.span("train.step_fn", step=step) if tracing
+                              else obs.NOOP_SPAN):
+                            state, metrics = self._step_fn(state, reals, zs)
+                    dt = self.timer.tick()
+                    if tracing:
+                        obs.observe("train.step_s", dt)
+                        obs.counter("train.steps")
+                    skipped = metrics["skipped"]
+                    self.skipped_steps += skipped
+                    if self.recorder is not None:
+                        self.recorder.record(
+                            "train.step", step=step, dt=dt, skipped=skipped,
+                            g_loss=metrics["g_loss"], d_loss=metrics["d_loss"])
+                    if skipped:
+                        if tracing:
+                            obs.counter("train.skipped_steps")
+                        if self.recorder is not None:
+                            self.recorder.dump("nan_guard", extra={
+                                "step": step, "skipped_total": self.skipped_steps})
+                        self.log(f"[gan-trainer] step {step}: non-finite step; params "
+                                 f"untouched (total skipped {self.skipped_steps})")
+                    history.append({"step": step, "g_loss": metrics["g_loss"],
+                                    "d_loss": metrics["d_loss"], "skipped": skipped})
+                    if step % self.tcfg.log_every == 0:
+                        self.log(f"[gan-trainer] step {step} g_loss "
+                                 f"{metrics['g_loss']:.4f} d_loss "
+                                 f"{metrics['d_loss']:.4f} ({dt * 1e3:.1f}ms, "
+                                 f"{time.time() - t0:.1f}s total)")
+                    if self.ckpt_dir and (step + 1) % self.tcfg.ckpt_every == 0:
+                        self._save(step + 1, state)
+                    step += 1
+            except Exception as e:
+                # the post-mortem artifact before the crash propagates; at
+                # most the steps since the last checkpoint are lost
+                if self.recorder is not None:
+                    self.recorder.record("crash", step=step, error=type(e).__name__)
+                    self.recorder.dump(f"crash:{type(e).__name__}",
+                                       extra={"step": step, "error": str(e)})
+                raise
             if self.ckpt_dir and (self._stop or step >= steps):
                 self._save(step, state)
                 if self._stop:
                     self.log(f"[gan-trainer] SIGTERM: checkpointed step {step}, "
                              "exiting cleanly")
+            if self._stop and self.recorder is not None:
+                # after the final save, so the dump reflects durable state
+                self.recorder.record("sigterm", step=step)
+                self.recorder.dump("sigterm", extra={"step": step})
             return state, history
         finally:
             if prev_handler is not None:

@@ -15,7 +15,9 @@ operator zoo: every method name of ``transpose_conv2d`` at the paper's
 Table-2 shapes and at every Table-4 layer against the tap-by-tap oracle,
 the fused and per-phase kernels against their plain versions at the
 Table-2 shapes, a kernel spelling past the kernels' largest kernel raising,
-and the segregated dilated convolution.
+and the segregated dilated convolution; then, with tracing on, the
+engine's replays counting exactly their eager launches, and a two-replica
+supervisor's served outputs bitwise their unbatched calls.
 Every test is marked ``cuda`` and skips itself when no card is present.
 The file imports no JAX, so it runs on a machine that has only PyTorch:
 
@@ -756,6 +758,87 @@ def test_failed_capture_raises(card):
     with pytest.raises(RuntimeError):
         graphs.CudaGraph(lambda t: t * t.sum().item(), x)
     assert (x + 1).sum().item() == 8.0
+
+
+# ----------------------------------------------- observability and replicas
+
+@pytest.fixture
+def tracing():
+    """Tracing on, into an isolated tracer; off again afterwards."""
+    from repro_torch.obs import trace as obs
+
+    tracer = obs.Tracer()
+    prev = obs.set_tracer(tracer)
+    obs.enable()
+    yield tracer
+    obs.disable()
+    obs.set_tracer(prev)
+
+
+def test_traced_engine_replays_count_the_eager_launches(card, tracing):
+    """With tracing on, each bucket's batch replays its graph and counts
+    exactly its eager call's launches: a span wraps the replay on the host
+    and launches nothing; every timeline is complete and reconciles."""
+    from repro_torch.serve import BucketPolicy, GanEngine, GenRequest
+
+    cfg = gan.reduced_config(gan.DCGAN, 4)
+    params = gan.generator_init(torch.Generator().manual_seed(0), cfg, device=card)
+    eng = GanEngine(BucketPolicy(buckets=(1, 2, 4, 8), max_wait_s=0.0))
+    eng.register(cfg, params)
+    eng.warmup()
+    rng = np.random.default_rng(2)
+    for bucket in eng.policy.buckets:
+        z = rng.standard_normal((bucket, cfg.z_dim)).astype(np.float32)
+        _, eager = _counted(gan.generator_apply, params, cfg, z,
+                            plan=eng.registry[cfg.name].plans[bucket], device=card)
+        reqs = [GenRequest(cfg.name, z)]
+        _, served = _counted(eng.serve, reqs)
+        assert served == eager and any(eager)
+        assert torch.equal(reqs[0].output, gan.generator_apply(params, cfg, z).cpu())
+    assert eng.timeline.incomplete() == []
+    assert eng.timeline.reconcile(eng.metrics.conservation())["ok"]
+    names = tracing.span_names()
+    assert all(names[n] == 4 for n in ("serve.pack", "serve.dispatch", "serve.slice"))
+
+
+def test_two_replica_supervisor_serves_unbatched_bits(card):
+    """Two replicas on one card share the parameters but capture their own
+    graphs in their own pools; every served output, a retried one after a
+    NaN plane and the inline fallback's too, is bitwise its unbatched
+    call; no replica builds after warm-up."""
+    from repro_torch.serve import BucketPolicy, GenRequest, Replica, ReplicaSupervisor
+    from repro_torch.serve.fault_injection import ServeFaultInjector, ServeFaultPlan
+
+    cfg = gan.reduced_config(gan.DCGAN, 4)
+    params = gan.generator_init(torch.Generator().manual_seed(0), cfg, device=card)
+    inj = ServeFaultInjector(ServeFaultPlan(nan_at=(("r1", 2),),
+                                            crash_at=(("r0", 6), ("r1", 7))))
+    replicas = [Replica(f"r{i}", dispatch_hook=inj.hook) for i in range(2)]
+    # a frozen clock: no probe comes due and no dispatch times out, so the
+    # routing is the same on every run
+    sup = ReplicaSupervisor(replicas, BucketPolicy(buckets=(1, 2, 4, 8),
+                                                   max_wait_s=0.0),
+                            retry_budget=10, clock=lambda: 0.0)
+    sup.register(cfg, params)
+    sup.warmup()
+    assert replicas[0].pool is not None and replicas[0].pool != replicas[1].pool
+    warm = dict(sup.replica_recompiles)
+    assert warm == {"r0": 4, "r1": 4} and sup.metrics.recompiles == 0
+    rng = np.random.default_rng(3)
+    reqs = []
+    for i in range(24):
+        r = GenRequest(cfg.name, rng.standard_normal(
+            (1 + i % 4, cfg.z_dim)).astype(np.float32))
+        reqs.append(r)
+        sup.serve([r])
+    assert [f[0] for f in inj.fired] == ["nan", "crash", "crash"]
+    assert all(r.done for r in reqs)
+    assert {r.replica for r in reqs} == {"r0", "r1", "inline"}
+    for r in reqs:
+        assert torch.equal(r.output, gan.generator_apply(params, cfg, r.z).cpu())
+    assert sup.replica_recompiles == warm
+    assert sup.metrics.nonfinite == 1 and sup.metrics.degraded_batches >= 1
+    assert sup.conservation()["ok"]
 
 
 # ------------------------------------------------------------ operator zoo

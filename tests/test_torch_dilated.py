@@ -23,6 +23,21 @@ def test_dilated_matches_jax(n_in, n_k, method):
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("n_in,n_k", [(2, 3), (3, 3), (4, 3), (1, 2)])
+def test_too_small_input_conventional_is_empty_as_in_jax(n_in, n_k):
+    """An input too small for the dilated kernel: the dense baseline returns
+    the empty ``(B, 0, 0, Cout)`` tensor in both packages."""
+    rng = np.random.default_rng(n_in * 10 + n_k)
+    x = rng.standard_normal((2, n_in, n_in, 3)).astype(np.float32)
+    k = rng.standard_normal((n_k, n_k, 3, 4)).astype(np.float32)
+    want = np.asarray(jax_dilated_conv2d(jnp.asarray(x), jnp.asarray(k),
+                                         method="conventional"))
+    got = dilated_conv2d(torch.from_numpy(x), torch.from_numpy(k),
+                         method="conventional")
+    assert tuple(got.shape) == want.shape == (2, 0, 0, 4)
+    assert got.dtype == torch.float32 and want.dtype == np.float32
+
+
 def test_too_small_input_raises():
     with pytest.raises(ValueError, match="too small"):
         dilated_conv2d(torch.zeros((1, 4, 4, 1)), torch.zeros((3, 3, 1, 1)),

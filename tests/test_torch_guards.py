@@ -15,7 +15,7 @@ from repro_torch.data import SyntheticImages
 from repro_torch.device import resolve_device
 from repro_torch.models import gan
 from repro_torch.models.lm import build_model
-from repro_torch.serve import GanEngine, ServeEngine
+from repro_torch.serve import GanEngine, Replica, ReplicaSupervisor, ServeEngine
 from repro_torch.train.gan_trainer import GanTrainer, GanTrainerConfig
 from repro_torch.tree import tree_map
 from repro_torch.weights import from_jax_lm_params, from_jax_params, from_jax_state
@@ -75,7 +75,11 @@ def test_module_list_covers_the_slice():
                  "train.gan_trainer", "configs.base", "configs.registry",
                  "configs.llama3_8b", "configs.qwen2_0_5b", "configs.yi_9b",
                  "configs.codeqwen1_5_7b", "kernels.decode_attention",
-                 "models.lm", "serve.engine"):
+                 "models.lm", "serve.engine", "obs", "obs.trace",
+                 "obs.timeline", "obs.export", "obs.flight_recorder",
+                 "obs.audit", "obs.__main__", "serve.replica",
+                 "serve.supervisor", "serve.fault_injection",
+                 "train.fault_injection"):
         assert f"repro_torch.{name}" in MODULES
 
 
@@ -91,6 +95,11 @@ def _entry_points(cfg, params_cpu):
     return {
         "resolve_device": lambda: resolve_device(None),
         "GanEngine": lambda: GanEngine(),
+        "Replica": lambda: Replica("r0"),
+        # the replica on the card where there is one; the supervisor's own
+        # device is its default
+        "ReplicaSupervisor": lambda: ReplicaSupervisor([Replica(
+            "r0", device="cuda" if torch.cuda.is_available() else "cpu")]),
         "generator_init": lambda: gan.generator_init(
             torch.Generator().manual_seed(0), cfg),
         "generator_apply": lambda: gan.generator_apply(params_cpu, cfg, z),
@@ -109,7 +118,8 @@ def _entry_points(cfg, params_cpu):
     }
 
 
-@pytest.mark.parametrize("entry", ["resolve_device", "GanEngine",
+@pytest.mark.parametrize("entry", ["resolve_device", "GanEngine", "Replica",
+                                   "ReplicaSupervisor",
                                    "generator_init", "generator_apply",
                                    "from_jax_params", "discriminator_init",
                                    "SyntheticImages", "GanTrainer",

@@ -193,3 +193,31 @@ def test_core_exports_the_reference_names():
     assert repro_torch.core.__all__ == repro.core.__all__
     for name in repro_torch.core.__all__:
         assert getattr(repro_torch.core, name) is not None
+
+
+EMPTY_GEOMS = [(2, 4, 0), (1, 3, 0), (2, 5, 0)]   # M = 2N - n + 2P <= 0
+
+
+@pytest.mark.parametrize("n_in,n_k,pad", EMPTY_GEOMS)
+@pytest.mark.parametrize("name", ["conventional", "xla"])
+def test_non_positive_output_is_empty_as_in_jax(name, n_in, n_k, pad):
+    """Where the output extent is not positive, the dense baselines return
+    the empty ``(B, 0, 0, Cout)`` tensor in both packages."""
+    x, k, _ = _inputs(n_in, n_k, seed=n_in * 10 + n_k)
+    want = _jax(name, x, k, pad)
+    got = tc.transpose_conv2d(torch.from_numpy(x), torch.from_numpy(k), pad,
+                              method=name)
+    assert tuple(got.shape) == want.shape == (2, 0, 0, 4)
+    assert got.dtype == torch.float32 and want.dtype == np.float32
+
+
+@pytest.mark.parametrize("n_in,n_k,pad", EMPTY_GEOMS)
+@pytest.mark.parametrize("name", [n for n in sorted(tc.METHODS)
+                                  if n not in ("conventional", "xla")])
+def test_non_positive_output_phase_methods_raise_as_in_jax(name, n_in, n_k, pad):
+    x, k, _ = _inputs(n_in, n_k, seed=n_in * 10 + n_k)
+    with pytest.raises(ValueError, match="non-positive output size"):
+        _jax(name, x, k, pad)
+    with pytest.raises(ValueError, match="non-positive output size"):
+        tc.transpose_conv2d(torch.from_numpy(x), torch.from_numpy(k), pad,
+                            method=name)
