@@ -199,9 +199,33 @@ Phases, in order; any failure raises and the script exits non-zero:
               steps (spans, observations, launches exactly a warm-up and six
               eager steps'), a NaN step's nan_guard dump and untouched state,
               a kill's crash dump and a bitwise resume.
-22. graph failure -- a capture that reads a device value on the host
+22. autotune -- the autotuner's races on the card
+              (repro_torch.kernels.autotune, CUDA-graph replay of each
+              candidate's whole layer) into a hermetic cache,
+              chiprun_out/autotune.json, its audit trail beside it: every
+              layer of full-width DCGAN at batches 1, 2, 4 and 8 (and bwd
+              and step at 8), then its two pairs at 1/2/4/8 (the other
+              GANs' races are left out to keep the phase under 60 s); each
+              record's candidates in graph us, winner, margin and
+              batch-variant flags; each DCGAN layer's serving choice with
+              no bucket histogram, then weighted by the histogram of a
+              2000 req/s window on the cold plan (record_traffic); the
+              tuned plans' describe() at every bucket, fused ("auto") and
+              per layer. Gates: the serving plans' methods equal at every
+              bucket; a reload from the file gives the same plans; one
+              audit record per race; GanEngine(fuse="auto") on the tuned
+              cache: every bucket's graph bitwise its eager call with equal
+              launches, 32 requests each bitwise its unbatched call under
+              the same cache; three tuned training steps, graph against
+              eager, bitwise. Recorded, not gated: six 2000 req/s windows,
+              cold and tuned in turns (C T T C C T), and 20 tuned then 20
+              cold training steps (host clock). Every other phase
+              runs on an empty cache (build/autotune_cold.json): the cold
+              plans, so each hand-written kernel is still launched and held
+              against its plain version whatever the races pick.
+23. graph failure -- a capture that reads a device value on the host
               raises, and the card goes on working.
-23. result -- a JSON line of per-kernel numbers, then the last line
+24. result -- a JSON line of per-kernel numbers, then the last line
               {"ok": true, "device": {...}}.
 
 Full results also go to chiprun_out/chip_smoke.json.
@@ -2531,6 +2555,7 @@ def _obs_window(torch, eng, cfg, rate, per_bucket, tag) -> dict:
             "wall_s": wall_s, "requests": len(reqs), "done": s["requests"],
             "rejected": s["rejected"],
             "samples": s["samples"], "batches": s["batches"],
+            "bucket_batches": s["bucket_batches"],
             "samples_per_s": s["samples_per_s"], "pad_waste": s["pad_waste"],
             "latency_ms": {k: v * 1e3 for k, v in lat.items()},
             "batch_period_ms_mean": wall_s * 1e3 / s["batches"],
@@ -2903,6 +2928,253 @@ def phase_obs(torch, dev, per_bucket, train) -> dict:
 
 
 
+def _tune_pairs(autotune, planlib, cfg, batch, repeats) -> int:
+    """Race every pair the plan pass would fuse in ``cfg`` at ``batch``
+    (``fuse="force"``'s pairs); returns the number of races."""
+    from repro_torch.models import gan
+
+    plan = planlib.compile_plan(cfg, batch, epilogues=gan.generator_epilogues(cfg),
+                                fuse="force")
+    races = 0
+    for e in plan.entries:
+        if isinstance(e, planlib.FusedPairPlan):
+            a, z = e.first, e.second
+            autotune.tune_pair(batch, a.n_in, a.n_k, a.cin, a.cout, z.cout, a.padding,
+                               epilogue1=a.epilogue, epilogue2=z.epilogue,
+                               repeats=repeats)
+            races += 1
+    return races
+
+
+def _use_cache(autotune, path) -> None:
+    """Point the autotuner at the cache file ``path`` and drop the view."""
+    os.environ["REPRO_AUTOTUNE_CACHE"] = path
+    autotune.clear_cache(memory_only=True)
+
+
+def _train_step_ms(tr, state, steps) -> list:
+    """Host milliseconds of ``steps`` graphed trainer steps after
+    TRAIN_WARMUP_STEPS, each ending in the read-back of its losses."""
+    import numpy as np
+
+    tr.run(state, steps=TRAIN_WARMUP_STEPS + steps)
+    return (np.asarray(tr.timer.steps[TRAIN_WARMUP_STEPS:]) * 1e3).tolist()
+
+
+def phase_autotune(torch, dev, cold_cache) -> dict:
+    """The autotuner's races on the card into a hermetic cache
+    (chiprun_out/autotune.json, its audit trail beside it), then the tuned
+    plans under the port's gates: served samples bitwise their unbatched
+    calls, graphs bitwise their eager calls (serving and training), a
+    reload giving the same plans, one audit record per race. Tuned against
+    cold serving windows and training steps are recorded, not gated."""
+    import numpy as np
+
+    from repro_torch.data import SyntheticImages
+    from repro_torch.kernels import autotune
+    from repro_torch.kernels import plan as planlib
+    from repro_torch.models import gan
+    from repro_torch.obs.audit import AuditTrail, audit_path, set_trail
+    from repro_torch.train.gan_trainer import GanTrainer, GanTrainerConfig
+
+    t_phase = time.perf_counter()
+    card = f"{torch.cuda.get_device_name(0)} ({dev['nvidia_smi']})"
+    out_dir = os.path.join(ROOT, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "autotune.json")
+    _use_cache(autotune, path)
+    for stale in (path, audit_path()):
+        if os.path.exists(stale):
+            os.remove(stale)
+    trail = AuditTrail(path="auto")   # the ring, and the JSONL beside the cache
+    prev_trail = set_trail(trail)
+    # the races time what serving runs: phases 3-19's settings
+    deterministic = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(False)
+    cfg = gan.DCGAN
+    buckets = (1, 2, 4, BATCH)
+    repeats = 3
+    races = 0
+    try:
+        # layers first at every batch, then the pairs, so that each
+        # back-to-back candidate runs its layers' final serving choice
+        t0 = time.perf_counter()
+        for records in (
+                autotune.tune_gan_zoo(batches=(1, 2, 4), configs=(cfg,), pairs=False,
+                                      repeats=repeats),
+                autotune.tune_gan_zoo(batches=(BATCH,), configs=(cfg,), train=True,
+                                      pairs=False, repeats=repeats)):
+            races += sum(len(rec) for rec in records.values())   # a race a direction
+        for b in buckets:
+            races += _tune_pairs(autotune, planlib, cfg, b, repeats)
+        race_s = time.perf_counter() - t0
+        out = {"cache": os.path.relpath(path, ROOT), "races": races,
+               "race_s": race_s, "records": []}
+        for rec in trail.records:
+            cands = {c["method"]: c["time_s"] * 1e6 for c in rec["candidates"]}
+            entry = autotune.lookup(rec["key"])[rec["direction"]]
+            variant = entry.get("batch_variant", [])
+            out["records"].append({"key": rec["key"], "direction": rec["direction"],
+                                   "winner": rec["winner"], "source": rec["source"],
+                                   "graph_us": cands, "margin": rec["margin"],
+                                   "batch_variant": variant})
+            log(f"[autotune] {rec['key']} {rec['direction']}: winner {rec['winner']} "
+                f"({rec['source']}), margin {rec['margin']}, graph us "
+                + ", ".join(f"{m} {t:.1f}" for m, t in cands.items())
+                + (f"; batch-variant {variant}" if variant else ""))
+        log(f"[autotune] {races} races in {race_s:.1f} s on {card} (CUDA-graph replay "
+            f"of {autotune.GRAPH_CALLS} calls, median of {repeats})")
+        variant_any = sorted({(r["key"], m) for r in out["records"]
+                              for m in r["batch_variant"]})
+        log(f"[autotune] candidates that failed the batch-invariance check: "
+            f"{variant_any or 'none'}")
+        out["batch_variant"] = [list(v) for v in variant_any]
+
+        # the serving choice of each layer shape, one for every bucket: first
+        # with no bucket histogram (the sum, held by the cold rule at bucket
+        # 8), then weighted by the histogram of a cold-plan window
+        def serving_choices(stage):
+            out["serving"][stage] = {}
+            for (hw, cin, cout), epi in zip(cfg.layers, gan.generator_epilogues(cfg)):
+                choice = autotune.best_method(1, hw, cfg.kernel, cin, cout,
+                                              cfg.padding, epilogue=epi)
+                out["serving"][stage][f"{hw}x{hw}x{cin}->{cout}"] = choice
+                log(f"[autotune] serving choice ({stage}) {hw}x{hw}x{cin}->{cout} "
+                    f"{epi.tag()}: {choice['method']} by rule {choice['rule']} over "
+                    f"batches {choice['batches']}"
+                    + (f" weighted {choice['weights']}, graph us of that traffic "
+                       if "weights" in choice else ", graph us summed ")
+                    + ", ".join(
+                        f"{m} {t * 1e6:.1f}" for m, t in
+                        sorted(choice["candidates"].items(), key=lambda kv: kv[1])))
+
+        out["serving"] = {}
+        serving_choices("no histogram")
+        params = gan.generator_init(torch.Generator().manual_seed(0), cfg)
+        _use_cache(autotune, cold_cache)
+        cold_eng = _warm_engine(cfg, params, fuse="auto")
+        cold_counts = _graphs_against_eager(torch, cold_eng, cfg, params,
+                                            "autotune cold")
+        windows = [_obs_window(torch, cold_eng, cfg, OBS_RATE, cold_counts,
+                               "autotune cold")]
+        _log_window(card, windows[0])
+        hist = windows[0]["bucket_batches"]
+        _use_cache(autotune, path)
+        autotune.record_traffic(hist)
+        out["traffic"] = autotune.traffic()
+        log(f"[autotune] bucket histogram of the first cold window {hist}, recorded "
+            f"as the cache's traffic")
+        serving_choices("traffic")
+        plans = {}
+        for fuse in ("auto", "off"):
+            for b in buckets:
+                plan = gan.generator_plan(cfg, b, fuse=fuse)
+                plans[f"{fuse}:{b}"] = plan
+                log(f"[autotune] tuned plan fuse={fuse} b{b}:\n[autotune]   "
+                    + plan.describe().replace("\n", "\n[autotune]   "))
+        plans["train:8"] = gan.generator_plan(cfg, BATCH, train=True)
+        log("[autotune] tuned training plan:\n[autotune]   "
+            + plans["train:8"].describe().replace("\n", "\n[autotune]   "))
+        out["plans"] = {k: p.describe() for k, p in plans.items()}
+        if len({tuple(lp.method for lp in plans[f"auto:{b}"]) for b in buckets}) != 1:
+            raise AssertionError("autotune: the serving plans' methods differ by bucket")
+
+        # gate: a reload from the file gives the same plans
+        autotune.clear_cache(memory_only=True)
+        for key, plan in plans.items():
+            fuse, b = key.split(":")
+            again = (gan.generator_plan(cfg, int(b), train=True) if fuse == "train"
+                     else gan.generator_plan(cfg, int(b), fuse=fuse))
+            if again != plan or again.describe() != plan.describe():
+                raise AssertionError(f"autotune: the reloaded cache gives another "
+                                     f"plan for {key}")
+        log("[autotune] after clear_cache(memory_only=True) the reloaded file gives "
+            "the same plans")
+
+        # gate: one audit record per race, in the ring and beside the cache
+        jsonl = AuditTrail.load(audit_path())
+        if len(trail.records) != races or len(jsonl) != races:
+            raise AssertionError(f"autotune: {races} races, {len(trail.records)} audit "
+                                 f"records, {len(jsonl)} in {audit_path()}")
+        log(f"[autotune] one audit record per race: {races} in "
+            f"{os.path.relpath(audit_path(), ROOT)}")
+
+        # gates: the tuned engine (fuse="auto") serves bitwise
+        eng = _warm_engine(cfg, params, fuse="auto")
+        per_bucket = _graphs_against_eager(torch, eng, cfg, params, "autotune")
+        reqs, arrivals = _dcgan_requests(cfg)
+        launches = _replay_counted(eng, reqs, arrivals, per_bucket, "autotune")
+        if not all(r.done for r in reqs) or not eng.conservation()["ok"]:
+            raise AssertionError("autotune: a request was not served")
+        for r in reqs:
+            one = gan.generator_apply(params, cfg, r.z,
+                                      plan=gan.generator_plan(cfg, r.n)).cpu()
+            if not torch.equal(one, r.output):
+                raise AssertionError(
+                    f"autotune: request {r.rid} (n={r.n}) differs from its unbatched "
+                    f"call by {(one - r.output).abs().max().item()}")
+        out["engine_launches"] = launches
+        log(f"[autotune] GanEngine(fuse='auto') on the tuned cache: 32 requests over "
+            f"buckets {buckets}, each bitwise its unbatched call under the same "
+            f"cache; launches {launches}, exactly the batches' eager counts")
+
+        # recorded: 2000 req/s windows, cold and tuned in turns (C T T C C T),
+        # each engine warmed once and its metrics reset before each window
+        engines = {"cold": (cold_eng, cold_counts), "tuned": (eng, per_bucket)}
+        for kind in ("tuned", "tuned", "cold", "cold", "tuned"):
+            e, counts = engines[kind]
+            e.metrics.reset()
+            windows.append(_obs_window(torch, e, cfg, OBS_RATE, counts,
+                                       f"autotune {kind}"))
+            _log_window(card, windows[-1])
+        for row in windows:
+            row.pop("reqs")
+        out["windows"] = windows
+        for kind in ("cold", "tuned"):
+            sps = [r["samples_per_s"] for r in windows if r["tag"].endswith(kind)]
+            log(f"[autotune] {kind} windows in turn order: samples/s {sps}, median "
+                f"{float(np.median(sps))}")
+
+        # gates and records: training on the tuned cache, then cold
+        torch.use_deterministic_algorithms(True)
+        tcfg = GanTrainerConfig()
+        data = SyntheticImages(cfg.out_hw(cfg.layers[-1][0]), cfg.layers[-1][2],
+                               tcfg.global_batch)
+        out["train_step_ms"] = {}
+        for kind in ("tuned", "cold"):
+            _use_cache(autotune, path if kind == "tuned" else cold_cache)
+            tr = GanTrainer(cfg, tcfg, data, log_fn=lambda *a: None)
+            state = tr.init_state(torch.Generator().manual_seed(0))
+            if kind == "tuned":
+                eager_state = graph_state = state
+                for step in range(3):
+                    reals, zs = tr._batches(step)
+                    eager_state, stats = tr._step_eager(eager_state, reals, zs)
+                    graph_state, metrics = tr._step_fn(graph_state, reals, zs)
+                    if ([metrics[k] for k in ("g_loss", "d_loss", "g_gnorm", "d_gnorm")]
+                            != stats.tolist() or not _bitwise(graph_state, eager_state)):
+                        raise AssertionError(f"autotune: tuned graphed step {step} is "
+                                             f"not bitwise the eager step")
+                log("[autotune] 3 tuned training steps through the graph bitwise equal "
+                    "to 3 eager ones; plan:\n[autotune]   "
+                    + tr.train_plan.describe().replace("\n", "\n[autotune]   "))
+                out["train_plan"] = tr.train_plan.describe()
+            walls = _train_step_ms(tr, state, 20)
+            out["train_step_ms"][kind] = {"median": float(np.median(walls)),
+                                          "p90": float(np.percentile(walls, 90)),
+                                          "steps": walls}
+            log(f"[autotune] {kind} training step: median "
+                f"{np.median(walls):.3f} ms, p90 {np.percentile(walls, 90):.3f} ms over "
+                f"20 graphed steps after {TRAIN_WARMUP_STEPS} (host clock)")
+    finally:
+        set_trail(prev_trail)
+        _use_cache(autotune, cold_cache)
+        torch.use_deterministic_algorithms(deterministic)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[autotune] phase 22 took {out['seconds']:.1f} s")
+    return out
+
+
 def phase_graph_failure(torch) -> dict:
     """A function that reads a device value on the host cannot be captured:
     building its graph raises (nothing falls back to eager launches), and
@@ -2957,6 +3229,12 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, SRC)
+    # every phase but 22 runs on an empty autotune cache: the cold plans
+    cold_cache = os.path.join(ROOT, "build", "autotune_cold.json")
+    os.makedirs(os.path.dirname(cold_cache), exist_ok=True)
+    with open(cold_cache, "w") as f:
+        json.dump({"version": 4, "entries": {}}, f)
+    os.environ["REPRO_AUTOTUNE_CACHE"] = cold_cache
     t_start = time.perf_counter()
     dev = phase_device(torch)
     build = phase_build()
@@ -2984,6 +3262,7 @@ def main() -> int:
     paper = phase_paper(torch)
     train = phase_train(torch)
     obs_replicas = phase_obs(torch, dev, engine["eager_launches_per_bucket"], train)
+    tuned = phase_autotune(torch, dev, cold_cache)
     graph_failure = phase_graph_failure(torch)
 
     entries = []
@@ -3027,7 +3306,7 @@ def main() -> int:
                    "pair_grads": pair_grads, "decode_check": decode_check,
                    "decode_times": decode_times, "lm_serve": lm_serve,
                    "lm_parity": lm_parity, "zoo_check": zoo, "paper": paper,
-                   "train": train, "obs": obs_replicas,
+                   "train": train, "obs": obs_replicas, "autotune": tuned,
                    "graph_failure": graph_failure,
                    "seconds": time.perf_counter() - t_start}, f, indent=1)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")

@@ -19,7 +19,8 @@ padding ``P``) on NHWC inputs ``(B, N, N, Cin)`` and HWIO kernels
                    convolution (``groups=4``), the reshape interleave.
   unified_matmul   the four phases im2col'd, one batched matmul.
   auto             a single-layer plan (:mod:`repro_torch.kernels.plan`)
-                   by its cold rule: the hand-written CUDA kernels.
+                   from the autotune cache, or by the cold rule on a miss:
+                   the hand-written CUDA kernels.
 
 The entry also takes the reference's Pallas spellings, which run the port's
 hand-written kernels through a plan (:data:`KERNEL_METHODS`).
@@ -199,16 +200,17 @@ def transpose_conv_unified_matmul(x, kernel, padding: int = 0):
     return _interleave(y.permute(1, 2, 3, 0, 4), m)
 
 
-def transpose_conv_auto(x, kernel, padding: int = 0, *, bias=None,
-                        act: str = "none"):
+def transpose_conv_auto(x, kernel, padding: int = 0, *, train: bool = False,
+                        bias=None, act: str = "none"):
     """A single-layer plan for this layer's signature and epilogue, resolved
-    once (:func:`~repro_torch.kernels.plan.plan_layer_cached`) by the CUDA
-    cold rule (the port has no autotuner yet), and executed: the
-    implicit-GEMM kernel on a phase plane of fewer than 8 rows, the fused
-    kernel otherwise, both differentiable through the segregated backward
-    kernels."""
-    return transpose_conv2d(x, kernel, padding, method="auto", bias=bias,
-                            act=act)
+    once per autotune-cache generation
+    (:func:`~repro_torch.kernels.plan.plan_layer_cached`) and executed: the
+    tuned winner (in training mode, ``train=True``, the full-step race's
+    winner at this batch; else the serving winner, one for every batch), or
+    on a miss the CUDA cold rule, the implicit-GEMM kernel on a phase plane
+    of fewer than 8 rows and the fused kernel otherwise."""
+    return transpose_conv2d(x, kernel, padding, method="auto", train=train,
+                            bias=bias, act=act)
 
 
 METHODS = {
@@ -232,7 +234,8 @@ KERNEL_METHODS = {
 
 
 def transpose_conv2d(x, kernel, padding: int = 0, *, method: str = "unified",
-                     plan=None, bias=None, act: str = "none") -> torch.Tensor:
+                     train: bool = False, plan=None, bias=None,
+                     act: str = "none") -> torch.Tensor:
     """Stride-2 transpose convolution, paper semantics, with the layer's
     elementwise tail ``act(y + bias)`` (:mod:`repro_torch.kernels.epilogue`).
 
@@ -240,7 +243,9 @@ def transpose_conv2d(x, kernel, padding: int = 0, *, method: str = "unified",
     ``auto`` and the kernel spellings resolve a memoized single-layer
     :class:`~repro_torch.kernels.plan.LayerPlan` and run it: the kernels
     apply the epilogue on their accumulator and differentiate through the
-    segregated backward kernels. On a CUDA tensor a kernel spelling
+    backward the plan resolved. ``train=True`` makes ``auto`` follow the
+    autotuner's full-step winner (:func:`transpose_conv_auto`). On a CUDA
+    tensor a kernel spelling
     launches its kernel or raises; on a CPU tensor it runs the kernel's
     plain version. The baselines compose the same epilogue as post-ops.
     A given ``plan=`` skips the resolution and must have been compiled for
@@ -253,7 +258,8 @@ def transpose_conv2d(x, kernel, padding: int = 0, *, method: str = "unified",
         plan = planlib.plan_layer_cached(
             x.shape[0], x.shape[1], kernel.shape[0], kernel.shape[2],
             kernel.shape[3], padding, x.dtype,
-            method=KERNEL_METHODS.get(method, method), epilogue=epi,
+            method=KERNEL_METHODS.get(method, method), train=train,
+            epilogue=epi,
         )
     if plan is not None:
         if plan.padding != padding:

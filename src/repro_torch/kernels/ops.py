@@ -16,8 +16,11 @@ adds one. The backward dispatches by the layer's plan
               reference's ``"pallas"``): epilogue-grad, dx, dw with db.
   autograd    ``gm = g * act'(y)``, then torch autograd through
               :func:`repro_torch.core.transpose_conv.transpose_conv_unified`
-              and ``db = sum gm`` (the reference's ``"lax"``). A yardstick
-              only: on the card its convolutions are cuDNN's.
+              and ``db = sum gm`` (the reference's ``"lax"``). On the card
+              its convolutions are cuDNN's.
+
+A plan's ``bwd="auto"`` resolves in
+:func:`repro_torch.kernels.plan.resolve_bwd`.
 
 dx is computed only when the input needs a gradient.
 

@@ -29,8 +29,11 @@ Methods a plan resolves to:
                    :mod:`repro_torch.core.transpose_conv` (the reference's
                    lax methods), with the epilogue composed as post-ops.
 
-``method="auto"`` resolves by the cold rule (there is no autotune cache
-yet): the implicit-GEMM kernel for a phase plane of fewer than 8 rows (the
+``method="auto"`` follows the autotune cache (:mod:`repro_torch.kernels.
+autotune`): in training mode (``train=True``) the ``step`` winner at the
+plan's batch, else the serving winner of the layer's signature, one method
+for every batch (the bucket rule). On a miss it resolves by the cold rule:
+the implicit-GEMM kernel for a phase plane of fewer than 8 rows (the
 channel-deep 4x4 head layers), the fused kernel otherwise. The reference's
 cold rule splits at the same line between its dense and segregated forms.
 
@@ -38,10 +41,12 @@ The kernel methods run through the ``torch.autograd.Function`` s of
 :mod:`repro_torch.kernels.ops`, whose backward is ``bwd_method``:
 ``segregated`` (the three backward kernels; the reference's ``pallas``) or
 ``autograd`` (autograd of the ``unified`` form; the reference's ``lax``),
-``segregated`` unless pinned. (The reference takes its lax VJP off the TPU
-only because its Pallas kernels interpret at Python speed there; here a
-CPU tensor runs the kernels' plain versions, so one default serves both
-devices.) The baselines differentiate through PyTorch's own autograd.
+``bwd="auto"`` follows the cache's ``bwd`` entry at the plan's batch
+(:func:`resolve_bwd`), ``segregated`` on a miss.
+(The reference's cold backward is its lax VJP off the TPU only because its
+Pallas kernels interpret at Python speed there; here a CPU tensor runs the
+kernels' plain versions, so one cold default serves both devices.) The
+baselines differentiate through PyTorch's own autograd.
 
 The pair pass (:func:`fuse_pairs`, run by :func:`compile_plan` and
 :func:`compile_plan_buckets`) replaces adjacent layers with a
@@ -49,9 +54,15 @@ The pair pass (:func:`fuse_pairs`, run by :func:`compile_plan` and
 with bias epilogues on both layers, fp32, and the pair kernel's per-block
 shared memory
 (:func:`~repro_torch.kernels.transpose_conv2d_pair.pair_smem_bytes`) within
-the Hopper budget. ``fuse`` is ``"off"``/``False`` (the default) or
-``"force"``/``True``. The reference's ``"auto"`` reads the autotuner's pair
-race, which the port does not have yet, so it raises.
+the Hopper budget. ``fuse`` is ``"auto"`` (the default: a pair fuses iff
+the serving choice of the autotuner's pair races, one for every batch by
+the bucket rule of :mod:`~repro_torch.kernels.autotune`, is the pair
+kernel), ``"force"``/``True`` (every legal pair) or ``"off"``/
+``False`` (none). On a miss ``"auto"`` stays back to back on every device:
+a departure from the reference, whose cold ``"auto"`` fuses on its
+accelerator, because on the H100 the pair kernel loses to its two layers
+back to back at every bucket measured (PERF.md section 6). Train-mode plans
+stay unfused, as the reference's do.
 """
 from __future__ import annotations
 
@@ -92,8 +103,9 @@ class LayerPlan:
     epilogue: Epilogue | None = None
     method: str = "unified_reshape"
     bwd_method: str = "segregated"
-    # "cold" (the rule above) or "pinned" (an explicit method); not part of
-    # eq/hash, so the same decision compares equal whatever its provenance
+    # "cold" (the rule above), "tuned" (an autotune cache hit) or "pinned"
+    # (an explicit method); not part of eq/hash, so the same decision
+    # compares equal whatever its provenance
     source: str = dataclasses.field(default="cold", compare=False)
 
     def describe(self) -> str:
@@ -211,43 +223,80 @@ def _dtype_name(dtype) -> str:
 
 def plan_layer(
     b: int, n_in: int, n_k: int, cin: int, cout: int, padding: int,
-    dtype="float32", *, method: str = "auto",
-    epilogue: Epilogue | None = None, bwd: str = "segregated",
+    dtype="float32", *, method: str = "auto", train: bool = False,
+    epilogue: Epilogue | None = None, bwd: str = "auto",
 ) -> LayerPlan:
-    """Resolve one layer: ``auto`` by :func:`cold_method`, any name in
-    :data:`METHODS` pinned; the backward is any name in
+    """Resolve one layer: ``auto`` from the autotune cache (``step`` at
+    batch ``b`` in training mode, else the serving ``fwd`` winner, which
+    reads no batch; source ``tuned``), by :func:`cold_method` on a miss;
+    any name in :data:`METHODS` pinned. The backward is ``auto``
+    (:func:`resolve_bwd`) or any name in
     :data:`BWD_METHODS`."""
+    from repro_torch.kernels import autotune
+
+    dtype = _dtype_name(dtype)
+    epilogue = epilib.canonical(epilogue)
     if method == "auto":
-        resolved, source = cold_method(n_in, n_k, padding), "cold"
+        sig = (b, n_in, n_k, cin, cout, padding, dtype)
+        rec = autotune.best_entry(*sig, epilogue=epilogue) if train else None
+        entry = ((rec or {}).get("step")
+                 or autotune.best_method(*sig, epilogue=epilogue))
+        if entry is not None and entry.get("method") in METHODS:
+            resolved, source = entry["method"], "tuned"
+        else:
+            resolved, source = cold_method(n_in, n_k, padding), "cold"
     elif method in METHODS:
         resolved, source = method, "pinned"
     else:
         raise ValueError(f"unknown method {method!r}; one of {METHODS} or 'auto'")
-    if bwd not in BWD_METHODS:
-        raise ValueError(f"unknown bwd {bwd!r}; one of {BWD_METHODS}")
+    if bwd == "auto":
+        bwd = resolve_bwd(b, n_in, n_k, cin, cout, padding, dtype,
+                          epilogue=epilogue)
+    elif bwd not in BWD_METHODS:
+        raise ValueError(f"unknown bwd {bwd!r}; one of {BWD_METHODS} or 'auto'")
     return LayerPlan(
         batch=b, n_in=n_in, n_k=n_k, cin=cin, cout=cout, padding=padding,
-        dtype=_dtype_name(dtype), epilogue=epilib.canonical(epilogue),
-        method=resolved, bwd_method=bwd, source=source,
+        dtype=dtype, epilogue=epilogue, method=resolved, bwd_method=bwd,
+        source=source,
     )
 
 
+def resolve_bwd(b: int, n_in: int, n_k: int, cin: int, cout: int,
+                padding: int, dtype: str = "float32", *, epilogue=None) -> str:
+    """The backward of one layer signature, as the reference's
+    ``_resolve_bwd`` resolves it: the autotune cache's ``bwd`` winner at
+    batch ``b`` (a training consult may read the batch), else
+    ``segregated``."""
+    from repro_torch.kernels import autotune
+
+    entry = autotune.best_bwd(b, n_in, n_k, cin, cout, padding, dtype,
+                              epilogue=epilogue)
+    if entry is not None and entry.get("method") in BWD_METHODS:
+        return entry["method"]
+    return "segregated"
+
+
 @functools.lru_cache(maxsize=None)
-def _plan_layer_cached(b, n_in, n_k, cin, cout, padding, dtype, method,
-                       epilogue) -> LayerPlan:
+def _plan_layer_cached(b, n_in, n_k, cin, cout, padding, dtype, method, train,
+                       epilogue, generation) -> LayerPlan:
+    del generation   # part of the memo key only: a retune resolves again
     return plan_layer(b, n_in, n_k, cin, cout, padding, dtype, method=method,
-                      epilogue=epilogue)
+                      train=train, epilogue=epilogue)
 
 
 def plan_layer_cached(
     b: int, n_in: int, n_k: int, cin: int, cout: int, padding: int,
-    dtype="float32", *, method: str = "auto",
+    dtype="float32", *, method: str = "auto", train: bool = False,
     epilogue: Epilogue | None = None,
 ) -> LayerPlan:
-    """Memoized :func:`plan_layer`: a layer signature resolves once."""
+    """Memoized :func:`plan_layer`, keyed by the signature and the autotune
+    cache's generation: a layer resolves once per cache state, and a retune
+    resolves it again."""
+    from repro_torch.kernels import autotune
+
     return _plan_layer_cached(b, n_in, n_k, cin, cout, padding,
-                              _dtype_name(dtype), method,
-                              epilib.canonical(epilogue))
+                              _dtype_name(dtype), method, train,
+                              epilib.canonical(epilogue), autotune.generation())
 
 
 def _layer_epilogues(cfg, epilogues) -> tuple:
@@ -263,21 +312,17 @@ def _layer_epilogues(cfg, epilogues) -> tuple:
 
 # --------------------------------------------------------------- pair fusion
 
-def check_fuse(fuse) -> bool:
-    """``True`` for ``"force"``/``True``, ``False`` for ``"off"``/``False``.
-    ``"auto"`` raises: the reference decides it from the autotuner's pair
-    race, and the port has no autotuner yet (ROADMAP queue 1 item 8)."""
+def check_fuse(fuse) -> str:
+    """``fuse`` as ``"auto"``, ``"force"`` (also ``True``) or ``"off"``
+    (also ``False``); anything else raises."""
     if fuse is True or fuse == "force":
-        return True
+        return "force"
     if fuse is False or fuse == "off":
-        return False
+        return "off"
     if fuse == "auto":
-        raise ValueError(
-            "fuse='auto' reads the autotuner's pair race, which the port "
-            "does not have until the autotuner slice (ROADMAP queue 1 item "
-            "8); pass 'force' or 'off'"
-        )
-    raise ValueError(f"fuse must be 'off', 'force', False or True, got {fuse!r}")
+        return "auto"
+    raise ValueError(
+        f"fuse must be 'auto', 'off', 'force', False or True, got {fuse!r}")
 
 
 def pair_legal(lp1: LayerPlan, lp2: LayerPlan) -> tuple[bool, str]:
@@ -328,21 +373,36 @@ def pair_legal(lp1: LayerPlan, lp2: LayerPlan) -> tuple[bool, str]:
 
 
 def plan_pair(lp1: LayerPlan, lp2: LayerPlan, *,
-              fuse="off") -> FusedPairPlan | None:
+              fuse="auto") -> FusedPairPlan | None:
     """The :class:`FusedPairPlan` of two adjacent layers, or ``None`` (they
-    stay apart): ``fuse="force"`` fuses every legal pair, ``"off"`` none.
-    An illegal pair never fuses."""
-    if not check_fuse(fuse) or not pair_legal(lp1, lp2)[0]:
+    stay apart): ``fuse="force"`` fuses every legal pair, ``"off"`` none,
+    ``"auto"`` those whose pair race the pair kernel won
+    (:func:`~repro_torch.kernels.autotune.best_pair`, which reads no
+    batch), none on a miss. An illegal pair never fuses."""
+    fuse = check_fuse(fuse)
+    if fuse == "off" or not pair_legal(lp1, lp2)[0]:
         return None
-    return FusedPairPlan(first=lp1, second=lp2)
+    if fuse == "force":
+        return FusedPairPlan(first=lp1, second=lp2)
+    from repro_torch.kernels import autotune
+
+    rec = autotune.best_pair(
+        lp1.batch, lp1.n_in, lp1.n_k, lp1.cin, lp1.cout, lp2.cout, lp1.padding,
+        lp1.dtype, epilogue1=lp1.epilogue, epilogue2=lp2.epilogue,
+    )
+    if rec is not None and rec["method"] == "pair":
+        return FusedPairPlan(first=lp1, second=lp2, source="tuned")
+    return None
 
 
-def fuse_pairs(plan: TconvPlan, *, fuse="off") -> TconvPlan:
+def fuse_pairs(plan: TconvPlan, *, train: bool = False,
+               fuse="auto") -> TconvPlan:
     """The plan-level pair pass: walk the logical layers left to right and
     fuse each pair :func:`plan_pair` allows (a fused layer is consumed and
-    the walk goes on after it). ``fuse="off"`` returns the plan as it is;
-    ``"force"`` flattens any pairs first, so the pass is idempotent."""
-    if not check_fuse(fuse):
+    the walk goes on after it). ``fuse="off"`` and train-mode plans are
+    returned as they are; otherwise any pairs are flattened first, so the
+    pass is idempotent."""
+    if train or check_fuse(fuse) == "off":
         return plan
     logical = tuple(plan)
     entries = []
@@ -360,10 +420,14 @@ def plan_follows_fuse(plan: TconvPlan, fuse) -> bool:
     """Whether ``plan``'s pairs are what the pair pass makes under ``fuse``:
     no pair for ``"off"``; for ``"force"``, no two adjacent per-layer
     entries that :func:`pair_legal` allows (the pass would have fused
-    them)."""
+    them); for ``"auto"``, exactly the pairs the pass fuses now."""
     entries = plan.entries
-    if not check_fuse(fuse):
+    fuse = check_fuse(fuse)
+    if fuse == "off":
         return not any(isinstance(e, FusedPairPlan) for e in entries)
+    if fuse == "auto":
+        flat = TconvPlan(name=plan.name, layers=tuple(plan))
+        return fuse_pairs(flat, fuse="auto").entries == entries
     return not any(
         isinstance(a, LayerPlan) and isinstance(b, LayerPlan)
         and pair_legal(a, b)[0]
@@ -371,25 +435,28 @@ def plan_follows_fuse(plan: TconvPlan, fuse) -> bool:
     )
 
 
-def compile_plan(cfg, batch: int, dtype="float32", *, method: str = "auto",
-                 epilogues=None, bwd: str = "segregated",
-                 fuse="off") -> TconvPlan:
+def compile_plan(cfg, batch: int, dtype="float32", *, train: bool = False,
+                 method: str = "auto", epilogues=None, bwd: str = "auto",
+                 fuse="auto") -> TconvPlan:
     """A whole-generator :class:`TconvPlan`. ``cfg`` has ``layers`` as
     ``(input_hw, cin, cout)`` triples plus ``kernel``/``padding``/``name``;
     ``epilogues`` is an optional per-layer tuple of :class:`Epilogue`;
-    ``fuse`` runs the pair pass (:func:`fuse_pairs`)."""
+    ``train`` resolves ``auto`` from the training entries; ``fuse`` runs
+    the pair pass (:func:`fuse_pairs`). Compile after tuning: a plan is
+    immutable, and a retune takes effect at the next compile."""
     epis = _layer_epilogues(cfg, epilogues)
     layers = tuple(
         plan_layer(batch, hw, cfg.kernel, cin, cout, cfg.padding, dtype,
-                   method=method, epilogue=epi, bwd=bwd)
+                   method=method, train=train, epilogue=epi, bwd=bwd)
         for (hw, cin, cout), epi in zip(cfg.layers, epis)
     )
     return fuse_pairs(TconvPlan(name=getattr(cfg, "name", "tconv"),
-                                layers=layers), fuse=fuse)
+                                layers=layers), train=train, fuse=fuse)
 
 
-def compile_plan_buckets(cfg, batches, dtype="float32", *, method: str = "auto",
-                         epilogues=None, fuse="off") -> dict:
+def compile_plan_buckets(cfg, batches, dtype="float32", *, train: bool = False,
+                         method: str = "auto", epilogues=None,
+                         fuse="auto") -> dict:
     """``{batch: TconvPlan}`` over a set of batch buckets, each layer
     resolved through :func:`plan_layer_cached`, then the pair pass."""
     epis = _layer_epilogues(cfg, epilogues)
@@ -400,9 +467,9 @@ def compile_plan_buckets(cfg, batches, dtype="float32", *, method: str = "auto",
             raise ValueError(f"batch buckets must be positive, got {batch}")
         plans[batch] = fuse_pairs(TconvPlan(name=name, layers=tuple(
             plan_layer_cached(batch, hw, cfg.kernel, cin, cout, cfg.padding,
-                              dtype, method=method, epilogue=epi)
+                              dtype, method=method, train=train, epilogue=epi)
             for (hw, cin, cout), epi in zip(cfg.layers, epis)
-        )), fuse=fuse)
+        )), train=train, fuse=fuse)
     return plans
 
 

@@ -92,6 +92,12 @@ class GemmGeometry:
         """``(row blocks, splits * Cout blocks, 4 output parities)``."""
         return (self.n_m, self.splits * self.n_co, 4)
 
+    @property
+    def summation_order(self) -> tuple:
+        """The fields that fix the order of every output's sum: split,
+        step (a tap's STEP_CIN channels), warp slice, channel."""
+        return (SLICES, STEP_CIN, self.r, self.cpt, self.n_steps, self.splits)
+
     def split_steps(self, split: int) -> range:
         """The contraction steps split ``split`` sums, as the kernel
         partitions them."""

@@ -87,17 +87,20 @@ def generator_epilogues(cfg: GANConfig) -> tuple:
     )
 
 
-def generator_plan(cfg: GANConfig, batch: int, *, method: str = "auto",
-                   epilogues=None, bwd: str = "segregated", fuse="off"):
+def generator_plan(cfg: GANConfig, batch: int, *, train: bool = False,
+                   method: str = "auto", epilogues=None, bwd: str = "auto",
+                   fuse="auto"):
     """The whole generator's :class:`~repro_torch.kernels.plan.TconvPlan`,
     with each layer's bias + activation baked in (:func:`generator_epilogues`).
-    ``bwd`` is the backward: ``segregated`` or ``autograd``. ``fuse`` runs
-    the pair pass (:func:`~repro_torch.kernels.plan.fuse_pairs`):
-    ``"force"`` runs every legal adjacent pair as one pair-kernel launch,
-    ``"off"`` keeps the stack per layer."""
+    ``train=True`` resolves ``auto`` from the autotuner's training entries.
+    ``bwd`` is the backward: ``auto`` (the autotune cache, ``segregated``
+    on a miss), ``segregated`` or ``autograd``. ``fuse`` runs the pair pass
+    (:func:`~repro_torch.kernels.plan.fuse_pairs`): ``"auto"`` fuses the
+    pairs whose race the pair kernel won, ``"force"`` every legal adjacent
+    pair, ``"off"`` none; train-mode plans stay unfused."""
     if epilogues is None:
         epilogues = generator_epilogues(cfg)
-    return planlib.compile_plan(cfg, batch, method=method,
+    return planlib.compile_plan(cfg, batch, train=train, method=method,
                                 epilogues=epilogues, bwd=bwd, fuse=fuse)
 
 
@@ -127,7 +130,8 @@ def project(z: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def generator_apply(params: dict, cfg: GANConfig, z, *, method: str = "auto",
-                    plan=None, device=None) -> torch.Tensor:
+                    train: bool = False, plan=None,
+                    device=None) -> torch.Tensor:
     """z: (B, z_dim) -> image (B, H, W, C_last) in [-1, 1], on ``device``
     (the CUDA card unless the caller names another); ``params`` must be
     there already, ``z`` (a tensor or array) is moved there.
@@ -136,9 +140,10 @@ def generator_apply(params: dict, cfg: GANConfig, z, *, method: str = "auto",
     :func:`generator_plan`) runs every entry as the plan resolved it, a
     fused pair as one pair-kernel launch
     (:func:`~repro_torch.kernels.plan.execute_pair`); without one each layer
-    runs ``transpose_conv2d`` with ``method`` (``auto``: a memoized plan by
-    the cold rule; or any other name the entry takes). Differentiable in
-    ``params``.
+    runs ``transpose_conv2d`` with ``method`` (``auto``: a memoized plan
+    from the autotune cache, its training entries with ``train=True``, or by
+    the cold rule on a miss; or any other name the entry takes).
+    Differentiable in ``params``.
     """
     dev = resolve_device(device)
     if plan is not None and len(plan) != len(cfg.layers):
@@ -161,7 +166,7 @@ def generator_apply(params: dict, cfg: GANConfig, z, *, method: str = "auto",
             i += 2
         else:
             x = tconv_apply(params[f"tconv{i}"], x, cfg.padding, method=method,
-                            plan=entry, act=generator_act(cfg, i))
+                            train=train, plan=entry, act=generator_act(cfg, i))
             i += 1
     return x
 

@@ -39,7 +39,7 @@ def tconv_init(generator: torch.Generator, n: int, cin: int, cout: int, *,
 
 
 def tconv_apply(p: dict, x: torch.Tensor, padding: int, *,
-                method: str = "auto", plan=None,
+                method: str = "auto", train: bool = False, plan=None,
                 act: str = "none"):
     """Stride-2 transpose convolution + bias + activation as one unit,
     differentiable in ``x``, ``p["w"]`` and ``p["b"]``: the entry
@@ -48,10 +48,11 @@ def tconv_apply(p: dict, x: torch.Tensor, padding: int, *,
 
     ``plan=`` (a :class:`~repro_torch.kernels.plan.LayerPlan` compiled
     with this layer's epilogue) runs exactly what the plan resolved;
-    without one, ``method`` is any name the entry takes.
+    without one, ``method`` is any name the entry takes (``train`` as the
+    entry reads it).
     """
-    return transpose_conv2d(x, p["w"], padding, method=method, plan=plan,
-                            bias=p["b"], act=act)
+    return transpose_conv2d(x, p["w"], padding, method=method, train=train,
+                            plan=plan, bias=p["b"], act=act)
 
 
 # ------------------------------------------------------------ dense layers

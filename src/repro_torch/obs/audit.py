@@ -19,8 +19,9 @@ names the file, else it derives from ``$REPRO_AUTOTUNE_CACHE``
 reference's. Query with ``python -m repro_torch.obs audit [--key SUBSTR]
 [--direction fwd]``.
 
-The port's autotuner is not ported yet; this module is its audit
-destination when it is.
+:mod:`repro_torch.kernels.autotune` appends one record per race here
+(ROADMAP's "The autotuner" item); an entry's ``summation_order``, which the
+port records where the reference records tiles, lands under ``tiles``.
 """
 from __future__ import annotations
 
@@ -99,7 +100,7 @@ class AuditTrail:
         candidates = _normalize_candidates(entry.get("candidates"))
         tiles = {k: v for k, v in entry.items()
                  if k.startswith(("bm", "bn", "bk", "tile", "cin", "mid",
-                                  "cout"))}
+                                  "cout", "summation"))}
         rec = {
             "t_wall": time.strftime("%Y-%m-%dT%H:%M:%SZ", time.gmtime()),
             "kind": kind,

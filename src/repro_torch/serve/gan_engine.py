@@ -5,9 +5,9 @@ precompiled :class:`~repro_torch.kernels.plan.TconvPlan`s. Mirrors
 
 1. **warmup** -- for every registered model and every policy bucket,
    resolve the whole-generator plan
-   (:func:`~repro_torch.kernels.plan.compile_plan_buckets`, fused epilogues
-   included, and adjacent layers fused into pair launches with
-   ``fuse="force"``) or adopt it from a plan registry
+   (:func:`~repro_torch.kernels.plan.compile_plan_buckets` from the
+   autotune cache, fused epilogues included, and adjacent layers fused into
+   pair launches as ``fuse`` says) or adopt it from a plan registry
    (:mod:`repro_torch.kernels.plan_registry`, written by
    :meth:`GanEngine.save_plans`), build its executable and run it once on
    zero latents. Each executable built increments the metrics recompile
@@ -170,19 +170,25 @@ class GanEngine:
     """Bucketed dynamic-batching engine over plan-compiled generators.
 
     ``device`` is where the generators run (the CUDA card unless given);
-    registered parameters must live there. ``fuse`` is the plans' pair pass:
-    ``"off"`` (per layer) or ``"force"`` (every legal adjacent pair as one
-    pair-kernel launch). ``clock`` is injectable for deterministic deadline
-    tests. ``recorder`` is an optional
+    registered parameters must live there. ``train`` resolves ``auto`` from
+    the autotuner's training entries (whose winner may differ by bucket).
+    ``fuse`` is the plans' pair pass: ``"auto"`` (the pairs whose race the
+    pair kernel won; none on a cold cache), ``"off"`` (per layer) or
+    ``"force"`` (every legal adjacent pair as one pair-kernel launch). A
+    bucket's CUDA graph pins the plan it captured: a retune takes effect at
+    the next warm-up of a new engine. ``clock`` is injectable for
+    deterministic deadline tests. ``recorder`` is an optional
     :class:`~repro_torch.obs.flight_recorder.FlightRecorder` that the
     supervisor dumps into on a replica's death or a non-finite output.
     """
 
     def __init__(self, policy: BucketPolicy | None = None, *, device=None,
-                 fuse="off", clock=time.monotonic, recorder=None):
+                 train: bool = False, fuse="auto", clock=time.monotonic,
+                 recorder=None):
         check_fuse(fuse)
         self.policy = policy or BucketPolicy()
         self.device = resolve_device(device)
+        self.train = train
         self.fuse = fuse
         self.clock = clock
         self.metrics = ServeMetrics()
@@ -231,7 +237,8 @@ class GanEngine:
         combinations it lacks compile the normal way. A registry plan whose
         pairs do not follow the engine's ``fuse`` (one saved by a
         ``fuse="force"`` engine, adopted by a ``fuse="off"`` one, or the
-        other way round) raises ``ValueError``."""
+        other way round; for ``"auto"``, pairs other than the cache's race
+        fuses now) raises ``ValueError``."""
         if registry_path is not None:
             reg = load_plan_registry(registry_path)
             for name, slot in self.registry.items():
@@ -239,7 +246,8 @@ class GanEngine:
                     plan = reg.get(f"{name}:{bucket}")
                     if plan is None:
                         continue
-                    if not plan_follows_fuse(plan, self.fuse):
+                    if not plan_follows_fuse(plan, "off" if self.train
+                                             else self.fuse):
                         raise ValueError(
                             f"registry plan {name}:{bucket} in "
                             f"{registry_path} was not fused as "
@@ -279,8 +287,8 @@ class GanEngine:
         if fn is None:
             if bucket not in slot.plans:
                 slot.plans.update(compile_plan_buckets(
-                    slot.cfg, [bucket], epilogues=generator_epilogues(slot.cfg),
-                    fuse=self.fuse,
+                    slot.cfg, [bucket], train=self.train,
+                    epilogues=generator_epilogues(slot.cfg), fuse=self.fuse,
                 ))
             if self.device.type == "cuda" and slot.pool is None:
                 slot.pool = torch.cuda.graph_pool_handle()
@@ -539,15 +547,18 @@ class GanEngine:
         return requests
 
 
-def sequential_executables(cfg, params: dict, sizes, *, device=None) -> dict:
+def sequential_executables(cfg, params: dict, sizes, *, device=None,
+                           train: bool = False, fuse="auto") -> dict:
     """Warmed per-size executables ``{n: fn(params, z)}``, each running the
-    whole generator at exactly batch ``n``: the sequential per-request
+    whole generator at exactly batch ``n`` (plans as the engine compiles
+    them, ``train`` and ``fuse`` likewise): the sequential per-request
     baseline the bucketed engine is compared against. On the card each is
     one CUDA graph captured over ``params`` (:func:`generator_executable`;
     the sizes share one memory pool, so a call may overwrite another size's
     last output), called with that same dict."""
     dev = resolve_device(device)
-    plans = compile_plan_buckets(cfg, sizes, epilogues=generator_epilogues(cfg))
+    plans = compile_plan_buckets(cfg, sizes, train=train,
+                                 epilogues=generator_epilogues(cfg), fuse=fuse)
     pool = torch.cuda.graph_pool_handle() if dev.type == "cuda" else None
     fns = {}
     for n, plan in plans.items():

@@ -23,6 +23,10 @@ The four signals the bucket policy is tuned against:
   steady state means some (model, bucket) signature was not warmed and a
   request paid its build inline.
 
+``bucket_batches`` counts the batches dispatched at each bucket: the
+traffic the autotuner's serving choice is weighted by
+(:func:`repro_torch.kernels.autotune.record_traffic`).
+
 The resilience counters the
 :class:`~repro_torch.serve.supervisor.ReplicaSupervisor` records (all zero
 for a plain :class:`~repro_torch.serve.gan_engine.GanEngine`):
@@ -83,6 +87,7 @@ class ServeMetrics:
         self.batches: int = 0             # dispatches
         self.samples: int = 0             # real rows dispatched
         self.padded: int = 0              # total rows dispatched (incl. pad)
+        self.bucket_batches: dict = {}    # bucket -> dispatches at it
         self.admitted: int = 0            # requests accepted into a queue
         self.requests: int = 0            # completed requests
         self.rejected: int = 0            # backpressure rejections
@@ -168,6 +173,7 @@ class ServeMetrics:
         self.batches += 1
         self.samples += n_real
         self.padded += n_padded
+        self.bucket_batches[n_padded] = self.bucket_batches.get(n_padded, 0) + 1
         self.batch_wall_s += wall_s
         self.t_last = now
         pm = self._pm(model)
@@ -319,6 +325,7 @@ class ServeMetrics:
             "requests": self.requests,
             "samples": self.samples,
             "batches": self.batches,
+            "bucket_batches": dict(sorted(self.bucket_batches.items())),
             "rejected": self.rejected,
             "malformed": self.malformed,
             "expired": self.expired,

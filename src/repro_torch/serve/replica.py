@@ -24,8 +24,9 @@ Two properties make the replica the isolation boundary:
   (:mod:`repro_torch.serve.fault_injection`) lives entirely on that seam.
 
 Departures from the reference: no ``shard=`` or ``mesh=`` (one device a
-replica), and ``fuse`` is ``"off"`` or ``"force"`` (``"auto"`` raises
-until the autotuner is ported), as in the engine.
+replica; ROADMAP's "Distribution" item), and no ``dtype=`` (the port serves
+fp32). ``train`` and ``fuse`` (default ``"auto"``, the autotune cache's
+pair race) compile the plans as the engine's do.
 """
 from __future__ import annotations
 
@@ -67,11 +68,12 @@ class Replica:
     ``device`` is the CUDA card unless given.
     """
 
-    def __init__(self, replica_id: str, *, device=None, fuse="off",
-                 dispatch_hook=None):
+    def __init__(self, replica_id: str, *, device=None, train: bool = False,
+                 fuse="auto", dispatch_hook=None):
         check_fuse(fuse)
         self.replica_id = str(replica_id)
         self.device = resolve_device(device)
+        self.train = train
         self.fuse = fuse
         self.dispatch_hook = dispatch_hook
         self.registry: dict[str, _ReplicaModel] = {}
@@ -126,8 +128,8 @@ class Replica:
         if fn is None:
             if bucket not in slot.plans:
                 slot.plans.update(compile_plan_buckets(
-                    slot.cfg, [bucket], epilogues=generator_epilogues(slot.cfg),
-                    fuse=self.fuse,
+                    slot.cfg, [bucket], train=self.train,
+                    epilogues=generator_epilogues(slot.cfg), fuse=self.fuse,
                 ))
             if self.device.type == "cuda" and self.pool is None:
                 self.pool = torch.cuda.graph_pool_handle()

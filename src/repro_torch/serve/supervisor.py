@@ -51,9 +51,10 @@ events beside the ``serve.dispatch`` and ``serve.probe`` spans; a flight
 recorder (``recorder=``) dumps at a replica's death (``replica_dead:<id>``)
 and at a non-finite output (``nonfinite:<id>``).
 
-Departures from the reference: ``fuse`` is ``"off"`` by default and
-``"auto"`` raises; there is no ``train=`` and no ``dtype=`` (the port
-serves fp32; the replicas' ``device`` must be the supervisor's).
+Departures from the reference: there is no ``dtype=`` (the port serves
+fp32), and the replicas' ``device`` must be the supervisor's. ``train``
+and ``fuse`` (default ``"auto"``, the autotune cache's pair race) are the
+engine's, for the inline executables.
 """
 from __future__ import annotations
 
@@ -103,10 +104,11 @@ class ReplicaSupervisor(GanEngine):
                  timeout_s: float | None = None, timeout_factor: float = 8.0,
                  min_timeout_s: float = 0.05, probe_backoff_s: float = 0.05,
                  probe_backoff_max_s: float = 5.0,
-                 degraded_mode: str = "inline", device=None, fuse="off",
-                 clock=time.monotonic, recorder=None):
-        super().__init__(policy, device=device, fuse=fuse, clock=clock,
-                         recorder=recorder)
+                 degraded_mode: str = "inline", device=None,
+                 train: bool = False, fuse="auto", clock=time.monotonic,
+                 recorder=None):
+        super().__init__(policy, device=device, train=train, fuse=fuse,
+                         clock=clock, recorder=recorder)
         replicas = list(replicas)
         if not replicas:
             raise ValueError("supervisor needs at least one replica")

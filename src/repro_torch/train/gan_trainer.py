@@ -151,7 +151,8 @@ class GanTrainer:
         self.recorder = recorder
         self.micro, self.accum = tcfg.micro_accum
         # the generator's step plan, compiled once at the micro batch size
-        self.train_plan = gan.generator_plan(cfg, self.micro, method=tcfg.method)
+        self.train_plan = gan.generator_plan(cfg, self.micro, train=True,
+                                             method=tcfg.method)
         self.out_hw = cfg.out_hw(cfg.layers[-1][0])
         self.out_c = cfg.layers[-1][2]
         self.skipped_steps = 0

@@ -902,3 +902,36 @@ def test_dilated_segregated_matches_conventional(card):
     assert got.shape == want.shape == (4, 220, 220, 3)
     err = (got - want).abs().max().item()
     assert err <= 1e-4 * want.abs().max().item() + 1e-5
+
+
+def test_autotune_races_the_kernels_by_graph_replay(card, tmp_path, monkeypatch):
+    """On the card the kernels race beside the baselines, each timed by a
+    CUDA graph's replay; the serving choice is one method per layer for
+    every bucket, and a ``fuse="auto"`` plan's batched samples are bitwise
+    their batch-1 calls."""
+    from repro_torch.kernels import autotune
+    from repro_torch.kernels import plan as planlib
+
+    monkeypatch.setenv("REPRO_AUTOTUNE_CACHE", str(tmp_path / "autotune.json"))
+    autotune.clear_cache(memory_only=True)
+    cfg = gan.reduced_config(gan.DCGAN, 4)
+    try:
+        autotune.tune_gan_zoo(batches=(1, 2), configs=(cfg,), repeats=2)
+        for (hw, cin, cout), epi in zip(cfg.layers, gan.generator_epilogues(cfg)):
+            rec = autotune.best_entry(2, hw, cfg.kernel, cin, cout, cfg.padding,
+                                      epilogue=epi)
+            assert set(rec["fwd"]["candidates"]) == {
+                *autotune.DEFAULT_CANDIDATES, "fused+postops"}
+            assert all(t > 0 for t in rec["fwd"]["candidates"].values())
+        plans = {b: gan.generator_plan(cfg, b) for b in (1, 2)}
+        assert [lp.method for lp in plans[1]] == [lp.method for lp in plans[2]]
+        assert {lp.source for lp in plans[2]} == {"tuned"}
+        params = gan.generator_init(torch.Generator().manual_seed(0), cfg, device=card)
+        z = torch.randn((2, cfg.z_dim), device=card)
+        both = gan.generator_apply(params, cfg, z, plan=plans[2])
+        for i in range(2):
+            one = gan.generator_apply(params, cfg, z[i : i + 1], plan=plans[1])
+            assert torch.equal(both[i : i + 1], one)
+        assert planlib.plan_follows_fuse(plans[2], "auto")
+    finally:
+        autotune.clear_cache(memory_only=True)

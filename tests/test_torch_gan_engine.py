@@ -170,6 +170,7 @@ def test_metrics_summary_math():
     m.record_reject()
     s = m.summary()
     assert s["samples"] == 4 and s["batches"] == 2 and s["requests"] == 4
+    assert s["bucket_batches"] == {4: 2}
     assert s["pad_waste"] == pytest.approx(0.5)
     assert s["samples_per_s"] == pytest.approx(2.0)
     assert s["latency_s"]["p50"] == pytest.approx(0.25)

@@ -13,6 +13,8 @@ import repro_torch
 from repro_torch.configs import get_config, reduced
 from repro_torch.data import SyntheticImages
 from repro_torch.device import resolve_device
+from repro_torch.kernels import autotune
+from repro_torch.kernels.epilogue import Epilogue
 from repro_torch.models import gan
 from repro_torch.models.lm import build_model
 from repro_torch.serve import GanEngine, Replica, ReplicaSupervisor, ServeEngine
@@ -79,7 +81,7 @@ def test_module_list_covers_the_slice():
                  "obs.timeline", "obs.export", "obs.flight_recorder",
                  "obs.audit", "obs.__main__", "serve.replica",
                  "serve.supervisor", "serve.fault_injection",
-                 "train.fault_injection"):
+                 "train.fault_injection", "kernels.autotune"):
         assert f"repro_torch.{name}" in MODULES
 
 
@@ -115,6 +117,12 @@ def _entry_points(cfg, params_cpu):
         "LM.init": lambda: lm.init(torch.Generator().manual_seed(0)),
         "ServeEngine": lambda: ServeEngine(lm, lm_cpu),
         "from_jax_lm_params": lambda: from_jax_lm_params(lm_np, lm_cfg, None),
+        "tune_layer": lambda: autotune.tune_layer(1, 4, 4, 8, 6, 2, repeats=1,
+                                                  persist=False),
+        "tune_pair": lambda: autotune.tune_pair(
+            1, 4, 4, 8, 6, 4, 2, repeats=1, persist=False,
+            epilogue1=Epilogue(bias=True, act="relu"),
+            epilogue2=Epilogue(bias=True, act="tanh")),
     }
 
 
@@ -124,7 +132,8 @@ def _entry_points(cfg, params_cpu):
                                    "from_jax_params", "discriminator_init",
                                    "SyntheticImages", "GanTrainer",
                                    "from_jax_state", "LM.init", "ServeEngine",
-                                   "from_jax_lm_params"])
+                                   "from_jax_lm_params", "tune_layer",
+                                   "tune_pair"])
 def test_entry_points_default_to_the_card(entry):
     """Without ``device=`` an entry point runs on the card; with no card it
     raises instead of falling back to the CPU."""

@@ -3,10 +3,8 @@
 The tests of ``tests/test_obs.py`` through the port's API: the tracer's
 disabled fast path, spans, counters and sinks; request timelines and their
 contract; the Chrome-trace and Prometheus exporters; the flight recorder;
-the autotune audit trail and its CLI; the engine's and the trainer's
-wiring; the shared percentile summary. ``test_autotune_race_records_audit_
-decision`` is not ported: it drives the autotuner, which the port does not
-have yet, and comes with it.
+the autotune audit trail, its CLI and the autotuner's race recording into
+it; the engine's and the trainer's wiring; the shared percentile summary.
 
 Then both packages on one event stream under one fake clock: equal
 ``summary()``, ``segments()``, Chrome trace (but for the exporter's name in
@@ -472,6 +470,28 @@ def test_audit_persists_jsonl_and_queries(tmp_path, monkeypatch):
         kind="layer", key="ephemeral", direction="step",
         entry={"method": "m", "time_s": 1.0}, persist=False)
     assert len(AuditTrail.load(audit)) == 3
+
+
+def test_autotune_race_records_audit_decision(tmp_path, monkeypatch):
+    from repro_torch.kernels.autotune import tune_layer
+    from repro_torch.obs.audit import set_trail
+
+    monkeypatch.setenv("REPRO_AUTOTUNE_CACHE", str(tmp_path / "autotune.json"))
+    trail = AuditTrail(path=None)
+    prev = set_trail(trail)
+    try:
+        tune_layer(1, 4, 4, 2, 3, 1, methods=("conventional", "unified_reshape"),
+                   repeats=1, warmup=0, persist=False, device="cpu")
+    finally:
+        set_trail(prev)
+    assert len(trail.records) == 1
+    rec = trail.records[0]
+    assert rec["kind"] == "layer" and rec["direction"] == "fwd"
+    assert rec["backend"] == "torch_cpu" and rec["key"].startswith("torch_cpu|")
+    assert rec["winner"] in ("conventional", "unified_reshape")
+    assert len(rec["candidates"]) == 2
+    assert rec["margin"] is not None and rec["margin"] >= 1.0
+    assert not (tmp_path / "autotune.json").exists()   # persist=False
 
 
 def _cli(*args):

@@ -489,11 +489,19 @@ def test_no_fusion_unless_asked():
                        for e in plan.entries)
 
 
-def test_fuse_auto_raises_until_the_autotuner():
+def test_fuse_auto_raises_until_the_autotuner(tmp_path, monkeypatch):
+    """``fuse="auto"`` no longer raises: it reads the autotuner's pair race
+    and, on an empty cache, leaves every pair back to back on every device
+    (the port's cold rule), so it compiles the ``fuse="off"`` plan. Any
+    other value still raises."""
+    monkeypatch.setenv("REPRO_AUTOTUNE_CACHE", str(tmp_path / "autotune.json"))
     cfg = gan.reduced_config(gan.DCGAN)
-    with pytest.raises(ValueError, match="autotuner"):
-        planlib.compile_plan(cfg, 2, epilogues=gan.generator_epilogues(cfg),
-                             fuse="auto")
+    epis = gan.generator_epilogues(cfg)
+    auto = planlib.compile_plan(cfg, 2, epilogues=epis, fuse="auto")
+    assert auto == planlib.compile_plan(cfg, 2, epilogues=epis, fuse="off")
+    assert auto.describe() == planlib.compile_plan(
+        cfg, 2, epilogues=epis, fuse="off").describe()
+    assert not any(isinstance(e, planlib.FusedPairPlan) for e in auto.entries)
     with pytest.raises(ValueError, match="fuse"):
         planlib.fuse_pairs(gan.generator_plan(cfg, 2), fuse="sometimes")
 

@@ -229,8 +229,12 @@ def test_supervisor_validation(tiny_dcgan):
     with pytest.raises(ValueError):
         ReplicaSupervisor([Replica("a", device="cpu")], device="cpu",
                           retry_budget=-1)
-    with pytest.raises(ValueError, match="autotuner"):         # no "auto" yet
-        Replica("a", device="cpu", fuse="auto")
+    # "auto" (the default, as the reference's) reads the autotuner's pair
+    # race; a value the pair pass does not know raises
+    assert Replica("a", device="cpu").fuse == "auto"
+    assert Replica("a", device="cpu", fuse="auto", train=True).train
+    with pytest.raises(ValueError, match="fuse"):
+        Replica("a", device="cpu", fuse="sometimes")
 
 
 def test_supervisor_inherits_engine_invariants(tiny_dcgan):
