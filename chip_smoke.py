@@ -14,11 +14,11 @@ Phases, in order; any failure raises and the script exits non-zero:
               (in parallel), with nvcc's -Xptxas -v report; the registers
               and spills of each instance of the fused kernel (16), of the
               per-phase kernel (10, (layout, R, ks)), of the implicit-GEMM
-              kernel (1) and of the dx kernels (rich, and poor at R 1-4),
-              which must all spill nothing, of the pair kernel (8
-              instances, R x D), of the dw kernels (2 rich tiles, 4 poor R)
-              and of the decode kernel (7: bf16 by head dimension, fp32 by
-              G).
+              kernel (1) and of the dx kernels (rich on gm and folding
+              act', and poor at R 1-4), which must all spill nothing, of
+              the pair kernel (8 instances, R x D), of the dw kernels (2 rich
+              tiles on gm and folding act', 4 poor R) and of the decode
+              kernel (7: bf16 by head dimension, fp32 by G).
 3. check   -- each forward kernel against its plain PyTorch version at the
               four DCGAN layer shapes at batch 8 and at odd geometries, the
               GEMM kernel also at GEMM_SHAPES' own (DCGAN and EB-GAN L0 at
@@ -61,13 +61,22 @@ Phases, in order; any failure raises and the script exits non-zero:
               its plain version at the same shapes and epilogues and at
               BWD_SHAPES' extra shapes (every dx and dw instance, every dx
               copy width), and dx with gm and the kernel 4 bytes off
-              16-byte alignment at DX_UNALIGNED_SHAPES, same tolerance.
+              16-byte alignment at DX_UNALIGNED_SHAPES, same tolerance; the
+              standalone epilogue-grad kernel bitwise its plain version; and
+              a hard gate: dx and dw given g, y and the epilogue (act'
+              folded into their staging, as the training path runs them)
+              bitwise equal in dx, dw and db to the standalone epilogue-grad
+              -> dx -> dw route, at every BWD_SHAPES shape and epilogue and
+              with y 4 bytes off alignment at DX_UNALIGNED_SHAPES.
 8. autograd -- the full-width DCGAN generator's parameter gradients of a
               scalar loss through the backward kernels against those of the
               plan pinned to bwd="autograd" (cuDNN), same tolerance.
 9. bwd times -- per DCGAN layer at batch 8: each backward kernel, its plain
               version, a one-call library yardstick and the bound, with
-              dx's instance and splits and dw's splits.
+              dx's instance and splits and dw's splits; the folded dx and dw
+              (events and graph us, with their bounds) beside the
+              three-kernel route of the same run, each whole route as one
+              graph, and the gm bytes the fold no longer allocates.
 10. pair check -- the per-phase kernel against its plain version at the
               four DCGAN shapes, ODD_SHAPES and PHASE_VARIANT_SHAPES (every
               compiled instance, both copy widths) with every epilogue, and
@@ -170,7 +179,9 @@ Phases, in order; any failure raises and the script exits non-zero:
               full-width DCGAN (GanTrainerConfig defaults, global batch 8;
               each step one CUDA graph): 3 graphed steps bitwise equal to 3
               eager ones; 6 steps checkpointing every 3 whose launch counts
-              are exactly 6 eager steps', with one capture; a
+              are exactly 6 eager steps', with one capture, no standalone
+              epilogue-grad launch and act' folded into every dx and dw
+              launch of a layer with an activation; a
               resume from step 3 bitwise equal to the uninterrupted run
               (losses, params, moments); a NaN step that leaves the state
               bitwise untouched; the time a step's inputs take to draw;
@@ -309,7 +320,8 @@ GEMM_SHAPES = DCGAN_SHAPES + ODD_SHAPES + [
     (2, 3, 2, 1, 8, 8),         # R = 1, one step: no split
 ]
 FORWARD = ("fused", "gemm")
-TRAINING = ("fused", "gemm", "epilogue_grad", "dx", "dw")
+# the training path's kernels; epilogue-grad runs folded into dx and dw
+TRAINING = ("fused", "gemm", "epilogue_grad_folded", "dx", "dw")
 DCGAN_PAIRS = [  # (B, N, n, P, C0, C1, C2): DCGAN L0-1 and L2-3 at batch 8
     (BATCH, 4, 4, 2, 1024, 512, 256), (BATCH, 16, 4, 2, 256, 128, 3),
 ]
@@ -447,10 +459,10 @@ def phase_build() -> dict:
     for src, kernel, label, want in (
             ("transpose_conv2d_phase", "phase_kernelI", "phase {} R{} ks{}", 10),
             ("transpose_conv2d_gemm", "gemm_kernel", "gemm", 1),
-            ("transpose_conv2d_bwd", "dx_kernel", "dx rich", 1),
+            ("transpose_conv2d_bwd", "dx_kernelI", "dx rich fold{}", 2),
             ("transpose_conv2d_bwd", "dx_poor_kernelI", "dx poor R{}", 4),
             ("transpose_conv2d_pair", "pair_kernelI", "pair R{} D{}", 8),
-            ("transpose_conv2d_bwd", "dw_kernelI", "dw rich {}x{}", 2),
+            ("transpose_conv2d_bwd", "dw_kernelI", "dw rich {}x{} fold{}", 4),
             ("transpose_conv2d_bwd", "dw_poor_kernelI", "dw poor R{}", 4),
             ("decode_attention", "split_kernelI", "decode {} G{} hd{}", 7)):
         found = {}
@@ -978,10 +990,39 @@ def _offset_view(torch, t, offset=1):
     return view
 
 
+def _fold_gate(torch, bw, x, k, g, y, epi, shape, tag) -> None:
+    """Raise unless dx, dw and db of the kernels given ``g``, ``y`` and the
+    epilogue (act' folded into their staging) are bitwise those of the
+    standalone epilogue-grad kernel, then dx and dw on the gm it wrote;
+    count that the folded launches are two where there is an activation
+    and that no standalone epilogue-grad kernel runs in them."""
+    n_in, n_k, pad = shape[1], shape[2], shape[3]
+    with_db = epi is not None and epi.bias
+    gm = bw.epilogue_grad(g, y, epi)
+    want = [bw.transpose_conv2d_dx(gm, k, n_in, pad)]
+    want += list(bw.transpose_conv2d_dw(x, gm, n_k, pad, with_db=True))
+    before = (bw.epilogue_grad.launches, bw.epilogue_grad.folded_launches)
+    got = [bw.transpose_conv2d_dx(g, k, n_in, pad, y=y, epilogue=epi)]
+    got += list(bw.transpose_conv2d_dw(x, g, n_k, pad, with_db=True, y=y, epilogue=epi))
+    torch.cuda.synchronize()
+    folded = 2 if epi is not None and epi.act != "none" else 0
+    after = (bw.epilogue_grad.launches, bw.epilogue_grad.folded_launches)
+    if after != (before[0], before[1] + folded):
+        raise AssertionError(f"fold at {shape} {tag}: counters {before} -> {after}")
+    for name, a, b in zip(("dx", "dw", "db"), got, want):
+        if name == "db" and not with_db:
+            continue
+        if not torch.equal(a, b):
+            raise AssertionError(
+                f"fold at {shape} {tag}: {name} is not bitwise the three-kernel "
+                f"route's (max abs diff {(a - b).abs().max().item():.3e})")
+
+
 def phase_bwd_check(torch) -> dict:
     """Each backward kernel against its plain version. The plain forward
     gives ``y``; the plain epilogue-grad gives the ``gm`` that both dx and
-    dw versions take, so each error is the kernel's own."""
+    dw versions take, so each error is the kernel's own. Then the fold of
+    act' into dx and dw against the three-kernel route, bitwise."""
     from repro_torch.kernels import transpose_conv2d as tcf
 
     from repro_torch.kernels import transpose_conv2d_bwd as bw
@@ -1001,8 +1042,11 @@ def phase_bwd_check(torch) -> dict:
             y = tcf.transpose_conv2d_fused_plain(x, k, pad, epilogue=epi,
                                                  bias=bias if epi else None)
             gm = bwd["epilogue_grad"][1](g, y, epi)
-            _worst("epilogue_grad", shape, tag,
-                   [(bwd["epilogue_grad"][0](g, y, epi), gm)], worst)
+            got = bwd["epilogue_grad"][0](g, y, epi)
+            if not torch.equal(got, gm):
+                raise AssertionError(f"epilogue_grad at {shape} {tag} is not bitwise "
+                                     f"its plain version")
+            _worst("epilogue_grad", shape, tag, [(got, gm)], worst)
             _worst("dx", shape, tag,
                    [(bwd["dx"][0](gm, k, n_in, pad), bwd["dx"][1](gm, k, n_in, pad))],
                    worst)
@@ -1010,11 +1054,13 @@ def phase_bwd_check(torch) -> dict:
             want = bwd["dw"][1](x, gm, n_k, pad, with_db=with_db)
             _worst("dw", shape, tag,
                    list(zip(got, want)) if with_db else [(got, want)], worst)
+            _fold_gate(torch, bw, x, k, g, y, epi, shape, tag)
         torch.cuda.synchronize()
         geo = bw.bwd_geometry(*shape)
         log(f"[bwd-check] {shape} dx {geo.dx_variant} splits {geo.dx_splits}, dw "
             f"{geo.dw_variant} splits {geo.dw_splits}: every epilogue within "
-            f"tolerance; worst so far "
+            f"tolerance, epilogue-grad bitwise its plain version, folded dx/dw/db "
+            f"bitwise the three-kernel route; worst so far "
             + ", ".join(f"{n} {e:.3e}" for n, e in worst.items()))
     for i, shape in enumerate(DX_UNALIGNED_SHAPES):
         _, k, _, gm = _bwd_inputs(torch, shape, seed=300 + i)
@@ -1026,9 +1072,19 @@ def phase_bwd_check(torch) -> dict:
         _worst("dx", shape, "unaligned",
                [(bwd["dx"][0](gu, ku, n_in, pad), bwd["dx"][1](gm, k, n_in, pad))],
                worst)
+        # y 4 bytes off alignment: g and y take the 4-byte copies in dx and dw
+        x, k, bias, g = _bwd_inputs(torch, shape, seed=400 + i)
+        epi = epilogues()[3]
+        y = tcf.transpose_conv2d_fused_plain(x, k, pad, epilogue=epi, bias=bias)
+        yu = _offset_view(torch, y)
+        if bw.dx_copy_widths(g, k, yu)[0] or not bw.dx_copy_widths(g, k, y)[0]:
+            raise AssertionError(f"the fold at {shape} does not reach 4-byte copies "
+                                 "through an unaligned y")
+        _fold_gate(torch, bw, x, k, g, yu, epi, shape, "unaligned y")
         torch.cuda.synchronize()
         log(f"[bwd-check] {shape} dx {bw.bwd_geometry(*shape).dx_variant} with "
-            f"unaligned gm and kernel: within tolerance; worst dx {worst['dx']:.3e}")
+            f"unaligned gm and kernel: within tolerance; worst dx {worst['dx']:.3e}; "
+            f"with an unaligned y the folded dx/dw/db bitwise the three-kernel route")
     return worst
 
 
@@ -1070,23 +1126,32 @@ def phase_autograd(torch) -> dict:
 
 def _bwd_bounds(shape) -> dict:
     """Least times of the three backward kernels at ``shape``: dx and dw do
-    the forward's MACs; epilogue-grad reads g and y and writes gm."""
+    the forward's MACs; epilogue-grad reads g and y and writes gm (3
+    operations an element at most: tanh's). The folded dx and dw read g and
+    y where the others read gm and do those operations too; the backward
+    (either route) reads g, y, x and the kernel once and writes dx, dw and
+    db once."""
     from repro_torch.core.segregation import flop_count, output_size
 
     b, n_in, n_k, pad, cin, cout = shape
     m = output_size(n_in, n_k, pad)
     flops = 2 * b * flop_count(n_in, n_k, cin, cout, pad)
     x_b, g_b, w_b = 4 * b * n_in * n_in * cin, 4 * b * m * m * cout, 4 * n_k * n_k * cin * cout
-
+    act = 3 * b * m * m * cout
     return {"dx": _limits(flops, g_b + w_b + x_b),
             "dw": _limits(flops, x_b + g_b + w_b + 4 * cout),
-            "epilogue_grad": _limits(3 * b * m * m * cout, 3 * g_b)}
+            "epilogue_grad": _limits(act, 3 * g_b),
+            "dx_folded": _limits(flops + act, 2 * g_b + w_b + x_b),
+            "dw_folded": _limits(flops + act, x_b + 2 * g_b + w_b + 4 * cout),
+            "bwd": _limits(2 * flops + act, 2 * x_b + 2 * g_b + 2 * w_b + 4 * cout)}
 
 
 def phase_bwd_times(torch) -> list:
     """Per DCGAN layer at batch 8, by CUDA events: each backward kernel,
     its plain version, one library call of the same function (never called
-    by the port) and the bound."""
+    by the port) and the bound; the folded dx and dw (act' applied as they
+    stage g) beside them, and each whole route, three kernels or two, as
+    one graph, timed in turns (three, folded, folded, three)."""
     from repro_torch.kernels import transpose_conv2d_bwd as bw
     from repro_torch.kernels.transpose_conv2d import transpose_conv2d_fused
     from repro_torch.models import gan
@@ -1142,6 +1207,31 @@ def phase_bwd_times(torch) -> list:
             "dx_library": _device_us(torch, conv_bwd, *conv_args, [True, False, False]),
             "dw_library": _device_us(torch, conv_bwd, *conv_args, [False, True, True]),
         }
+        # act' folded into dx and dw, as the training path runs them
+        folded = dict(y=y, epilogue=epi)
+        row["dx_folded_ms"] = time_cuda(bw.transpose_conv2d_dx, g, k, n_in, pad, **folded)
+        row["dw_folded_ms"] = time_cuda(bw.transpose_conv2d_dw, x, g, n_k, pad,
+                                        with_db=True, **folded)
+        row["device_us"]["dx_folded"] = _device_us(torch, bw.transpose_conv2d_dx, g, k,
+                                                   n_in, pad, **folded)
+        row["device_us"]["dw_folded"] = _device_us(torch, bw.transpose_conv2d_dw, x, g,
+                                                   n_k, pad, with_db=True, **folded)
+
+        def three(x, k, g, y):   # the standalone epilogue-grad, then dx and dw
+            gm = bw.epilogue_grad(g, y, epi)
+            return (bw.transpose_conv2d_dx(gm, k, n_in, pad),
+                    bw.transpose_conv2d_dw(x, gm, n_k, pad, with_db=True))
+
+        def two(x, k, g, y):     # the composer: the folded dx and dw
+            return bw.transpose_conv2d_bwd(x, k, g, pad, epilogue=epi, y=y)
+
+        abba = [_device_us(torch, fn, x, k, g, y) for fn in (three, two, two, three)]
+        row["route_us_abba"] = abba
+        row["device_us"]["route_three"] = (abba[0] + abba[3]) / 2
+        row["device_us"]["route_folded"] = (abba[1] + abba[2]) / 2
+        row["route_three_ms"] = time_cuda(three, x, k, g, y)
+        row["route_folded_ms"] = time_cuda(two, x, k, g, y)
+        row["gm_bytes_not_allocated"] = gm.numel() * gm.element_size()
         rows.append(row)
         log(f"[bwd-times] L{i} {shape}: " + " | ".join(
             f"{n} {row[n + '_ms'] * 1e3:.2f} us (plain {row[n + '_plain_ms'] * 1e3:.2f},"
@@ -1149,6 +1239,19 @@ def phase_bwd_times(torch) -> list:
             f"{row['bounds'][n]['bound_ms'] * 1e3:.2f} {row['bounds'][n]['bound_by']})"
             for n in ("epilogue_grad", "dx", "dw")) + f" splits {row['geometry']}")
         log(f"[bwd-times] L{i} device-only us (graph replay): {row['device_us']}")
+        du = row["device_us"]
+        log(f"[bwd-fold] L{i} {epi.act}: graph us three-kernel route "
+            f"{du['epilogue_grad']:.2f} + {du['dx']:.2f} + {du['dw']:.2f} = "
+            f"{du['epilogue_grad'] + du['dx'] + du['dw']:.2f}, folded "
+            f"{du['dx_folded']:.2f} + {du['dw_folded']:.2f} = "
+            f"{du['dx_folded'] + du['dw_folded']:.2f} (bounds dx "
+            f"{row['bounds']['dx_folded']['bound_ms'] * 1e3:.2f}, dw "
+            f"{row['bounds']['dw_folded']['bound_ms'] * 1e3:.2f}); whole route as one "
+            f"graph, three {du['route_three']:.2f} against folded "
+            f"{du['route_folded']:.2f} (in turns {[round(a, 2) for a in abba]}; bound "
+            f"{row['bounds']['bwd']['bound_ms'] * 1e3:.2f}); events ms three "
+            f"{row['route_three_ms']:.5f} folded {row['route_folded_ms']:.5f}; gm not "
+            f"allocated {row['gm_bytes_not_allocated']} B")
     return rows
 
 
@@ -1210,12 +1313,17 @@ def _reset_counts() -> None:
         fn.launches = 0
     for fn in reducers.values():
         fn.reduce_launches = 0
+    wrappers["epilogue_grad"].folded_launches = 0
 
 
 def _read_counts() -> dict:
+    """Every counter: each wrapper's launches, each second pass's, and
+    ``epilogue_grad_folded``, the dx and dw launches that apply act' as
+    they stage g."""
     wrappers, reducers = _counters()
     counts = {name: fn.launches for name, fn in wrappers.items()}
     counts.update({name: fn.reduce_launches for name, fn in reducers.items()})
+    counts["epilogue_grad_folded"] = wrappers["epilogue_grad"].folded_launches
     return counts
 
 
@@ -1320,6 +1428,12 @@ def phase_train(torch) -> dict:
         if launches != want or min(launches[n] for n in TRAINING) < 1:
             raise AssertionError(f"6 graphed training steps counted {launches}, 6 eager "
                                  f"steps {want}")
+        # every generator layer has an activation: its backward is dx and dw
+        # with act' folded in, and no standalone epilogue-grad pass
+        if (launches["epilogue_grad"] != 0 or launches["epilogue_grad_folded"]
+                != launches["dx"] + launches["dw"]):
+            raise AssertionError(f"train: epilogue-grad not folded into every dx and "
+                                 f"dw launch: {launches}")
         if tr._graph is not graph:
             raise AssertionError("train: the step's graph was captured again")
         log(f"[train] 6 steps, losses {[(h['g_loss'], h['d_loss']) for h in hist]}")
@@ -3282,9 +3396,27 @@ def main() -> int:
                           lambda r, k: r["library_ms" if k == "_library_ms" else "pair" + k],
                           lambda r: r))
     for name in ("epilogue_grad", "dx", "dw"):   # launches: the 6-step training run
-        entries.append(_entry(name, train["launches_6_steps"][name], worst[name],
-                              bwd_times, lambda r, k, n=name: r[n + k],
-                              lambda r, n=name: r["bounds"][n]))
+        entry = _entry(name, train["launches_6_steps"][name], worst[name], bwd_times,
+                       lambda r, k, n=name: r[n + k], lambda r, n=name: r["bounds"][n])
+        if name == "epilogue_grad":
+            # the training path runs it folded into dx and dw: its launches
+            # are those (the standalone kernel's, 0, beside them), its times
+            # the standalone kernel's, with both routes' of the same run
+            folded = train["launches_6_steps"]["epilogue_grad_folded"]
+            entry.update({
+                "launches": entry["launches"] + folded,
+                "standalone_launches": entry["launches"], "folded_launches": folded,
+                "folded_into": "dx_kernel, dx_poor_kernel<R>, dw_kernel<BM,BN>, "
+                               "dw_poor_kernel<R> (act != 0); standalone "
+                               "epilogue_grad_kernel",
+                "three_kernel_route_ms": sum(r["route_three_ms"] for r in bwd_times),
+                "folded_route_ms": sum(r["route_folded_ms"] for r in bwd_times),
+                "three_kernel_route_graph_us": sum(r["device_us"]["route_three"]
+                                                   for r in bwd_times),
+                "folded_route_graph_us": sum(r["device_us"]["route_folded"]
+                                             for r in bwd_times),
+            })
+        entries.append(entry)
     # launches: the LM serving run; numbers: Llama-3-8B, S 4096, device-only
     d4k = decode_times[0]
     source, replaces = SOURCES["decode_attention"]

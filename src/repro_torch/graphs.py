@@ -20,7 +20,9 @@ functions eagerly, because the caller asked for the CPU; a capture that
 fails raises and never falls back to eager launches.
 
 The kernel wrappers count their launches in Python (``.launches``,
-``.reduce_launches``; :func:`repro_torch.kernels.wrappers`), which a
+``.reduce_launches``, and ``epilogue_grad.folded_launches`` for the dx and
+dw launches that apply its act'; :func:`repro_torch.kernels.wrappers`),
+which a
 replay would leave flat. :class:`LaunchCounters` takes the counts a
 capture made back (the capture launched nothing on the card) and each
 replay adds them again, so a counter counts what the card launched: eager
@@ -32,7 +34,7 @@ import torch
 
 from repro_torch.tree import tree_leaves, tree_map
 
-COUNTERS = ("launches", "reduce_launches")
+COUNTERS = ("launches", "reduce_launches", "folded_launches")
 
 
 class LaunchCounters:

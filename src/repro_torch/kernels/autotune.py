@@ -570,10 +570,11 @@ def bwd_roofline_proxy(
 ) -> float:
     """Seconds of a layer's backward (dx, dW and db).
 
-    ``"segregated"``: the segregated MACs of dx and of dW; g (and y) read
-    and gm written by the epilogue-grad pass where the epilogue has an
-    activation; gm, W, x read and dx, dW written once; the dx and dw split
-    partials of :func:`~repro_torch.kernels.transpose_conv2d_bwd.bwd_geometry`.
+    ``"segregated"``: the segregated MACs of dx and of dW; g, W, x read
+    and dx, dW written once, and y read by both kernels where the epilogue
+    has an activation (they apply act' as they stage g); the dx and dw
+    split partials of
+    :func:`~repro_torch.kernels.transpose_conv2d_bwd.bwd_geometry`.
 
     ``"autograd"``: autograd of the ``unified`` form: each phase
     convolution's input gradient over-computes into the ``R - 1`` zero
@@ -596,7 +597,7 @@ def bwd_roofline_proxy(
                   + _partials(g.dx_splits, dx_elems)
                   + _partials(g.dw_splits, dw_elems))
         if epi is not None and epi.act != "none":
-            nbytes += 3 * g_plane
+            nbytes += 2 * g_plane
     elif method == "autograd":
         over = ((hp + R - 1) / hp) ** 2
         flops = (1 + over) * macs2

@@ -7,7 +7,7 @@
 // plus sum_splits_kernel, the second pass of a split contraction.
 //
 // The functions (geometry computed in Python, transpose_conv2d_bwd.py):
-//   gm = g * act'(y)                                    (from the saved output y)
+//   gm = g * act'(y)         (from the saved output y; folded into dx and dw)
 //   dx[b,i,j,ci] = sum_{ph,p,q,co} gm[b, 2t+pr, 2u+pc, co] * S[wsel(ph), p, q, ci, co]
 //       t = i + roff(pr) - p, u = j + coff(pc) - q; zero where t, u < 0 or
 //       the output row/col 2t+pr, 2u+pc >= M
@@ -27,6 +27,18 @@
 // - epilogue-grad: one grid-stride pass, one read of g and y, one write. The
 //   products are rounded one by one (__fmul_rn/__fsub_rn, no FMA
 //   contraction), so the kernel gives the bits of the plain PyTorch version.
+//   A standalone pass is a launch floor (2-4 us for 1.5 us of bytes at most),
+//   so the backward of a layer does not run it: the four dx and dw instances
+//   take g, y and the activation (act != 0) and apply act_grad as they stage
+//   g. The rich ones load a thread's y pieces of a ring stage into
+//   registers (same mapping, same zero fill as its g pieces) and, after the
+//   FMAs of the stage being read, store g * act'(y) into the stage's slot:
+//   rich dx loads g into registers too, rich dw copies g by cp.async and
+//   rewrites it in place; no shared memory is added. Poor dx loads each
+//   pixel of a window once a position group, folds it and shares it through
+//   shared memory; poor dw applies it in registers. Every staged gm value
+//   has the standalone kernel's bits and every sum keeps its order; gm is
+//   never written, and each kernel reads y where it read gm.
 // - dx is an implicit GEMM: rows dx positions (b, i, j), columns Cin, the
 //   contraction over the stacked taps (parity, p, q) x Cout. Two layouts,
 //   chosen by Cout:
@@ -60,7 +72,8 @@
 //   takes one phase, one row tap p and 64 Cin; a thread keeps the R column
 //   taps of that row x 4 Cin x 4 Cout and walks phase-plane rows with a
 //   sliding window of R float4 pixels, so each x pixel is read once per
-//   (phase, p) and one gm pixel feeds R taps; 16 row slices of a block are
+//   (phase, p) and one gm pixel feeds R taps (one lane of the slice loads
+//   each of its channels, the shuffles share it); 16 row slices of a block are
 //   added in slice order through shared memory. The rows are split widely
 //   across blocks.
 // - Determinism: no atomics. Where the TPU carried a sum across sequential
@@ -84,24 +97,59 @@ using tconv::pick4;
 
 // ------------------------------------------------------------ epilogue grad
 
+// g * act'(y), the one expression of every kernel here that applies it: the
+// standalone pass and the dx and dw kernels that fold it into their staging
+// give the same bits for the same (g, y).
+template <int ACT>
+__device__ __forceinline__ float act_grad_c(float gv, float yv, float slope) {
+  if (ACT == 1) return yv > 0.f ? gv : 0.f;                                // relu
+  if (ACT == 2) return __fmul_rn(gv, __fsub_rn(1.f, __fmul_rn(yv, yv)));   // tanh
+  if (ACT == 3) return yv > 0.f ? gv : __fmul_rn(slope, gv);               // leaky
+  return gv;
+}
+
+__device__ __forceinline__ float act_grad(float gv, float yv, int act, float slope) {
+  switch (act) {
+    case 1: return act_grad_c<1>(gv, yv, slope);
+    case 2: return act_grad_c<2>(gv, yv, slope);
+    case 3: return act_grad_c<3>(gv, yv, slope);
+    default: return gv;
+  }
+}
+
+template <int ACT>
+__device__ __forceinline__ float4 act_grad4_c(float4 gv, float4 yv, float slope) {
+  return make_float4(act_grad_c<ACT>(gv.x, yv.x, slope), act_grad_c<ACT>(gv.y, yv.y, slope),
+                     act_grad_c<ACT>(gv.z, yv.z, slope), act_grad_c<ACT>(gv.w, yv.w, slope));
+}
+
+// act' of four channels, chosen at run time (the rich kernels' stores).
+__device__ __forceinline__ float4 act_grad4(float4 gv, float4 yv, int act, float slope) {
+  return make_float4(act_grad(gv.x, yv.x, act, slope), act_grad(gv.y, yv.y, act, slope),
+                     act_grad(gv.z, yv.z, act, slope), act_grad(gv.w, yv.w, act, slope));
+}
+
+// cp_quad's copy into registers: 4 floats from src of which n exist (zeros
+// after; none read when n <= 0), one 16-byte load where vec.
+__device__ __forceinline__ float4 ld_quad(const float* src, int n, bool vec) {
+  float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (n <= 0) return v;
+  if (vec) return __ldg(reinterpret_cast<const float4*>(src));
+  v.x = __ldg(src);
+  if (n > 1) v.y = __ldg(src + 1);
+  if (n > 2) v.z = __ldg(src + 2);
+  if (n > 3) v.w = __ldg(src + 3);
+  return v;
+}
+
 __global__ void epilogue_grad_kernel(const float* __restrict__ g,
                                      const float* __restrict__ y,
                                      float* __restrict__ out, long long n,
                                      int act, float slope) {
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
   for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-       i < n; i += stride) {
-    const float gv = g[i];
-    const float yv = y[i];
-    float r;
-    switch (act) {
-      case 1: r = yv > 0.f ? gv : 0.f; break;                                  // relu
-      case 2: r = __fmul_rn(gv, __fsub_rn(1.f, __fmul_rn(yv, yv))); break;     // tanh
-      case 3: r = yv > 0.f ? gv : __fmul_rn(slope, gv); break;                 // leaky
-      default: r = gv;
-    }
-    out[i] = r;
-  }
+       i < n; i += stride)
+    out[i] = act_grad(g[i], y[i], act, slope);
 }
 
 // ---------------------------------------------------------------------- dx
@@ -117,6 +165,8 @@ struct DxArgs {
   int vx;                // 16-byte dx stores (Cin a multiple of 4; poor)
   int n_groups;          // position groups of the poor layout
   int gpr;               // ... along a dx row
+  int act;               // 0: g is gm; else g * act'(y) is applied as g is staged
+  float slope;           // leaky_relu's negative slope (act 3)
 };
 
 // The rich layout (Cout > 4): rows are dx positions (b, i, j), columns Cin,
@@ -140,8 +190,13 @@ static_assert(DX_BM * DX_BK / 4 == 2 * DX_THREADS && DX_BN * DX_BK / 4 == 2 * DX
 // Issue this thread's copies of step `step` into the ring slot at `as`:
 // gm rows tid / 4 and 64 + tid / 4 (their pixel for this tap, resolved by
 // the thread) and weight rows ci0 + tid / 4 and ci0 + 64 + tid / 4, each
-// the 16-byte piece tid % 4 of the step.
-__device__ __forceinline__ void dx_stage(float* as, const float* __restrict__ g,
+// the 16-byte piece tid % 4 of the step. With act' folded (FOLD), the two g
+// pieces and their y pieces (same mapping, same zero fill) are loaded into
+// `gr` and `yr` instead; dx_put stores them folded.
+template <int FOLD>
+__device__ __forceinline__ void dx_stage(float* as, float4 (&gr)[2], float4 (&yr)[2],
+                                         const float* __restrict__ g,
+                                         const float* __restrict__ y,
                                          const float* __restrict__ w, const DxArgs& a,
                                          int step, int ci0, const int (&rb)[2],
                                          const int (&ri)[2], const int (&rj)[2]) {
@@ -168,10 +223,15 @@ __device__ __forceinline__ void dx_stage(float* as, const float* __restrict__ g,
     const int oh = 2 * t + pr;
     const int ow = 2 * u + pc;
     const bool in = rb[h] >= 0 && t >= 0 && u >= 0 && oh < a.M && ow < a.M;
-    const float* src = in
-        ? g + ((static_cast<long long>(rb[h]) * a.M + oh) * a.M + ow) * a.Cout + co
-        : g;
-    cp_quad(as + row * DX_P + 4 * (tid & 3), src, g, in ? a.Cout - co : 0, a.vg);
+    const long long off =
+        in ? ((static_cast<long long>(rb[h]) * a.M + oh) * a.M + ow) * a.Cout + co : 0;
+    const int n = in ? a.Cout - co : 0;
+    if (FOLD) {
+      gr[h] = ld_quad(g + off, n, a.vg);
+      yr[h] = ld_quad(y + off, n, a.vg);
+    } else {
+      cp_quad(as + row * DX_P + 4 * (tid & 3), g + off, g, n, a.vg);
+    }
     const int ci = ci0 + row;
     const bool win = tap_in && ci < a.Cin;
     const float* wsrc = win
@@ -181,9 +241,21 @@ __device__ __forceinline__ void dx_stage(float* as, const float* __restrict__ g,
   }
 }
 
+// Store this thread's two gm pieces, g * act'(y), into the ring slot at `as`.
+__device__ __forceinline__ void dx_put(float* as, const float4 (&gr)[2],
+                                       const float4 (&yr)[2], const DxArgs& a) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+    *reinterpret_cast<float4*>(as + ((threadIdx.x >> 2) + 64 * h) * DX_P +
+                               4 * (threadIdx.x & 3)) = act_grad4(gr[h], yr[h], a.act, a.slope);
+}
+
+// FOLD: one instance stages gm (act 0), the other g and y, folding act'.
+template <int FOLD>
 __global__ void __launch_bounds__(DX_THREADS)
-dx_kernel(const float* __restrict__ g, const float* __restrict__ w,
-          float* __restrict__ out, const __grid_constant__ DxArgs a) {
+dx_kernel(const float* __restrict__ g, const float* __restrict__ y,
+          const float* __restrict__ w, float* __restrict__ out,
+          const __grid_constant__ DxArgs a) {
   extern __shared__ __align__(16) float smem[];
   const int tid = threadIdx.x;
   const int cg = tid & 15;   // Cin cg + 16 j of the tile
@@ -212,17 +284,34 @@ dx_kernel(const float* __restrict__ g, const float* __restrict__ w,
 #pragma unroll
     for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
 
+  // act' folded: this thread's g and y pieces of the step in flight. They
+  // are loaded as the step's copies are issued and stored folded after the
+  // FMAs of the step being read (dx_put): gm goes through registers, so the
+  // fold adds no shared-memory traffic (staging y there and rewriting g in
+  // place cost 7-8 us at DCGAN L0-L2, probe)
+  float4 gr[2], yr[2];
+  {
+    // the first steps' loads all issued before any is stored: one wait
+    float4 pg[DX_STAGES - 1][2], py[DX_STAGES - 1][2];
 #pragma unroll
-  for (int st = 0; st < DX_STAGES - 1; ++st) {
-    if (st < nk) dx_stage(smem + st * DX_STAGE, g, w, a, c_lo + st, ci0, rb, ri, rj);
-    cp_async_commit();
+    for (int st = 0; st < DX_STAGES - 1; ++st) {
+      if (st < nk)
+        dx_stage<FOLD>(smem + st * DX_STAGE, pg[st], py[st], g, y, w, a, c_lo + st, ci0, rb,
+                       ri, rj);
+      cp_async_commit();
+    }
+#pragma unroll
+    for (int st = 0; st < DX_STAGES - 1; ++st)
+      if (FOLD && st < nk) dx_put(smem + st * DX_STAGE, pg[st], py[st], a);
   }
   for (int k = 0; k < nk; ++k) {
     cp_async_wait<DX_STAGES - 2>();   // this thread's copies of step k landed
     __syncthreads();                  // everyone's did; step k - 1 is consumed
-    if (k + DX_STAGES - 1 < nk)
-      dx_stage(smem + (k + DX_STAGES - 1) % DX_STAGES * DX_STAGE, g, w, a,
-               c_lo + k + DX_STAGES - 1, ci0, rb, ri, rj);
+    const bool next = k + DX_STAGES - 1 < nk;
+    float* const next_slot = smem + (k + DX_STAGES - 1) % DX_STAGES * DX_STAGE;
+    if (next)
+      dx_stage<FOLD>(next_slot, gr, yr, g, y, w, a, c_lo + k + DX_STAGES - 1, ci0, rb, ri,
+                     rj);
     cp_async_commit();
     const float* as = smem + (k % DX_STAGES) * DX_STAGE;
     const float* bs = as + DX_BM * DX_P;
@@ -245,6 +334,9 @@ dx_kernel(const float* __restrict__ g, const float* __restrict__ w,
         }
       }
     }
+    // the next step's gm pieces: its slot held step k - 1, consumed before
+    // this step's barrier; the barrier of step k + 1 publishes them
+    if (FOLD && next) dx_put(next_slot, gr, yr, a);
   }
   cp_async_wait<0>();
 
@@ -274,15 +366,108 @@ constexpr int DXP_THREADS = 256;
 constexpr int DXP_CT = 32;     // Cin a block
 constexpr int DXP_NP = 8;      // positions a thread
 constexpr int DXP_GROUPS = DXP_THREADS / (DXP_CT / 4);   // position groups a block
+constexpr int MAX_R = 4;       // the poor layouts' largest stacked sub-kernel
 
 template <int R>
 constexpr int dx_poor_smem() { return 4 * 4 * R * R * DXP_CT * 4; }
 
+// One thread's walk of the poor layout: for each parity and row tap a
+// sliding window of gm pixels, the R column taps applied to its 8 positions.
+// ACT is a template argument so that no branch sits between a window's
+// loads: a run-time choice a pixel ran the unfolded kernel 1.4x slower
+// (probe). Where ACT folds act', the 8 lanes of the position group (its Cin
+// quads) share each window instead of each loading all of it: lane cq loads
+// g and y of pixels cq and cq + 8, forms g * act'(y) and writes it to the
+// group's window `gwin` in shared memory, and every lane reads the window
+// back, so each pixel is loaded and folded once a group, not 8 times.
+template <int R, int ACT>
+__device__ __forceinline__ void dx_poor_walk(const float* __restrict__ g,
+                                             const float* __restrict__ y,
+                                             const float* wsm, float4* gwin, const DxArgs& a,
+                                             int b, int i, int j0, int cq,
+                                             float4 (&acc)[DXP_NP]) {
+  const unsigned gmask = 0xffu << (threadIdx.x & 24);   // the group's 8 lanes
+  const long long img = static_cast<long long>(b) * a.M * a.M * a.Cout;
+  auto load = [&](const float* src) {   // a pixel's Cout channels, zeros after
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (a.vg) {
+      v = __ldg(reinterpret_cast<const float4*>(src));
+    } else {
+      v.x = __ldg(src);
+      if (a.Cout > 1) v.y = __ldg(src + 1);
+      if (a.Cout > 2) v.z = __ldg(src + 2);
+      if (a.Cout > 3) v.w = __ldg(src + 3);
+    }
+    return v;
+  };
+  auto pixel = [&](int oh, int ow) {
+    const long long off = img + (static_cast<long long>(oh) * a.M + ow) * a.Cout;
+    if (ACT == 0) return load(g + off);
+    return act_grad4_c<ACT>(load(g + off), load(y + off), a.slope);
+  };
+#pragma unroll
+  for (int ph = 0; ph < 4; ++ph) {
+    const int pr = ph >> 1;
+    const int pc = ph & 1;
+    const int u0 = j0 + pick2(a.coff, pc) - (R - 1);   // the window's first plane column
+#pragma unroll
+    for (int p = 0; p < R; ++p) {
+      const int t = i + pick2(a.roff, pr) - p;
+      const int oh = 2 * t + pr;
+      if (t < 0 || oh >= a.M) continue;
+      float4 win[DXP_NP + R - 1];
+      if (ACT == 0) {
+#pragma unroll
+        for (int m = 0; m < DXP_NP + R - 1; ++m) {
+          const int u = u0 + m;
+          const int ow = 2 * u + pc;
+          win[m] = u >= 0 && ow < a.M ? pixel(oh, ow) : make_float4(0.f, 0.f, 0.f, 0.f);
+        }
+      } else {
+        __syncwarp(gmask);   // the group has read its last window
+        for (int m = cq; m < DXP_NP + R - 1; m += DXP_CT / 4) {
+          const int u = u0 + m;
+          const int ow = 2 * u + pc;
+          gwin[m] = u >= 0 && ow < a.M ? pixel(oh, ow) : make_float4(0.f, 0.f, 0.f, 0.f);
+        }
+        __syncwarp(gmask);   // ... and written this one
+#pragma unroll
+        for (int m = 0; m < DXP_NP + R - 1; ++m) win[m] = gwin[m];
+      }
+#pragma unroll
+      for (int q = 0; q < R; ++q) {
+        const float* wt = wsm + ((ph * R * R + p * R + q) * DXP_CT + 4 * cq) * 4;
+        float4 wv[4];
+#pragma unroll
+        for (int c = 0; c < 4; ++c) wv[c] = *reinterpret_cast<const float4*>(wt + 4 * c);
+#pragma unroll
+        for (int n = 0; n < DXP_NP; ++n) {
+          const float4 gv = win[n + R - 1 - q];   // plane column j0 + n + coff - q
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            float v = tconv::component(acc[n], c);
+            v = fmaf(gv.x, wv[c].x, v);
+            v = fmaf(gv.y, wv[c].y, v);
+            v = fmaf(gv.z, wv[c].z, v);
+            v = fmaf(gv.w, wv[c].w, v);
+            if (c == 0) acc[n].x = v;
+            else if (c == 1) acc[n].y = v;
+            else if (c == 2) acc[n].z = v;
+            else acc[n].w = v;
+          }
+        }
+      }
+    }
+  }
+}
+
 template <int R>
 __global__ void __launch_bounds__(DXP_THREADS)
-dx_poor_kernel(const float* __restrict__ g, const float* __restrict__ w,
-               float* __restrict__ out, const __grid_constant__ DxArgs a) {
+dx_poor_kernel(const float* __restrict__ g, const float* __restrict__ y,
+               const float* __restrict__ w, float* __restrict__ out,
+               const __grid_constant__ DxArgs a) {
   extern __shared__ __align__(16) float smem[];   // [tap][ci][4]
+  __shared__ float4 windows[DXP_GROUPS][DXP_NP + MAX_R - 1];   // folded windows, a group each
   const int tid = threadIdx.x;
   const int ci0 = blockIdx.y * DXP_CT;
   // the weights: row (tap, ci) of 4 R R x 32, a float4 of Cout channels each
@@ -311,65 +496,16 @@ dx_poor_kernel(const float* __restrict__ g, const float* __restrict__ w,
   const int b = grp / (a.N * a.gpr);
   const int i = grp / a.gpr % a.N;
   const int j0 = grp % a.gpr * DXP_NP;
-  const float* gb = g + static_cast<long long>(b) * a.M * a.M * a.Cout;
-  auto pixel = [&](int oh, int ow) {   // a gm pixel's Cout channels, zeros after
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    const float* src = gb + (static_cast<long long>(oh) * a.M + ow) * a.Cout;
-    if (a.vg) {
-      v = __ldg(reinterpret_cast<const float4*>(src));
-    } else {
-      v.x = __ldg(src);
-      if (a.Cout > 1) v.y = __ldg(src + 1);
-      if (a.Cout > 2) v.z = __ldg(src + 2);
-      if (a.Cout > 3) v.w = __ldg(src + 3);
-    }
-    return v;
-  };
 
   float4 acc[DXP_NP];
 #pragma unroll
   for (int n = 0; n < DXP_NP; ++n) acc[n] = make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll
-  for (int ph = 0; ph < 4; ++ph) {
-    const int pr = ph >> 1;
-    const int pc = ph & 1;
-    const int u0 = j0 + pick2(a.coff, pc) - (R - 1);   // the window's first plane column
-#pragma unroll
-    for (int p = 0; p < R; ++p) {
-      const int t = i + pick2(a.roff, pr) - p;
-      const int oh = 2 * t + pr;
-      if (t < 0 || oh >= a.M) continue;
-      float4 win[DXP_NP + R - 1];
-#pragma unroll
-      for (int m = 0; m < DXP_NP + R - 1; ++m) {
-        const int u = u0 + m;
-        const int ow = 2 * u + pc;
-        win[m] = u >= 0 && ow < a.M ? pixel(oh, ow) : make_float4(0.f, 0.f, 0.f, 0.f);
-      }
-#pragma unroll
-      for (int q = 0; q < R; ++q) {
-        const float* wt = smem + ((ph * R * R + p * R + q) * DXP_CT + 4 * cq) * 4;
-        float4 wv[4];
-#pragma unroll
-        for (int c = 0; c < 4; ++c) wv[c] = *reinterpret_cast<const float4*>(wt + 4 * c);
-#pragma unroll
-        for (int n = 0; n < DXP_NP; ++n) {
-          const float4 gv = win[n + R - 1 - q];   // plane column j0 + n + coff - q
-#pragma unroll
-          for (int c = 0; c < 4; ++c) {
-            float v = tconv::component(acc[n], c);
-            v = fmaf(gv.x, wv[c].x, v);
-            v = fmaf(gv.y, wv[c].y, v);
-            v = fmaf(gv.z, wv[c].z, v);
-            v = fmaf(gv.w, wv[c].w, v);
-            if (c == 0) acc[n].x = v;
-            else if (c == 1) acc[n].y = v;
-            else if (c == 2) acc[n].z = v;
-            else acc[n].w = v;
-          }
-        }
-      }
-    }
+  float4* gwin = windows[tid / (DXP_CT / 4)];
+  switch (a.act) {
+    case 1: dx_poor_walk<R, 1>(g, y, smem, gwin, a, b, i, j0, cq, acc); break;
+    case 2: dx_poor_walk<R, 2>(g, y, smem, gwin, a, b, i, j0, cq, acc); break;
+    case 3: dx_poor_walk<R, 3>(g, y, smem, gwin, a, b, i, j0, cq, acc); break;
+    default: dx_poor_walk<R, 0>(g, y, smem, gwin, a, b, i, j0, cq, acc);
   }
 
   const int ci = ci0 + 4 * cq;
@@ -401,6 +537,8 @@ struct DwArgs {
   int per_split;         // positions (rich) or phase-plane rows (poor) a split
   int with_db;
   int vx, vw;            // 16-byte copies of x / of gm and the partial sums
+  int act;               // 0: g is gm; else g * act'(y) is applied as g is staged
+  float slope;           // leaky_relu's negative slope (act 3)
 };
 
 constexpr int DW_THREADS = 256;
@@ -415,6 +553,7 @@ struct DwTile {
   static constexpr int TX = BN / 8;              // threads along Cout
   static constexpr int STAGE = DW_BK * (BM + BN);  // floats: x rows, then gm rows
   static constexpr int SMEM = 4 * DW_STAGES * STAGE;
+  static constexpr int GP = BN / 64;              // gm pieces a thread a stage
   static_assert((BM / 8) * (BN / 8) == DW_THREADS, "8 x 8 a thread");
   static_assert(BM % 64 == 0 && BN % 64 == 0, "16 threads x 16 bytes a row");
 };
@@ -422,10 +561,14 @@ struct DwTile {
 // Issue this thread's copies of the ring stage of positions [k0, k0 + BK):
 // thread tid takes position k0 + tid / 16 and the 16-byte pieces tid % 16
 // + 16 j of its x row (Cin) and its gm row (Cout), so its position's two
-// pixels are resolved once, by its own index math.
-template <int BM, int BN>
-__device__ __forceinline__ void dw_stage(float* xs, const float* __restrict__ x,
-                                         const float* __restrict__ g, const DwArgs& a,
+// pixels are resolved once, by its own index math. With act' folded (FOLD),
+// g's pieces are copied where gm's would be and their y pieces (same
+// mapping, same zero fill) loaded into `yr`; dw_put folds them in place.
+template <int BM, int BN, int FOLD>
+__device__ __forceinline__ void dw_stage(float* xs, float4 (&yr)[BN / 64],
+                                         const float* __restrict__ x,
+                                         const float* __restrict__ g,
+                                         const float* __restrict__ y, const DwArgs& a,
                                          int k0, int k_end, int pr, int pc, int p, int q,
                                          int ci0, int co0) {
   float* gs = xs + DW_BK * BM;
@@ -459,16 +602,37 @@ __device__ __forceinline__ void dw_stage(float* xs, const float* __restrict__ x,
 #pragma unroll
   for (int j = 0; j < BN / 64; ++j) {
     const int co = co0 + 4 * (lane16 + 16 * j);
-    cp_quad(gs + kk * BN + 4 * (lane16 + 16 * j), gsrc >= 0 ? g + gsrc + co : g, g,
-            gsrc >= 0 ? a.Cout - co : 0, a.vw);
+    const long long off = gsrc >= 0 ? gsrc + co : 0;
+    const int n = gsrc >= 0 ? a.Cout - co : 0;
+    cp_quad(gs + kk * BN + 4 * (lane16 + 16 * j), g + off, g, n, a.vw);
+    if (FOLD) yr[j] = ld_quad(y + off, n, a.vw);
   }
 }
 
+// Rewrite this thread's g pieces of the stage at `xs` in place with
+// g * act'(y), once its own copies of them have landed.
 template <int BM, int BN>
-__global__ void __launch_bounds__(DW_THREADS)
+__device__ __forceinline__ void dw_put(float* xs, const float4 (&yr)[BN / 64],
+                                       const DwArgs& a) {
+  float* gs = xs + DW_BK * BM;
+  cp_async_wait<0>();
+#pragma unroll
+  for (int j = 0; j < BN / 64; ++j) {
+    float4* piece = reinterpret_cast<float4*>(gs + threadIdx.x / 16 * BN +
+                                              4 * (threadIdx.x % 16 + 16 * j));
+    *piece = act_grad4(*piece, yr[j], a.act, a.slope);
+  }
+}
+
+// Two blocks an SM (128 registers at most: left to itself the instance that
+// folds act' takes 129, one block an SM, and runs 1.1x slower at DCGAN
+// L0-L2, probe). FOLD: one instance a tile stages gm (act 0), the other g
+// and y, folding act'.
+template <int BM, int BN, int FOLD>
+__global__ void __launch_bounds__(DW_THREADS, 2)
 dw_kernel(const float* __restrict__ x, const float* __restrict__ g,
-          float* __restrict__ part, float* __restrict__ db_part,
-          const __grid_constant__ DwArgs a) {
+          const float* __restrict__ y, float* __restrict__ part,
+          float* __restrict__ db_part, const __grid_constant__ DwArgs a) {
   using T = DwTile<BM, BN>;
   extern __shared__ __align__(16) float smem[];
   const int tid = threadIdx.x;
@@ -499,20 +663,35 @@ dw_kernel(const float* __restrict__ x, const float* __restrict__ g,
     for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
   float dbacc = 0.f;
 
+  // act' folded: g is copied into the stage as gm is, and this thread's y
+  // pieces of the stage in flight wait in registers; after the FMAs of the
+  // stage being read, the thread rewrites its g pieces of that stage in place
+  // (dw_put). Holding g in registers as well, as dx does, spills at two
+  // blocks an SM and runs slower (probe).
+  float4 yr[T::GP];
+  {
+    // the first stages' loads all issued before any is folded: one wait
+    float4 py[DW_STAGES - 1][T::GP];
 #pragma unroll
-  for (int s = 0; s < DW_STAGES - 1; ++s) {
-    if (s < steps)
-      dw_stage<BM, BN>(smem + s * T::STAGE, x, g, a, k_begin + s * DW_BK, k_end,
-                       pr, pc, p, q, ci0, co0);
-    cp_async_commit();
+    for (int s = 0; s < DW_STAGES - 1; ++s) {
+      if (s < steps)
+        dw_stage<BM, BN, FOLD>(smem + s * T::STAGE, py[s], x, g, y, a, k_begin + s * DW_BK,
+                               k_end, pr, pc, p, q, ci0, co0);
+      cp_async_commit();
+    }
+#pragma unroll
+    for (int s = 0; s < DW_STAGES - 1; ++s)
+      if (FOLD && s < steps) dw_put<BM, BN>(smem + s * T::STAGE, py[s], a);
   }
   for (int k = 0; k < steps; ++k) {
     cp_async_wait<DW_STAGES - 2>();   // this thread's copies of stage k landed
     __syncthreads();                  // everyone's did; stage k - 1 is consumed
-    if (k + DW_STAGES - 1 < steps)
-      dw_stage<BM, BN>(smem + (k + DW_STAGES - 1) % DW_STAGES * T::STAGE, x, g, a,
-                       k_begin + (k + DW_STAGES - 1) * DW_BK, k_end, pr, pc, p, q,
-                       ci0, co0);
+    const bool next = k + DW_STAGES - 1 < steps;
+    float* const next_slot = smem + (k + DW_STAGES - 1) % DW_STAGES * T::STAGE;
+    if (next)
+      dw_stage<BM, BN, FOLD>(next_slot, yr, x, g, y, a,
+                             k_begin + (k + DW_STAGES - 1) * DW_BK, k_end, pr, pc, p, q, ci0,
+                             co0);
     cp_async_commit();
     const float* xs = smem + (k % DW_STAGES) * T::STAGE;
     const float* gs = xs + DW_BK * BM;
@@ -533,6 +712,9 @@ dw_kernel(const float* __restrict__ x, const float* __restrict__ g,
 #pragma unroll
         for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
     }
+    // the next stage's gm pieces: no other thread reads its slot before the
+    // barrier of stage k + 1, which publishes them
+    if (FOLD && next) dw_put<BM, BN>(next_slot, yr, a);
   }
   cp_async_wait<0>();
 
@@ -568,7 +750,8 @@ dw_kernel(const float* __restrict__ x, const float* __restrict__ g,
 template <int R>
 __global__ void __launch_bounds__(DW_THREADS)
 dw_poor_kernel(const float* __restrict__ x, const float* __restrict__ g,
-               float* __restrict__ part, float* __restrict__ db_part, const DwArgs a) {
+               const float* __restrict__ y, float* __restrict__ part,
+               float* __restrict__ db_part, const DwArgs a) {
   extern __shared__ __align__(16) float smem[];   // [slice][q, c, co][cg], db
   const int tid = threadIdx.x;
   const int cg = tid % 16;
@@ -587,6 +770,7 @@ dw_poor_kernel(const float* __restrict__ x, const float* __restrict__ g,
   const bool db_block = a.with_db && p == 0 && blockIdx.x == 0;
   const int u_end = min(a.Hp, (a.M - pc + 1) / 2);   // ow = 2u + pc < M
   const int ncin = a.Cin - ci;                      // channels of this quad that exist
+  const unsigned half = 0xffffu << (threadIdx.x & 16);   // the slice's 16 lanes
 
   float acc[R][4][4];
 #pragma unroll
@@ -606,7 +790,7 @@ dw_poor_kernel(const float* __restrict__ x, const float* __restrict__ g,
       const int ih = a.row0[pr] + t + p - a.pad_lo;
       const bool row_ok = kh < a.n_k && ih >= 0 && ih < a.N && ncin > 0;
       const float* xrow = x + ((static_cast<long long>(b) * a.N + (row_ok ? ih : 0)) * a.N) * a.Cin + ci;
-      const float* grow = g + ((static_cast<long long>(b) * a.M + oh) * a.M + pc) * a.Cout;
+      const long long grow = ((static_cast<long long>(b) * a.M + oh) * a.M + pc) * a.Cout;
       const int iw0 = a.col0[pc] - a.pad_lo;   // x column of (u, q) is iw0 + u + q
       auto pixel = [&](int iw) {
         float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -631,10 +815,18 @@ dw_poor_kernel(const float* __restrict__ x, const float* __restrict__ g,
 #pragma unroll
         for (int qq = 0; qq + 1 < R; ++qq) win[qq] = win[qq + 1];
         win[R - 1] = pixel(iw0 + u + R - 1);
-        const float* gp = grow + static_cast<long long>(2 * u) * a.Cout;
+        const long long gp = grow + static_cast<long long>(2 * u) * a.Cout;
+        // the slice's 16 lanes read the same gm pixel: lane cg < Cout loads
+        // channel cg (and forms g * act'(y) where act' is folded) and the
+        // slice takes the Cout channels by shuffles (zeros after)
+        float mine = 0.f;
+        if (cg < a.Cout) {
+          mine = __ldg(g + gp + cg);
+          if (a.act) mine = act_grad(mine, __ldg(y + gp + cg), a.act, a.slope);
+        }
         float gv[4];
 #pragma unroll
-        for (int co = 0; co < 4; ++co) gv[co] = co < a.Cout ? __ldg(gp + co) : 0.f;
+        for (int co = 0; co < 4; ++co) gv[co] = __shfl_sync(half, mine, co, 16);
 #pragma unroll
         for (int qq = 0; qq < R; ++qq) {
 #pragma unroll
@@ -715,27 +907,27 @@ int grid_stride_blocks(long long n, int threads) {
 // The Python geometry and the constants compiled here must describe the
 // same kernel: tile, shared memory and grid are checked.
 template <int BM, int BN>
-cudaError_t launch_dw(const float* x, const float* g, float* part, float* db_part,
-                      const DwArgs& a, int n_blocks, int n_taps, int splits,
-                      int smem_bytes, cudaStream_t stream) {
+cudaError_t launch_dw(const float* x, const float* g, const float* y, float* part,
+                      float* db_part, const DwArgs& a, int n_blocks, int n_taps,
+                      int splits, int smem_bytes, cudaStream_t stream) {
   using T = DwTile<BM, BN>;
   if (smem_bytes != T::SMEM || a.n_co_blocks != (a.Cout + BN - 1) / BN ||
       n_blocks != a.n_co_blocks * ((a.Cin + BM - 1) / BM) || n_taps != a.n_k * a.n_k ||
       a.per_split % DW_BK != 0)
     return cudaErrorInvalidValue;
-  auto kernel = dw_kernel<BM, BN>;
+  auto kernel = a.act ? dw_kernel<BM, BN, 1> : dw_kernel<BM, BN, 0>;
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        smem_bytes);
   if (e != cudaSuccess) return e;
   kernel<<<dim3(n_blocks, n_taps, splits), DW_THREADS, smem_bytes, stream>>>(
-      x, g, part, db_part, a);
+      x, g, y, part, db_part, a);
   return cudaGetLastError();
 }
 
 template <int R>
-cudaError_t launch_dw_poor(const float* x, const float* g, float* part, float* db_part,
-                           const DwArgs& a, int n_blocks, int n_taps, int splits,
-                           int smem_bytes, cudaStream_t stream) {
+cudaError_t launch_dw_poor(const float* x, const float* g, const float* y, float* part,
+                           float* db_part, const DwArgs& a, int n_blocks, int n_taps,
+                           int splits, int smem_bytes, cudaStream_t stream) {
   if (smem_bytes != dw_poor_smem<R>() || a.Cout > 4 || n_blocks != (a.Cin + 63) / 64 ||
       n_taps != 4 * R || (a.n_k + 1) / 2 != R)
     return cudaErrorInvalidValue;
@@ -744,7 +936,7 @@ cudaError_t launch_dw_poor(const float* x, const float* g, float* part, float* d
                                        smem_bytes);
   if (e != cudaSuccess) return e;
   kernel<<<dim3(n_blocks, n_taps, splits), DW_THREADS, smem_bytes, stream>>>(
-      x, g, part, db_part, a);
+      x, g, y, part, db_part, a);
   return cudaGetLastError();
 }
 
@@ -760,13 +952,14 @@ extern "C" int tconv_epilogue_grad_f32(const float* g, const float* y, float* ou
 
 // layout: 0 rich (128 positions x 128 Cin a block, split contraction), 1
 // poor (Cout <= 4: 32 groups of 8 positions x 32 Cin a block, R compiled).
-extern "C" int tconv_dx_f32(const float* g, const float* w, float* out,
+// act 0: g is gm and y is not read; 1-3: gm = g * act'(y) as g is staged.
+extern "C" int tconv_dx_f32(const float* g, const float* y, const float* w, float* out,
                             int B, int N, int Cin, int Cout, int n_k, int M, int R,
                             int roff0, int roff1, int coff0, int coff1,
                             int wsel0, int wsel1, int wsel2, int wsel3,
                             int layout, int tile_m, int tile_n, int n_blocks,
                             int n_ci_blocks, int splits, int cpt, int n_steps, int vg,
-                            int vx, int smem_bytes, void* stream) {
+                            int vx, int smem_bytes, int act, float slope, void* stream) {
   DxArgs a;
   a.B = B; a.N = N; a.Cin = Cin; a.Cout = Cout; a.n_k = n_k; a.M = M; a.R = R;
   a.roff[0] = roff0; a.roff[1] = roff1; a.coff[0] = coff0; a.coff[1] = coff1;
@@ -774,7 +967,9 @@ extern "C" int tconv_dx_f32(const float* g, const float* w, float* out,
   a.cpt = cpt; a.n_steps = n_steps; a.splits = splits; a.vg = vg; a.vx = vx;
   a.gpr = (N + DXP_NP - 1) / DXP_NP;
   a.n_groups = B * N * a.gpr;
+  a.act = act; a.slope = slope;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (act < 0 || act > 3) return static_cast<int>(cudaErrorInvalidValue);
   // the Python geometry and the constants compiled here must describe the
   // same kernel
   if (layout == 0) {
@@ -783,17 +978,18 @@ extern "C" int tconv_dx_f32(const float* g, const float* w, float* out,
         n_ci_blocks != (Cin + DX_BN - 1) / DX_BN || cpt != (Cout + DX_BK - 1) / DX_BK ||
         n_steps != 4 * R * R * cpt || splits < 1 || splits > n_steps)
       return static_cast<int>(cudaErrorInvalidValue);
-    cudaError_t e = cudaFuncSetAttribute(dx_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    auto kernel = act ? dx_kernel<1> : dx_kernel<0>;
+    cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          smem_bytes);
     if (e != cudaSuccess) return static_cast<int>(e);
-    dx_kernel<<<dim3(n_blocks, n_ci_blocks, splits), DX_THREADS, smem_bytes, s>>>(g, w, out, a);
+    kernel<<<dim3(n_blocks, n_ci_blocks, splits), DX_THREADS, smem_bytes, s>>>(g, y, w, out, a);
     return static_cast<int>(cudaGetLastError());
   }
   if (layout != 1 || tile_m != DXP_GROUPS * DXP_NP || tile_n != DXP_CT || Cout > 4 ||
       splits != 1 || n_blocks != (a.n_groups + DXP_GROUPS - 1) / DXP_GROUPS ||
       n_ci_blocks != (Cin + DXP_CT - 1) / DXP_CT || (n_k + 1) / 2 != R)
     return static_cast<int>(cudaErrorInvalidValue);
-  void (*kernel)(const float*, const float*, float*, const DxArgs) = nullptr;
+  void (*kernel)(const float*, const float*, const float*, float*, const DxArgs) = nullptr;
   int want = 0;
   switch (R) {
     case 1: kernel = dx_poor_kernel<1>; want = dx_poor_smem<1>(); break;
@@ -806,19 +1002,20 @@ extern "C" int tconv_dx_f32(const float* g, const float* w, float* out,
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        smem_bytes);
   if (e != cudaSuccess) return static_cast<int>(e);
-  kernel<<<dim3(n_blocks, n_ci_blocks), DXP_THREADS, smem_bytes, s>>>(g, w, out, a);
+  kernel<<<dim3(n_blocks, n_ci_blocks), DXP_THREADS, smem_bytes, s>>>(g, y, w, out, a);
   return static_cast<int>(cudaGetLastError());
 }
 
 // layout: 0 rich (tile_m x tile_n a block), 1 poor (Cout <= 4, 64 Cin a block).
-extern "C" int tconv_dw_f32(const float* x, const float* g, float* part, float* db_part,
-                            int B, int N, int Cin, int Cout, int n_k, int M, int Hp,
-                            int pad_lo, int row00, int row01, int col00, int col01,
-                            int ws0, int ws1, int ws2, int ws3,
+// act 0: g is gm and y is not read; 1-3: gm = g * act'(y) as g is staged.
+extern "C" int tconv_dw_f32(const float* x, const float* g, const float* y, float* part,
+                            float* db_part, int B, int N, int Cin, int Cout, int n_k,
+                            int M, int Hp, int pad_lo, int row00, int row01, int col00,
+                            int col01, int ws0, int ws1, int ws2, int ws3,
                             int ps0, int ps1, int ps2, int ps3, int layout, int tile_m,
                             int tile_n, int n_blocks, int n_taps, int splits,
                             int per_split, int with_db, int vx, int vw, int smem_bytes,
-                            void* stream) {
+                            int act, float slope, void* stream) {
   DwArgs a;
   a.B = B; a.N = N; a.Cin = Cin; a.Cout = Cout; a.n_k = n_k; a.M = M; a.Hp = Hp;
   a.pad_lo = pad_lo;
@@ -830,18 +1027,20 @@ extern "C" int tconv_dw_f32(const float* x, const float* g, float* part, float* 
   a.per_split = per_split;
   a.with_db = with_db;
   a.vx = vx; a.vw = vw;
+  a.act = act; a.slope = slope;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e = cudaErrorInvalidValue;
+  if (act < 0 || act > 3) return static_cast<int>(e);
   if (layout == 0 && tile_m == 128 && tile_n == 128)
-    e = launch_dw<128, 128>(x, g, part, db_part, a, n_blocks, n_taps, splits, smem_bytes, s);
+    e = launch_dw<128, 128>(x, g, y, part, db_part, a, n_blocks, n_taps, splits, smem_bytes, s);
   else if (layout == 0 && tile_m == 256 && tile_n == 64)
-    e = launch_dw<256, 64>(x, g, part, db_part, a, n_blocks, n_taps, splits, smem_bytes, s);
+    e = launch_dw<256, 64>(x, g, y, part, db_part, a, n_blocks, n_taps, splits, smem_bytes, s);
   else if (layout == 1 && tile_m == 64 && tile_n == 4) {
     switch ((n_k + 1) / 2) {
-      case 1: e = launch_dw_poor<1>(x, g, part, db_part, a, n_blocks, n_taps, splits, smem_bytes, s); break;
-      case 2: e = launch_dw_poor<2>(x, g, part, db_part, a, n_blocks, n_taps, splits, smem_bytes, s); break;
-      case 3: e = launch_dw_poor<3>(x, g, part, db_part, a, n_blocks, n_taps, splits, smem_bytes, s); break;
-      case 4: e = launch_dw_poor<4>(x, g, part, db_part, a, n_blocks, n_taps, splits, smem_bytes, s); break;
+      case 1: e = launch_dw_poor<1>(x, g, y, part, db_part, a, n_blocks, n_taps, splits, smem_bytes, s); break;
+      case 2: e = launch_dw_poor<2>(x, g, y, part, db_part, a, n_blocks, n_taps, splits, smem_bytes, s); break;
+      case 3: e = launch_dw_poor<3>(x, g, y, part, db_part, a, n_blocks, n_taps, splits, smem_bytes, s); break;
+      case 4: e = launch_dw_poor<4>(x, g, y, part, db_part, a, n_blocks, n_taps, splits, smem_bytes, s); break;
       default: break;
     }
   }

@@ -11,9 +11,11 @@ derivative is a function of ``y``), and the bias only when the epilogue
 adds one. The backward dispatches by the layer's plan
 (``LayerPlan.bwd_method``), as ``_dispatch_bwd`` does:
 
-  segregated  the three backward kernels of
+  segregated  the backward kernels of
               :mod:`repro_torch.kernels.transpose_conv2d_bwd` (the
-              reference's ``"pallas"``): epilogue-grad, dx, dw with db.
+              reference's ``"pallas"``): dx, and dw with db, each applying
+              ``act'(y)`` as it stages ``g`` (on the CPU: the plain
+              epilogue-grad, dx and dw).
   autograd    ``gm = g * act'(y)``, then torch autograd through
               :func:`repro_torch.core.transpose_conv.transpose_conv_unified`
               and ``db = sum gm`` (the reference's ``"lax"``). On the card

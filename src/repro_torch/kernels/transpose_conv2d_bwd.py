@@ -8,7 +8,10 @@ The cotangent ``g`` of a layer ``y = act(tconv(x, K) + b)`` splits into the
 four output-parity planes the forward writes, ``g_{pr,pc}[t, u] = g[2t+pr,
 2u+pc]``, and both gradients become dense stride-1 sums over them:
 
-* epilogue-grad: ``gm = g * act'(y)`` from the saved output ``y``.
+* epilogue-grad: ``gm = g * act'(y)`` from the saved output ``y``. On the
+  card the composer folds it into dx and dw: each takes ``g``, ``y`` and
+  the epilogue and applies ``act'`` as it stages ``g``, so ``gm`` is never
+  written; the standalone kernel stays for callers that want ``gm``.
 * dx: ``dx[b,i,j,ci] = sum_{pr,pc,p,q,co} gm[b, 2t+pr, 2u+pc, co] *
   S[wsel(pr,pc), p, q, ci, co]`` with ``t = i + offr(pr) - p``, ``u = j +
   offc(pc) - q`` and ``offr(pr) = pad_lo - row0(pr)``; a term whose ``t``
@@ -30,8 +33,9 @@ Each wrapper launches its kernel for a CUDA tensor and runs its plain
 version for a CPU tensor; it never falls back from one to the other. Each
 counts its kernel launches in ``.launches``; ``transpose_conv2d_dx`` and
 ``transpose_conv2d_dw`` count the split-K reduce pass apart, in
-``.reduce_launches``; a CUDA graph's replay adds the launches it captured
-(:mod:`repro_torch.graphs`). No kernel uses float atomics: a split reduction
+``.reduce_launches``, and each of their launches that applies ``act'`` as
+it stages ``g`` in ``epilogue_grad.folded_launches``; a CUDA graph's
+replay adds the launches it captured (:mod:`repro_torch.graphs`). No kernel uses float atomics: a split reduction
 writes its partial sums and a second pass adds them in split order.
 """
 from __future__ import annotations
@@ -267,10 +271,18 @@ def bwd_geometry(batch: int, n_in: int, n_k: int, padding: int, cin: int,
 def epilogue_grad_plain(g, y, epilogue) -> torch.Tensor:
     """``g * act'(y)`` in plain PyTorch; ``g`` itself when the epilogue has
     no activation."""
-    epi = epilib.canonical(epilogue)
-    if epi is None or epi.act == "none":
+    epi = _activation(epilogue)
+    if epi is None:
         return g
+    _check_y(g, y, epi)
     return epi.grad_from_y(g, y)
+
+
+def _activation(epilogue):
+    """The canonical epilogue where it has an activation (whose ``act'``
+    the backward applies to ``g``), else None."""
+    epi = epilib.canonical(epilogue)
+    return epi if epi is not None and epi.act != "none" else None
 
 
 def _parity_plane(gm, pr: int, pc: int, hp: int):
@@ -281,9 +293,13 @@ def _parity_plane(gm, pr: int, pc: int, hp: int):
     return g2.reshape(b, hp, 2, hp, 2, c)[:, :, pr, :, pc, :]
 
 
-def transpose_conv2d_dx_plain(gm, kernel, n_in: int, padding: int = 0):
+def transpose_conv2d_dx_plain(gm, kernel, n_in: int, padding: int = 0, *,
+                              y=None, epilogue=None):
     """The dx kernel's function in plain PyTorch: for each (parity, tap) a
-    shifted window of the parity plane times the transposed sub-kernel."""
+    shifted window of the parity plane times the transposed sub-kernel.
+    With an activation ``epilogue``, ``gm`` is the cotangent ``g`` and
+    :func:`epilogue_grad_plain` of it and ``y`` runs first."""
+    gm = epilogue_grad_plain(gm, y, epilogue)
     b, m, _, cout = gm.shape
     n_k, cin = kernel.shape[0], kernel.shape[2]
     if m != seg.output_size(n_in, n_k, padding):
@@ -311,10 +327,13 @@ def transpose_conv2d_dx_plain(gm, kernel, n_in: int, padding: int = 0):
 
 
 def transpose_conv2d_dw_plain(x, gm, n_k: int, padding: int = 0, *,
-                              with_db: bool = False):
+                              with_db: bool = False, y=None, epilogue=None):
     """The dw kernel's function in plain PyTorch: one ``(Cin, K) x (K,
     Cout)`` product per HWIO tap over its phase plane. ``with_db`` also
-    returns ``db = sum gm``."""
+    returns ``db = sum gm``. With an activation ``epilogue``, ``gm`` is the
+    cotangent ``g`` and :func:`epilogue_grad_plain` of it and ``y`` runs
+    first."""
+    gm = epilogue_grad_plain(gm, y, epilogue)
     b, n_in, _, cin = x.shape
     m, cout = gm.shape[1], gm.shape[3]
     if m != seg.output_size(n_in, n_k, padding):
@@ -345,9 +364,9 @@ def _lib():
         [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_float,
                                  ctypes.c_int, ctypes.c_void_p])
     lib.tconv_dx_f32.argtypes = (
-        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 26 + [ctypes.c_void_p])
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 27 + [ctypes.c_float, ctypes.c_void_p])
     lib.tconv_dw_f32.argtypes = (
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 31 + [ctypes.c_void_p])
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 32 + [ctypes.c_float, ctypes.c_void_p])
     lib.tconv_sum_splits_f32.argtypes = (
         [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int] * 2
         + [ctypes.c_void_p])
@@ -389,11 +408,10 @@ def epilogue_grad(g, y, epilogue) -> torch.Tensor:
     is returned) for a missing, identity or bias-only epilogue. A CUDA
     tensor launches the kernel (or raises); a CPU tensor runs
     :func:`epilogue_grad_plain`."""
-    epi = epilib.canonical(epilogue)
-    if epi is None or epi.act == "none":
+    epi = _activation(epilogue)
+    if epi is None:
         return g
-    if g.shape != y.shape:
-        raise ValueError(f"g {tuple(g.shape)} and y {tuple(y.shape)} differ")
+    _check_y(g, y, epi)
     if g.device.type == "cpu" and y.device.type == "cpu":
         return epilogue_grad_plain(g, y, epi)
     check_cuda_operands(g, y)
@@ -412,28 +430,59 @@ def epilogue_grad(g, y, epilogue) -> torch.Tensor:
     return out
 
 
-def dx_copy_widths(gm, kernel) -> tuple:
-    """``(vg, vx)`` of a dx launch: 16-byte gm and weight copies where Cout
-    is a multiple of 4 and both operands start 16-byte aligned, else 4-byte
-    ones; 16-byte dx stores where Cin is a multiple of 4 (dx is allocated
-    aligned). A width never changes a sum."""
+def _check_y(g, y, epi) -> None:
+    if y is None:
+        raise ValueError(f"epilogue {epi.tag()!r} backward needs the saved output y")
+    if g.shape != y.shape:
+        raise ValueError(f"g {tuple(g.shape)} and y {tuple(y.shape)} differ")
+
+
+def _aligned(*tensors) -> bool:
+    """Every tensor given starts 16-byte aligned (None is skipped)."""
+    return all(t.data_ptr() % 16 == 0 for t in tensors if t is not None)
+
+
+def dx_copy_widths(gm, kernel, y=None) -> tuple:
+    """``(vg, vx)`` of a dx launch: 16-byte gm (or g and ``y``, where act'
+    is folded) and weight copies where Cout is a multiple of 4 and every
+    operand starts 16-byte aligned, else 4-byte ones; 16-byte dx stores
+    where Cin is a multiple of 4 (dx is allocated aligned). A width never
+    changes a sum."""
     cout, cin = gm.shape[3], kernel.shape[2]
-    vg = cout % 4 == 0 and gm.data_ptr() % 16 == 0 and kernel.data_ptr() % 16 == 0
-    return vg, cin % 4 == 0
+    return cout % 4 == 0 and _aligned(gm, kernel, y), cin % 4 == 0
 
 
-def transpose_conv2d_dx(gm, kernel, n_in: int, padding: int = 0) -> torch.Tensor:
+def _fold_args(g, y, epilogue) -> tuple:
+    """``(epi, y)`` of a dx or dw launch: the activation it folds, and ``y``
+    made contiguous on ``g``'s device; ``(None, None)`` where there is no
+    activation (then ``y`` is not read)."""
+    epi = _activation(epilogue)
+    if epi is None:
+        return None, None
+    _check_y(g, y, epi)
+    check_cuda_operands(y)
+    if y.device != g.device:
+        raise ValueError(f"g on {g.device}, y on {y.device}")
+    return epi, y.contiguous()
+
+
+def transpose_conv2d_dx(gm, kernel, n_in: int, padding: int = 0, *, y=None,
+                        epilogue=None) -> torch.Tensor:
     """dx ``(B, N, N, Cin)`` of the unified transpose conv from the masked
-    cotangent ``gm (B, M, M, Cout)`` and the HWIO kernel. A CUDA tensor
-    launches the kernel (and, for a split contraction, the reduce pass); a
-    CPU tensor runs :func:`transpose_conv2d_dx_plain`."""
+    cotangent ``gm (B, M, M, Cout)`` and the HWIO kernel; with an activation
+    ``epilogue``, from the cotangent ``g`` of ``y`` (passed as ``gm``) and
+    the saved output ``y``, ``g * act'(y)`` applied as the kernel stages
+    ``g``. A CUDA tensor launches the kernel (and, for a split contraction,
+    the reduce pass); a CPU tensor runs :func:`transpose_conv2d_dx_plain`."""
     if gm.ndim != 4 or kernel.ndim != 4 or kernel.shape[3] != gm.shape[3]:
         raise ValueError(
             f"expected gm (B, M, M, Cout) and an HWIO kernel, got "
             f"{tuple(gm.shape)} and {tuple(kernel.shape)}")
     if gm.device.type == "cpu" and kernel.device.type == "cpu":
-        return transpose_conv2d_dx_plain(gm, kernel, n_in, padding)
+        return transpose_conv2d_dx_plain(gm, kernel, n_in, padding, y=y,
+                                         epilogue=epilogue)
     check_cuda_operands(gm, kernel)
+    epi, y = _fold_args(gm, y, epilogue)
     b, m, _, cout = gm.shape
     n_k, cin = kernel.shape[0], kernel.shape[2]
     if n_k < 2 or m != seg.output_size(n_in, n_k, padding):
@@ -446,15 +495,18 @@ def transpose_conv2d_dx(gm, kernel, n_in: int, padding: int = 0) -> torch.Tensor
     dx = torch.empty((b, n_in, n_in, cin), device=gm.device, dtype=torch.float32)
     part = dx if g.dx_splits == 1 else torch.empty(
         (g.dx_splits,) + tuple(dx.shape), device=gm.device, dtype=torch.float32)
-    vg, vx = dx_copy_widths(gm, kernel)
+    vg, vx = dx_copy_widths(gm, kernel, y)
     with torch.cuda.device(gm.device):
         err = _lib().tconv_dx_f32(
-            gm.data_ptr(), kernel.data_ptr(), part.data_ptr(),
+            gm.data_ptr(), _ptr(y), kernel.data_ptr(), part.data_ptr(),
             b, n_in, cin, cout, n_k, g.m, g.r, *g.roffs, *g.coffs, *g.wsels,
             DX_LAYOUT_CODES[g.dx_layout], *DX_TILES[g.dx_layout], *g.dx_grid,
-            g.dx_cpt, g.dx_steps, int(vg), int(vx), g.dx_smem_bytes, _stream(gm))
+            g.dx_cpt, g.dx_steps, int(vg), int(vx), g.dx_smem_bytes,
+            epi.code if epi else 0, epi.slope if epi else 0.0, _stream(gm))
     _check(err, "transpose_conv2d_dx")
     transpose_conv2d_dx.launches += 1
+    if epi is not None:
+        epilogue_grad.folded_launches += 1
     if g.dx_splits > 1:
         _sum_splits((part, dx))
         transpose_conv2d_dx.reduce_launches += 1
@@ -462,19 +514,23 @@ def transpose_conv2d_dx(gm, kernel, n_in: int, padding: int = 0) -> torch.Tensor
 
 
 def transpose_conv2d_dw(x, gm, n_k: int, padding: int = 0, *,
-                        with_db: bool = False):
+                        with_db: bool = False, y=None, epilogue=None):
     """dw ``(n, n, Cin, Cout)`` HWIO of the unified transpose conv from the
     input and the masked cotangent; ``with_db`` also returns ``db (Cout,) =
-    sum gm``, reduced in the same kernel. A CUDA tensor launches the kernel
-    (and the reduce pass, for a split contraction or db); a CPU tensor runs
+    sum gm``, reduced in the same kernel. With an activation ``epilogue``,
+    ``gm`` is the cotangent ``g`` of ``y`` and ``g * act'(y)`` is applied
+    as the kernel stages ``g``. A CUDA tensor launches the kernel (and the
+    reduce pass, for a split contraction or db); a CPU tensor runs
     :func:`transpose_conv2d_dw_plain`."""
     if x.ndim != 4 or gm.ndim != 4 or x.shape[0] != gm.shape[0]:
         raise ValueError(
             f"expected x (B, N, N, Cin) and gm (B, M, M, Cout), got "
             f"{tuple(x.shape)} and {tuple(gm.shape)}")
     if x.device.type == "cpu" and gm.device.type == "cpu":
-        return transpose_conv2d_dw_plain(x, gm, n_k, padding, with_db=with_db)
+        return transpose_conv2d_dw_plain(x, gm, n_k, padding, with_db=with_db, y=y,
+                                         epilogue=epilogue)
     check_cuda_operands(x, gm)
+    epi, y = _fold_args(gm, y, epilogue)
     b, n_in, _, cin = x.shape
     m, cout = gm.shape[1], gm.shape[3]
     if n_k < 2 or m != seg.output_size(n_in, n_k, padding):
@@ -489,17 +545,19 @@ def transpose_conv2d_dw(x, gm, n_k: int, padding: int = 0, *,
     db_part = torch.empty((g.dw_splits, 4, cout), **opts) if with_db else None
     # 16-byte copies need aligned rows; the copy width never changes a sum
     vx = cin % 4 == 0 and x.data_ptr() % 16 == 0
-    vw = cout % 4 == 0 and gm.data_ptr() % 16 == 0
+    vw = cout % 4 == 0 and _aligned(gm, y)
     per_split = g.dw_positions_per_split // (g.hp if g.dw_layout == "poor" else 1)
     with torch.cuda.device(x.device):
         err = _lib().tconv_dw_f32(
-            x.data_ptr(), gm.data_ptr(), part.data_ptr(), _ptr(db_part),
+            x.data_ptr(), gm.data_ptr(), _ptr(y), part.data_ptr(), _ptr(db_part),
             b, n_in, cin, cout, n_k, g.m, g.hp, g.pad_lo, *g.row0s, *g.col0s,
             *g.wsels, *g.phase_of_sub, DW_LAYOUT_CODES[g.dw_layout], *g.dw_tile,
             *g.dw_grid, per_split, int(with_db), int(vx), int(vw), g.dw_smem_bytes,
-            _stream(x))
+            epi.code if epi else 0, epi.slope if epi else 0.0, _stream(x))
     _check(err, "transpose_conv2d_dw")
     transpose_conv2d_dw.launches += 1
+    if epi is not None:
+        epilogue_grad.folded_launches += 1
     pairs = ([(part, dw)] if g.dw_splits > 1 else []) + (
         [(db_part, db)] if with_db else [])
     if pairs:
@@ -509,6 +567,7 @@ def transpose_conv2d_dw(x, gm, n_k: int, padding: int = 0, *,
 
 
 epilogue_grad.launches = 0
+epilogue_grad.folded_launches = 0   # dx and dw launches that apply act' as they stage g
 transpose_conv2d_dx.launches = 0
 transpose_conv2d_dx.reduce_launches = 0
 transpose_conv2d_dw.launches = 0
@@ -518,19 +577,22 @@ transpose_conv2d_dw.reduce_launches = 0
 def transpose_conv2d_bwd(x, kernel, g, padding: int = 0, *, epilogue=None,
                          y=None, need_dx: bool = True):
     """``(dx, dw, db)`` of ``y = act(tconv(x, kernel) + b)`` for the
-    cotangent ``g`` of ``y``: the epilogue-grad, dx and dw kernels in turn.
-    ``y`` is the saved output, needed iff the epilogue has an activation;
-    ``db`` is None unless the epilogue adds a bias, ``dx`` None unless
-    ``need_dx``."""
+    cotangent ``g`` of ``y``. ``y`` is the saved output, needed iff the
+    epilogue has an activation; ``db`` is None unless the epilogue adds a
+    bias, ``dx`` None unless ``need_dx``. On the card the dx and dw kernels
+    take ``g`` and ``y`` and apply ``act'`` as they stage ``g`` (two
+    kernels; ``gm`` is never written); on the CPU the plain epilogue-grad
+    runs once, then plain dx and dw."""
     epi = epilib.canonical(epilogue)
-    if epi is not None and epi.act != "none":
-        if y is None:
-            raise ValueError(f"epilogue {epi.tag()!r} backward needs the saved output y")
-        g = epilogue_grad(g, y, epi)
+    act = _activation(epi)
+    if act is not None and g.device.type == "cpu":
+        g, act = epilogue_grad_plain(g, y, act), None
     g = g.contiguous()
-    dx = transpose_conv2d_dx(g, kernel, x.shape[1], padding) if need_dx else None
+    dx = (transpose_conv2d_dx(g, kernel, x.shape[1], padding, y=y, epilogue=act)
+          if need_dx else None)
     with_db = epi is not None and epi.bias
-    dw = transpose_conv2d_dw(x, g, kernel.shape[0], padding, with_db=with_db)
+    dw = transpose_conv2d_dw(x, g, kernel.shape[0], padding, with_db=with_db, y=y,
+                             epilogue=act)
     if with_db:
         return dx, dw[0], dw[1]
     return dx, dw, None

@@ -128,10 +128,16 @@ def _check_layer_bwd(seed, b, n_in, n_k, pad, cin, cout, epi):
     np.testing.assert_allclose(dw.numpy(), dw_ref, rtol=1e-5, atol=1e-5)
     if epi is not None and epi.bias:
         np.testing.assert_allclose(db.numpy(), db_ref, rtol=1e-5, atol=1e-5)
-    # the composer, on CPU tensors, runs the same plain versions
+    # the composer, on CPU tensors, runs the same plain versions; so do the
+    # plain versions given g, y and the epilogue (the card's fold)
     cdx, cdw, cdb = bw.transpose_conv2d_bwd(tx, tk, tg, pad, epilogue=epi, y=y)
     assert torch.equal(cdx, dx) and torch.equal(cdw, dw)
     assert (cdb is None) == (epi is None or not epi.bias)
+    fdw, fdb = bw.transpose_conv2d_dw_plain(tx, tg, n_k, pad, with_db=True, y=y,
+                                            epilogue=epi)
+    assert torch.equal(bw.transpose_conv2d_dx_plain(tg, tk, n_in, pad, y=y, epilogue=epi),
+                       dx)
+    assert torch.equal(fdw, dw) and torch.equal(fdb, db)
 
 
 # ------------------------------------------------------------------ autograd
@@ -284,6 +290,32 @@ def test_card_shape_lists_reach_every_dw_instance():
         assert {bw.bwd_geometry(*s).dw_variant for s in shapes} == bw.dw_variants()
 
 
+def test_fold_shape_lists_reach_every_dx_and_dw_instance():
+    """The card test's FOLD_SHAPES and chip_smoke.py's BWD_SHAPES (where its
+    backward check holds the fold bitwise) reach every compiled dx and dw
+    instance, and the unaligned shapes' y takes the 4-byte copies of a
+    Cout that is a multiple of 4."""
+    import os
+    import sys
+    root = os.path.join(os.path.dirname(__file__), "..")
+    sys.path.insert(0, root)
+    try:
+        import chip_smoke
+        from test_torch_cuda import DX_UNALIGNED_SHAPES, FOLD_SHAPES, offset_view
+    finally:
+        sys.path.remove(root)
+    for shapes in (FOLD_SHAPES, chip_smoke.BWD_SHAPES):
+        geos = [bw.bwd_geometry(*s) for s in shapes]
+        assert {g.dx_variant for g in geos} == bw.dx_variants()
+        assert {g.dw_variant for g in geos} == bw.dw_variants()
+    for shape in DX_UNALIGNED_SHAPES + chip_smoke.DX_UNALIGNED_SHAPES:
+        b, n_in, n_k, pad, cin, cout = shape
+        m = 2 * n_in - n_k + 2 * pad
+        g, k = torch.empty((b, m, m, cout)), torch.empty((n_k, n_k, cin, cout))
+        assert bw.dx_copy_widths(g, k, g)[0]
+        assert not bw.dx_copy_widths(g, k, offset_view(g))[0]
+
+
 def test_card_shape_lists_reach_every_dx_instance_and_copy_width():
     """The card tests (SHAPES, and DX_UNALIGNED_SHAPES through offset views)
     and chip_smoke.py's backward check (BWD_SHAPES and its
@@ -326,13 +358,15 @@ def test_card_shape_lists_reach_every_dx_instance_and_copy_width():
 
 # ------------------------------------------------- emulation of the kernels
 
-def _emulate_dx_rich(gm, kernel, g, vg):
+def _emulate_dx_rich(gm, kernel, g, vg, y=None, act=None):
     """``dx_kernel``: per (128-row block, 128-Cin block, split) block, each
     thread's copies (16-byte where ``vg``) of two gm rows (their pixel for
     each tap resolved by the thread) and two weight rows into a
     DX_STAGES-deep ring of 16-channel Cout steps, then 8 x 8 tiles (rows
     rg + 16 i, Cin cg + 16 j) accumulated one contraction index at a time in
-    the kernel's order."""
+    the kernel's order. With ``act`` folded, ``gm`` is ``g``: each thread
+    loads its two ``g`` pieces and their ``y`` pieces (same mapping, same
+    zero fill) and stores ``g * act'(y)`` into the slot."""
     b, m, _, cout = gm.shape
     n_k, cin, n_in, r = kernel.shape[0], kernel.shape[2], g.n_in, g.r
     (bm, bn), bk, st_n = bw.DX_TILES["rich"], bw.BK, bw.DX_STAGES
@@ -340,6 +374,7 @@ def _emulate_dx_rich(gm, kernel, g, vg):
     part = torch.full((g.dx_splits, rows, cin), float("nan"), dtype=gm.dtype)
     writes = torch.zeros(part.shape, dtype=torch.int64)
     gflat, wflat = gm.reshape(-1), kernel.reshape(-1)
+    yflat = y.reshape(-1) if act is not None else None
     tid = torch.arange(256)
     rg, cg = tid // 16, tid % 16
     for bx, by, z in itertools.product(*map(range, g.dx_grid)):
@@ -363,8 +398,11 @@ def _emulate_dx_rich(gm, kernel, g, vg):
                 oh, ow = 2 * t + pr, 2 * u + pc
                 ok = (rb >= 0) & (t >= 0) & (u >= 0) & (oh < m) & (ow < m)
                 src = ((rb * m + oh) * m + ow) * cout + co
-                a_st.view(bm, 4, 4)[row, tid % 4] = _cp_quad(
-                    gflat, src, torch.where(ok, cout - co, 0), vg)
+                n = torch.where(ok, cout - co, 0)
+                piece = _cp_quad(gflat, src, n, vg)
+                if act is not None:   # g and y into registers, stored folded
+                    piece = act.grad_from_y(piece, _cp_quad(yflat, src, n, vg))
+                a_st.view(bm, 4, 4)[row, tid % 4] = piece
                 ci = ci0 + row
                 okw = (kh < n_k) & (kw < n_k) & (ci < cin)
                 wsrc = ((kh * n_k + kw) * cin + ci) * cout + co
@@ -397,12 +435,17 @@ def _emulate_dx_rich(gm, kernel, g, vg):
     return part, writes
 
 
-def _emulate_dx_poor(gm, kernel, g, vg):
+def _emulate_dx_poor(gm, kernel, g, vg, y=None, act=None):
     """``dx_poor_kernel``: per (32 position groups, 32 Cin) block, the 4 R R
     taps x 32 Cin of weights staged [tap][ci][4 co] (Cout zero-padded), and
     each thread (a group of 8 positions along a row x a Cin quad) walking
     each parity's row taps with a window of 8 + R - 1 gm pixels, each one
-    float4: a 16-byte load where ``vg``, else Cout 4-byte loads and zeros."""
+    float4: a 16-byte load where ``vg``, else Cout 4-byte loads and zeros.
+    With ``act`` folded, ``gm`` is ``g`` and each loaded pixel takes
+    ``act'`` of the ``y`` pixel loaded beside it, zeros included; pixels
+    outside the plane are zeros, never loaded (the kernel loads and folds
+    each pixel once a position group and shares the window through shared
+    memory: the values are these)."""
     b, m, _, cout = gm.shape
     n_k, cin, n_in, r = kernel.shape[0], kernel.shape[2], g.n_in, g.r
     np_, (_, ct) = bw.DX_POOR_NP, bw.DX_TILES["poor"]
@@ -413,8 +456,11 @@ def _emulate_dx_poor(gm, kernel, g, vg):
     gflat, wflat = gm.reshape(-1), kernel.reshape(-1)
 
     def pixel(bb, oh, ow):
-        src = torch.tensor([((bb * m + oh) * m + ow) * cout])
-        return _cp_quad(gflat, src, torch.tensor([cout]), vg)[0]
+        src, n = torch.tensor([((bb * m + oh) * m + ow) * cout]), torch.tensor([cout])
+        v = _cp_quad(gflat, src, n, vg)[0]
+        if act is not None:
+            v = act.grad_from_y(v, _cp_quad(y.reshape(-1), src, n, vg)[0])
+        return v
 
     for bx, by, _ in itertools.product(*map(range, g.dx_grid)):
         ci0 = by * ct
@@ -465,29 +511,35 @@ def _emulate_dx_poor(gm, kernel, g, vg):
     return part, writes
 
 
-def emulate_dx_kernel(gm, kernel, n_in, padding, vg=None):
+def emulate_dx_kernel(gm, kernel, n_in, padding, vg=None, y=None, epilogue=None):
     """What the dx kernel of the layer's layout (then ``sum_splits_kernel``)
     computes, block by block, with its own index arithmetic; ``vg`` is the
     gm and weight copy width the wrapper chose (``bw.dx_copy_widths``).
-    Returns dx and the write count of every (split, row, ci) slot."""
+    With an activation ``epilogue``, ``gm`` is the cotangent ``g`` and the
+    kernel applies ``act'(y)`` as it stages it. Returns dx and the write
+    count of every (split, row, ci) slot."""
     b, m, _, cout = gm.shape
     n_k, cin = kernel.shape[0], kernel.shape[2]
     g = bw.bwd_geometry(b, n_in, n_k, padding, cin, cout)
+    act = bw._activation(epilogue)
     if vg is None:
-        vg = bw.dx_copy_widths(gm, kernel)[0]
+        vg = bw.dx_copy_widths(gm, kernel, y if act else None)[0]
     run = _emulate_dx_poor if g.dx_layout == "poor" else _emulate_dx_rich
-    part, writes = run(gm, kernel, g, vg)
+    part, writes = run(gm, kernel, g, vg, y, act)
     dx = part[0]
     for z in range(1, g.dx_splits):
         dx = dx + part[z]
     return dx.reshape(b, n_in, n_in, cin), writes
 
 
-def _emulate_dw_rich(x, gm, g, with_db):
+def _emulate_dw_rich(x, gm, g, with_db, y=None, act=None):
     """``dw_kernel``: per (Cin x Cout tile, HWIO tap, split) block, the ring
     of 16-position stages (each thread stages position ``tid // 16`` of a
     stage: its x row and gm row pieces ``tid % 16 + 16 j``), the 8 x 8
-    micro-tiles and db from the staged gm rows."""
+    micro-tiles accumulated one position at a time, and db from the staged
+    gm rows. With ``act`` folded, ``gm`` is ``g``: each thread loads its
+    ``g`` pieces and their ``y`` pieces with the same mask and stores
+    ``g * act'(y)`` into the stage, so the micro-tiles and db read gm."""
     b, n_in, _, cin = x.shape
     m, cout, n_k = gm.shape[1], gm.shape[3], g.n_k
     bm, bn = g.dw_tile
@@ -498,6 +550,7 @@ def _emulate_dw_rich(x, gm, g, with_db):
     db_part = torch.full((g.dw_splits, 4, cout), float("nan"), dtype=x.dtype)
     db_writes = torch.zeros(db_part.shape, dtype=torch.int64)
     xflat, gflat = x.reshape(-1), gm.reshape(-1)
+    yflat = y.reshape(-1) if act is not None else None
     tid = torch.arange(256)
     kk, lane16 = tid // 16, tid % 16
     tx, ty = tid % (bn // 8), tid // (bn // 8)
@@ -536,12 +589,16 @@ def _emulate_dw_rich(x, gm, g, with_db):
                     xflat, xsrc[:, None] + ci, xok[:, None] & (ci < cin))
             for j in range(bn // 64):
                 co = co0 + 4 * (lane16 + 16 * j)[:, None] + torch.arange(4)
-                gs[kk[:, None], co - co0] = _gather(
-                    gflat, gsrc[:, None] + co, gok[:, None] & (co < cout))
+                live = gok[:, None] & (co < cout)
+                piece = _gather(gflat, gsrc[:, None] + co, live)
+                if act is not None:   # g and y into registers, stored folded
+                    piece = act.grad_from_y(piece, _gather(yflat, gsrc[:, None] + co, live))
+                gs[kk[:, None], co - co0] = piece
             assert not (xs.isnan().any() or gs.isnan().any())   # every slot staged
-            if do_db:
-                dbacc += gs.sum(0)
-            acc += xs.T @ gs
+            for c in range(bw.BK):   # one position at a time, as the kernel
+                if do_db:
+                    dbacc += gs[c]
+                acc += xs[c][:, None] * gs[c][None, :]
         ci, co = ci0 + rows, co0 + cols                    # (256, 8) each
         for i in range(8):
             for e in range(8):
@@ -555,11 +612,13 @@ def _emulate_dw_rich(x, gm, g, with_db):
     return part, writes, db_part, db_writes
 
 
-def _emulate_dw_poor(x, gm, g, with_db):
+def _emulate_dw_poor(x, gm, g, with_db, y=None, act=None):
     """``dw_poor_kernel``: per (64-Cin block, phase x row tap p, split)
     block, 16 row slices of 16 threads (a Cin quad each) walk their rows
     with a sliding window of R x pixels, then the slices' sums are added in
-    slice order."""
+    slice order. With ``act`` folded, ``gm`` is ``g`` and each g pixel
+    takes ``act'`` of the y pixel loaded beside it (zeros past Cout on
+    both) before it feeds the taps and db."""
     b, n_in, _, cin = x.shape
     m, cout, n_k, r = gm.shape[1], gm.shape[3], g.n_k, g.r
     part = torch.full((g.dw_splits, n_k, n_k, cin, cout), float("nan"), dtype=x.dtype)
@@ -603,6 +662,10 @@ def _emulate_dw_poor(x, gm, g, with_db):
                     win = win[1:] + [pixel(iw0 + u + r - 1)]
                     gv = torch.zeros(4, dtype=x.dtype)
                     gv[:cout] = gm[bb, oh, 2 * u + pc, :cout]
+                    if act is not None:
+                        yv = torch.zeros(4, dtype=x.dtype)
+                        yv[:cout] = y[bb, oh, 2 * u + pc, :cout]
+                        gv = act.grad_from_y(gv, yv)
                     for qq in range(r):
                         acc[sl, qq] += win[qq][:, None] * gv[None, :]
                     dbacc[sl] += gv
@@ -625,14 +688,15 @@ def _emulate_dw_poor(x, gm, g, with_db):
     return part, writes, db_part, db_writes
 
 
-def emulate_dw_kernel(x, gm, n_k, padding, with_db=True):
+def emulate_dw_kernel(x, gm, n_k, padding, with_db=True, y=None, epilogue=None):
     """What the dw kernel of the layer's layout (then ``sum_splits_kernel``)
-    computes, block by block. Returns dw, db and the write counts of the dw
-    and db slots."""
+    computes, block by block; with an activation ``epilogue``, ``gm`` is the
+    cotangent ``g`` and the kernel applies ``act'(y)`` as it stages it.
+    Returns dw, db and the write counts of the dw and db slots."""
     b, n_in, _, cin = x.shape
     g = bw.bwd_geometry(b, n_in, n_k, padding, cin, gm.shape[3])
     run = _emulate_dw_poor if g.dw_layout == "poor" else _emulate_dw_rich
-    part, writes, db_part, db_writes = run(x, gm, g, with_db)
+    part, writes, db_part, db_writes = run(x, gm, g, with_db, y, bw._activation(epilogue))
     dw = part[0]
     for z in range(1, g.dw_splits):
         dw = dw + part[z]
@@ -715,15 +779,103 @@ def test_emulated_kernels_split_at_the_dcgan_tail():
     torch.testing.assert_close(db, want_db, rtol=1e-12, atol=1e-12)
 
 
+# ----------------------------------------- act' folded into dx and dw staging
+
+FOLD_CASES = [   # (b, N, n, P, Cin, Cout), the kernels emulated
+    ((2, 4, 4, 2, 5, 3), "dx dw"),     # DCGAN geometry: poor dx R = 2, poor dw
+    ((2, 5, 2, 1, 8, 4), "dx dw"),     # poor dx R = 1: 16-byte and 4-byte g, y pixels
+    ((1, 7, 3, 0, 3, 19), "dx dw"),    # odd M = 11: rich dx ragged Cout, narrow dw
+    ((1, 5, 4, 2, 8, 8), "dx dw"),     # rich dx: 16-byte and 4-byte g, y copies
+    ((1, 5, 4, 2, 8, 72), "dx dw"),    # the rich dw tile, ragged in it
+    ((1, 9, 7, 3, 36, 2), "dx dw"),    # poor at R = 4, two dx Cin blocks, odd M
+    ((2, 32, 4, 2, 3, 3), "dw"),       # the DCGAN tail: the poor dw contraction split
+]
+
+
+def _fold_case(shape, epi, seed):
+    """x, kernel, g and the saved output y (fp32) of a layer with ``epi``;
+    a few y exactly 0, where relu's and leaky's act' take their else side."""
+    b, n_in, n_k, pad, cin, cout = shape
+    x, k, bias, g = map(torch.from_numpy, _case(seed, b, n_in, n_k, pad, cin, cout))
+    y = tcf.transpose_conv2d_fused_plain(x, k, pad, epilogue=epi,
+                                         bias=bias if epi is not None else None)
+    y[0, 0, :2] = 0.0
+    return x, k, g, y
+
+
+@pytest.mark.parametrize("epi", EPILOGUES, ids=EPI_IDS)
+@pytest.mark.parametrize("shape,which", FOLD_CASES, ids=str)
+def test_emulated_fold_is_bitwise_the_kernels_on_gm(shape, which, epi):
+    """Each dx and dw instance, applying ``act'(y)`` to each piece of ``g``
+    it stages (zero-filled borders and past-Cout lanes included), gives the
+    bits the same instance gives on ``gm = epilogue_grad_plain(g, y, epi)``
+    -- at every copy width dx can take -- and writes each slot once."""
+    b, n_in, n_k, pad, cin, cout = shape
+    x, k, g, y = _fold_case(shape, epi, seed=sum(shape) + 5)
+    gm = bw.epilogue_grad_plain(g, y, epi)
+    if "dx" in which:
+        for vg in ((True, False) if cout % 4 == 0 else (False,)):
+            got, writes = emulate_dx_kernel(g, k, n_in, pad, vg=vg, y=y, epilogue=epi)
+            want, _ = emulate_dx_kernel(gm, k, n_in, pad, vg=vg)
+            assert int(writes.min()) == 1 and int(writes.max()) == 1
+            assert torch.equal(got, want), (vg, (got - want).abs().max())
+    if "dw" in which:
+        dw, db, writes, db_writes = emulate_dw_kernel(x, g, n_k, pad, y=y, epilogue=epi)
+        want_dw, want_db, _, _ = emulate_dw_kernel(x, gm, n_k, pad)
+        assert int(writes.min()) == 1 and int(writes.max()) == 1
+        assert int(db_writes.min()) == 1 and int(db_writes.max()) == 1
+        assert torch.equal(dw, want_dw) and torch.equal(db, want_db)
+
+
+@pytest.mark.parametrize("epi", EPILOGUES, ids=EPI_IDS)
+@pytest.mark.parametrize("shape", [(2, 4, 4, 2, 3, 5), (2, 5, 3, 1, 4, 3)], ids=str)
+def test_folded_plain_wrappers_match_jax_custom_vjp(shape, epi):
+    """dx, dw and db of the wrappers given ``g``, ``y`` and the epilogue (on
+    the CPU: the plain epilogue-grad, then plain dx and dw) against
+    ``jax.grad`` of the reference's ``transpose_conv2d_pallas_gemm``
+    (interpret mode, ``bwd="lax"``) within 1e-5."""
+    b, n_in, n_k, pad, cin, cout = shape
+    x, k, bias, r = _case(sum(shape) + 31, b, n_in, n_k, pad, cin, cout)
+    je = _jax_epi(epi)
+    has_b = epi is not None and epi.bias
+
+    def jloss(a, w, bb):
+        out = jops.transpose_conv2d_pallas_gemm(
+            a, w, pad, bwd="lax", epilogue=je, bias=bb if has_b else None)
+        return jnp.sum(out * jnp.asarray(r))
+
+    want = jax.grad(jloss, argnums=(0, 1, 2))(*map(jnp.asarray, (x, k, bias)))
+    tx, tk, tb, tr = map(torch.from_numpy, (x, k, bias, r))
+    y = tcf.transpose_conv2d_fused_plain(tx, tk, pad, epilogue=epi,
+                                         bias=tb if has_b else None)
+    dx = bw.transpose_conv2d_dx(tr, tk, n_in, pad, y=y, epilogue=epi)
+    dw, db = bw.transpose_conv2d_dw(tx, tr, n_k, pad, with_db=True, y=y, epilogue=epi)
+    for got, ref in ((dx, want[0]), (dw, want[1])) + (((db, want[2]),) if has_b else ()):
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5, atol=1e-5)
+
+
+def test_folded_wrappers_need_y_for_an_activation():
+    x, k, _, g = map(torch.from_numpy, _case(2, 1, 4, 4, 2, 2, 3))
+    with pytest.raises(ValueError, match="saved output"):
+        bw.transpose_conv2d_dx(g, k, 4, 2, epilogue=EPILOGUES[2])
+    with pytest.raises(ValueError, match="saved output"):
+        bw.transpose_conv2d_dw(x, g, 4, 2, epilogue=EPILOGUES[3])
+    with pytest.raises(ValueError, match="differ"):
+        bw.transpose_conv2d_dx(g, k, 4, 2, y=g[:, 1:], epilogue=EPILOGUES[2])
+
+
 # ------------------------------------------------------------------ wrappers
 
 def test_cpu_tensors_run_plain_without_launching():
     counters = (bw.epilogue_grad, bw.transpose_conv2d_dx, bw.transpose_conv2d_dw)
-    before = [c.launches for c in counters]
+    before = [c.launches for c in counters] + [bw.epilogue_grad.folded_launches]
     x, k, bias, g = _case(2, 1, 4, 4, 2, 2, 3)
     tx, tk, tg = map(torch.from_numpy, (x, k, g))
-    bw.transpose_conv2d_bwd(tx, tk, tg, 2, epilogue=EPILOGUES[3], y=torch.tanh(tg))
-    assert [c.launches for c in counters] == before
+    ty = torch.tanh(tg)
+    bw.transpose_conv2d_bwd(tx, tk, tg, 2, epilogue=EPILOGUES[3], y=ty)
+    bw.transpose_conv2d_dx(tg, tk, 4, 2, y=ty, epilogue=EPILOGUES[3])
+    bw.transpose_conv2d_dw(tx, tg, 4, 2, y=ty, epilogue=EPILOGUES[3])
+    assert [c.launches for c in counters] + [bw.epilogue_grad.folded_launches] == before
 
 
 def test_composer_needs_y_for_an_activation():

@@ -2,7 +2,9 @@
 fused, per-phase, GEMM and dx kernels at shapes for each of their compiled
 instances and copy widths), the fused, per-phase and GEMM kernels' rows equal
 to unbatched calls bit for bit, dx on both sides of its layout boundary and
-with unaligned operands, the generator's batch invariance (per layer and
+with unaligned operands, the dx and dw kernels that fold act' into their
+staging bitwise the standalone epilogue-grad -> dx -> dw route (with an
+unaligned y too), the generator's batch invariance (per layer and
 through fused pairs), and the generator's gradients through the backward
 kernels, fused pairs and the per-phase kernel, the decode attention kernel
 at the LM shapes, and a decode step's independence of the other slots;
@@ -97,6 +99,13 @@ SHAPES += [(1, 4, 4, 2, 1024, 512), (3, 5, 4, 2, 30, 12), (2, 6, 4, 2, 12, 4)]
 # 4-byte copies at a Cout that is a multiple of 4 (the poor layout at Cout 4,
 # the rich tile at Cout 8)
 DX_UNALIGNED_SHAPES = [(2, 6, 4, 2, 12, 4), (2, 5, 3, 1, 9, 8)]
+# A shape of each dx instance (rich; poor at R = 1-4) and each dw instance
+# (rich and narrow tiles; poor at R = 1-4) for the fold of act' into their
+# staging: DCGAN L0, L2 and L3 at batch 8, a ragged odd-M layer, and the
+# poor layout at R = 1, 3, 4 and with 16-byte pixels at R = 2.
+FOLD_SHAPES = [(8, 4, 4, 2, 1024, 512), (8, 16, 4, 2, 256, 128), (8, 32, 4, 2, 128, 3),
+               (2, 7, 3, 0, 37, 19), (2, 5, 2, 1, 7, 3), (2, 6, 5, 2, 9, 4),
+               (1, 9, 7, 3, 6, 2), (2, 6, 4, 2, 12, 4)]
 # (N, n, P, Cin, Cout) of every zoo layer the plan sends to the GEMM kernel
 ZOO_GEMM_LAYERS = [(4, 4, 2, 512, 256), (4, 4, 2, 1024, 512), (4, 4, 2, 2048, 1024)]
 KERNELS = {
@@ -260,6 +269,68 @@ def test_epilogue_grad_kernel_matches_plain_bitwise(card, epi):
     torch.cuda.synchronize()
     assert bw.epilogue_grad.launches == before + 1
     assert torch.equal(got, want)
+
+
+def _three_kernel_route(x, k, g, y, epi, n_in, pad):
+    """dx, dw and db through the standalone epilogue-grad kernel, then the
+    dx and dw kernels on the gm it wrote."""
+    gm = bw.epilogue_grad(g, y, epi)
+    return (bw.transpose_conv2d_dx(gm, k, n_in, pad),
+            *bw.transpose_conv2d_dw(x, gm, k.shape[0], pad, with_db=True))
+
+
+def _folded_route(x, k, g, y, epi, n_in, pad):
+    """dx, dw and db through the dx and dw kernels given g, y and epi."""
+    return (bw.transpose_conv2d_dx(g, k, n_in, pad, y=y, epilogue=epi),
+            *bw.transpose_conv2d_dw(x, g, k.shape[0], pad, with_db=True, y=y,
+                                    epilogue=epi))
+
+
+def _fold_inputs(card, shape, epi):
+    b, n_in, n_k, pad, cin, cout = shape
+    x, k, bias = _case(sum(shape), b, n_in, cin, n_k, cout, card)
+    y = tcf.transpose_conv2d_fused(x, k, pad, epilogue=epi, bias=bias)
+    g = torch.randn(y.shape, device=card,
+                    generator=torch.Generator(device=card).manual_seed(7))
+    return x, k, g, y
+
+
+@pytest.mark.parametrize("epi", EPILOGUES[2:], ids=EPI_IDS[2:])
+@pytest.mark.parametrize("shape", FOLD_SHAPES, ids=str)
+def test_folded_dx_dw_db_bitwise_the_three_kernel_route(card, shape, epi):
+    """dx and dw given g, y and the activation (act' applied as they stage
+    g) give the bits of epilogue-grad -> dx -> dw, and launch no standalone
+    epilogue-grad kernel: two folded launches."""
+    n_in, pad = shape[1], shape[3]
+    x, k, g, y = _fold_inputs(card, shape, epi)
+    want = _three_kernel_route(x, k, g, y, epi, n_in, pad)
+    before = (bw.epilogue_grad.launches, bw.epilogue_grad.folded_launches)
+    got = _folded_route(x, k, g, y, epi, n_in, pad)
+    torch.cuda.synchronize()
+    assert (bw.epilogue_grad.launches, bw.epilogue_grad.folded_launches) == (
+        before[0], before[1] + 2)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    # the composer takes the folded route on the card
+    before = bw.epilogue_grad.launches
+    dx, dw, db = bw.transpose_conv2d_bwd(x, k, g, pad, epilogue=epi, y=y)
+    torch.cuda.synchronize()
+    assert bw.epilogue_grad.launches == before
+    assert torch.equal(dx, want[0]) and torch.equal(dw, want[1]) and torch.equal(db, want[2])
+
+
+@pytest.mark.parametrize("shape", DX_UNALIGNED_SHAPES, ids=str)
+def test_folded_kernels_with_unaligned_y(card, shape):
+    """A y that starts 4 bytes into its buffer takes the 4-byte copies of
+    g and y in dx and dw, with the same bits as the three-kernel route."""
+    n_in, pad = shape[1], shape[3]
+    epi = EPILOGUES[3]
+    x, k, g, y = _fold_inputs(card, shape, epi)
+    yu = offset_view(y)
+    assert bw.dx_copy_widths(g, k, y)[0] and not bw.dx_copy_widths(g, k, yu)[0]
+    want = _three_kernel_route(x, k, g, y, epi, n_in, pad)
+    got = _folded_route(x, k, g, yu, epi, n_in, pad)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
 @pytest.mark.parametrize("with_db", [False, True])

@@ -91,7 +91,10 @@ def test_wrapper_list_names_the_eight_kernels_and_their_counters():
     with_reduce = {name for name, fn in got.items() if hasattr(fn, "reduce_launches")}
     assert with_reduce == {"fused", "gemm", "phase", "dx", "dw", "decode_attention"}
     slots = graphs.kernel_counters().slots
-    assert len(slots) == 8 + 6
+    # eight launch counts, six reduce counts, and the epilogue-grad launches
+    # folded into dx and dw
+    assert len(slots) == 8 + 6 + 1
+    assert (bw.epilogue_grad, "folded_launches") in slots
     assert all(isinstance(getattr(fn, name), int) for fn, name in slots)
 
 
