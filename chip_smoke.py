@@ -236,8 +236,27 @@ Phases, in order; any failure raises and the script exits non-zero:
               against its plain version whatever the races pick.
 23. graph failure -- a capture that reads a device value on the host
               raises, and the card goes on working.
-24. result -- a JSON line of per-kernel numbers, then the last line
-              {"ok": true, "device": {...}}.
+24. LM train -- full-width Qwen2-0.5B (bf16, 494 M parameters, random
+              weights from a seed), seq 4096 (train_4k's length) at batch 4,
+              AdamW with fp32 moments, through the LM Trainer (each step one
+              CUDA graph, under deterministic algorithms). Gates: the first
+              loss finite and within 1 nat of ln V; 3 graphed steps bitwise
+              equal to 3 eager ones (metrics, params, moments); 6 steps
+              checkpointing every 3, launching none of the hand-written
+              kernels; a run killed after step 3's checkpoint and resumed
+              bitwise equal to the uninterrupted one; the loss falling by
+              0.3 over the 16 recorded steps; a NaN-poisoned step skipped
+              with the state bitwise untouched. Recorded: LM_TRAIN_TIMED
+              graphed steps' ms (host clock) beside the eager steps', tokens/s,
+              model FLOPs a step and their share of the bf16 dense peak, one
+              profiled step (device time by kernel and by kind, idle share)
+              and the peak device memory.
+25. entry points -- python -m repro_torch.launch.train (reduced
+              Qwen2-0.5B, 20 steps, checkpoints) and the four examples/torch_*.py,
+              run at once as processes on the card; each must exit 0 within
+              ENTRY_TIMEOUT_S (logs in chiprun_out/entry/).
+26. result -- each phase's seconds, a JSON line of per-kernel numbers, then
+              the last line {"ok": true, "device": {...}}.
 
 Full results also go to chiprun_out/chip_smoke.json.
 """
@@ -386,6 +405,12 @@ LM_SLOTS, LM_MAX_LEN, LM_REQUESTS = 8, 1024, 16
 LM_LONG = 32768          # the decode_32k cache length of one timed step
 LM_PARITY = (2, 48, 40)  # batch, tokens, of which prefilled
 LM_RTOL = LM_ATOL = 2e-3  # tests/test_consistency.py's prefill-then-decode tolerance
+LM_TRAIN_ARCH = "qwen2-0.5b"
+LM_TRAIN_SEQ, LM_TRAIN_BATCH = 4096, 4   # train_4k's length; its batch of 256 cut to 4
+LM_TRAIN_TIMED = 10      # graphed steps timed after the 6 checked ones
+LM_LOSS_DROP = 0.3       # tests/test_archs_smoke.py::test_train_step_decreases_loss
+PEAK_BF16_FLOPS = 989e12  # H100 SXM, dense bf16 on the tensor cores
+ENTRY_TIMEOUT_S = 300
 
 
 def log(*args) -> None:
@@ -1328,14 +1353,18 @@ def _read_counts() -> dict:
 
 
 def _bitwise(a, b) -> bool:
-    """Every leaf of two states equal in dtype, shape and bits."""
+    """Every leaf of two trees equal in dtype, shape and bits (a NaN equals
+    itself)."""
     import torch
 
     from repro_torch.tree import tree_leaves
 
+    ints = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
     la, lb = tree_leaves(a), tree_leaves(b)
     return len(la) == len(lb) and all(
-        x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(la, lb))
+        x.dtype == y.dtype and x.shape == y.shape
+        and torch.equal(x.view(ints[x.element_size()]), y.view(ints[y.element_size()]))
+        for x, y in zip(la, lb))
 
 
 class _ResetCountsAt:
@@ -2055,6 +2084,7 @@ def _profile_step(torch, step, *args, calls: int = 1, top: int = 10, **kwargs) -
                    if e.device_type == DeviceType.CPU), key=lambda r: -r[1])[:top]
     return {"calls": calls, "wall_us": wall_us / calls, "device_us": busy / calls,
             "idle_share": 1 - busy / wall_us,
+            "kinds": {k: us / calls for k, us in _kernel_kinds(prof).items()},
             "top": [[name[:90], us / calls] for name, us in kernels_top],
             "host_top": [[name[:60], us / calls, n / calls] for name, us, n in host]}
 
@@ -2063,6 +2093,8 @@ def _log_profile(tag, prof) -> None:
     log(f"[{tag}] profiled: device {prof['device_us']:.1f} us a call of "
         f"{prof['wall_us']:.1f} us wall ({prof['calls']} calls), idle share "
         f"{prof['idle_share']:.3f}")
+    log(f"[{tag}] device us by kind: "
+        + ", ".join(f"{k} {us:.1f}" for k, us in prof["kinds"].items()))
     for name, us in prof["top"]:
         log(f"[{tag}]   {us:9.1f} us  {name}")
     for name, us, n in prof["host_top"]:
@@ -3289,6 +3321,251 @@ def phase_autotune(torch, dev, cold_cache) -> dict:
     return out
 
 
+def _kernel_kinds(prof) -> dict:
+    """Device microseconds of a profile by kind of kernel (from its name):
+    fp32 GEMMs (cuBLAS SIMT and FFMA tiles), bf16 GEMMs, elementwise,
+    reductions, indexing and sorting, and the rest."""
+    kinds = {"gemm_fp32": 0.0, "gemm_bf16": 0.0, "elementwise": 0.0,
+             "reduce": 0.0, "index_sort": 0.0, "other": 0.0}
+    for name, us in _kernel_times(prof).items():
+        low = name.lower()
+        if "gemm" in low and ("f32f32" in low or "sgemm" in low):
+            kind = "gemm_fp32"
+        elif "gemm" in low or "nvjet" in low:
+            kind = "gemm_bf16"
+        elif "elementwise" in low:
+            kind = "elementwise"
+        elif "reduce" in low or "softmax" in low:
+            kind = "reduce"
+        elif any(k in low for k in ("index", "scatter", "gather", "sort", "radix")):
+            kind = "index_sort"
+        else:
+            kind = "other"
+        kinds[kind] += us
+    return kinds
+
+
+def phase_lm_train(torch) -> dict:
+    """Full-width Qwen2-0.5B trained through the LM Trainer, each step one
+    CUDA graph (checks, then timings)."""
+    import gc
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.models.lm import build_model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train.train_step import TrainConfig, init_train_state, make_train_step
+    from repro_torch.train.trainer import Trainer
+    from repro_torch.tree import tree_leaves, tree_map
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config(LM_TRAIN_ARCH)
+    model = build_model(cfg)
+    tc = TrainConfig(optimizer=AdamWConfig(lr=1e-3), warmup_steps=2, total_steps=30)
+    data = SyntheticTokens(cfg.vocab_size, LM_TRAIN_SEQ, LM_TRAIN_BATCH)
+    tokens = LM_TRAIN_SEQ * LM_TRAIN_BATCH
+    quiet = lambda *a: None  # noqa: E731
+    out = {"arch": cfg.name, "params": cfg.param_count(), "seq": LM_TRAIN_SEQ,
+           "batch": LM_TRAIN_BATCH, "dtype": cfg.dtype, "remat": cfg.remat,
+           "optimizer": "AdamW, fp32 moments, lr 1e-3, warmup 2, cosine to 30",
+           "reduced": f"global batch {LM_TRAIN_BATCH} of train_4k's 256"}
+    log(f"[lm-train] {cfg.name}: {out['params'] / 1e6:.1f} M params, {cfg.dtype}, "
+        f"{cfg.n_layers} layers, V {cfg.vocab_size}, seq {LM_TRAIN_SEQ}, batch "
+        f"{LM_TRAIN_BATCH}, remat {cfg.remat}")
+
+    def fresh():
+        return init_train_state(model, torch.Generator(device="cuda").manual_seed(0), tc)
+
+    torch.cuda.reset_peak_memory_stats()
+    state = fresh()
+    out["state_bytes"] = sum(t.numel() * t.element_size() for t in tree_leaves(list(state)))
+    with tempfile.TemporaryDirectory() as d1, tempfile.TemporaryDirectory() as d2:
+        tr = Trainer(model, make_train_step(model, tc), data, ckpt_dir=d1, ckpt_every=3,
+                     log_fn=quiet)
+        eager, eager_ms = [], []
+        e = state
+        for i in range(3):   # the eager steps first, kept for the comparison
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            p, o, m = tr.step_eager(*e, data.batch(i))
+            vals = dict(zip(m, torch.stack(list(m.values())).tolist()))
+            eager_ms.append((time.perf_counter() - t0) * 1e3)
+            e = (p, o)
+            eager.append((p, o, vals))
+        first = eager[0][2]["loss"]
+        if not (np.isfinite(first) and abs(first - np.log(cfg.vocab_size)) < 1.0):
+            raise AssertionError(f"lm-train: first loss {first} is not within 1 nat of "
+                                 f"ln V = {np.log(cfg.vocab_size):.3f}")
+        g = state
+        for i in range(3):
+            p, o, vals = tr._step_fn(*g, data.batch(i))
+            g = (p, o)
+            ep, eo, evals = eager[i]
+            if vals != evals or not _bitwise(p, ep) or not _bitwise(o, eo):
+                raise AssertionError(f"lm-train: graphed step {i} is not bitwise the "
+                                     f"eager step: {vals} vs {evals}")
+        log(f"[lm-train] first loss {first:.4f} (ln V {np.log(cfg.vocab_size):.4f}); 3 "
+            f"graphed steps bitwise equal to 3 eager steps (metrics, params, moments); "
+            f"eager step ms {[round(x, 1) for x in eager_ms]}")
+        del eager, e, g, p, o, ep, eo
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        torch.cuda.synchronize()
+        _reset_counts()
+        full_p, full_o, hist = tr.run(*state, steps=6)   # the fresh state, copied in
+        torch.cuda.synchronize()
+        launches = _read_counts()
+        if len(hist) != 6 or not all(np.isfinite(hist)) or tr.skipped_steps:
+            raise AssertionError(f"lm-train: 6 steps gave {hist}, skipped "
+                                 f"{tr.skipped_steps}")
+        if any(launches.values()):
+            raise AssertionError(f"lm-train: the LM step launched a port kernel: "
+                                 f"{launches}")
+        log(f"[lm-train] 6 graphed steps through Trainer.run, checkpoints at 3 and 6: "
+            f"losses {hist}; hand-written kernel launches {sum(launches.values())}")
+        shutil.copy(os.path.join(d1, "step_00000003.npz"), d2)
+        del state
+        tr2 = Trainer(model, make_train_step(model, tc), data, ckpt_dir=d2,
+                      ckpt_every=3, log_fn=quiet)
+        res_p, res_o, hist2 = tr2.run(*fresh(), steps=6)
+        if tr2.resumed_step != 3 or hist2 != hist[3:] or not (
+                _bitwise(res_p, full_p) and _bitwise(res_o, full_o)):
+            raise AssertionError(f"lm-train: resume from step 3 is not bitwise the "
+                                 f"uninterrupted run: {hist2} vs {hist[3:]}")
+        log("[lm-train] killed after step 3's checkpoint and resumed: losses, params and "
+            "moments bitwise equal to the uninterrupted run")
+        del tr2, res_p, res_o
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    tr.ckpt_dir = None   # the timed window, continuing the run
+    p, o, hist3 = tr.run(full_p, full_o, steps=6 + LM_TRAIN_TIMED, start_step=6)
+    walls = np.asarray(tr.timer.steps) * 1e3
+    losses = hist + hist3
+    if not losses[-1] < losses[0] - LM_LOSS_DROP:
+        raise AssertionError(f"lm-train: the loss fell less than {LM_LOSS_DROP} over "
+                             f"{len(losses)} steps: {losses}")
+    median_s = float(np.median(walls)) / 1e3
+    flops = (6 * out["params"] * tokens
+             + 12 * cfg.n_layers * cfg.n_heads * cfg.head_dim * LM_TRAIN_SEQ * tokens)
+    out.update({
+        "first_loss": first, "ln_vocab": float(np.log(cfg.vocab_size)),
+        "losses": losses, "graph_bitwise_eager": True, "resume_bitwise": True,
+        "launches_6_steps": launches,
+        "eager_step_ms": eager_ms, "eager_step_ms_median": float(np.median(eager_ms)),
+        "graph_step_ms": walls.tolist(), "graph_step_ms_median": median_s * 1e3,
+        "graph_step_ms_p90": float(np.percentile(walls, 90)),
+        "tokens_per_s": tokens / median_s,
+        "model_flops_per_step": flops,
+        "model_flops_formula": "6*N*T + 12*L*H*hd*S*T (N params with the tied head "
+                               "once, T = B*S tokens, full S x S attention)",
+        "bf16_peak_share": flops / median_s / PEAK_BF16_FLOPS,
+    })
+    log(f"[lm-train] {LM_TRAIN_TIMED} graphed steps (host clock, each ending in the "
+        f"metrics' read): median {median_s * 1e3:.1f} ms, p90 "
+        f"{out['graph_step_ms_p90']:.1f} ms; eager median "
+        f"{out['eager_step_ms_median']:.1f} ms; {out['tokens_per_s']:.1f} tokens/s; "
+        f"model FLOPs {flops:.4g} a step ({out['model_flops_formula']}), "
+        f"{out['bf16_peak_share']:.4f} of the bf16 dense peak")
+    log(f"[lm-train] losses over {len(losses)} steps: {[round(x, 4) for x in losses]}")
+
+    batch = data.batch(6 + LM_TRAIN_TIMED)
+
+    def profiled():
+        nonlocal p, o
+        p, o, _ = tr._step_fn(p, o, batch)
+
+    out["profile"] = _profile_step(torch, profiled, top=15)
+    _log_profile("lm-train graph", out["profile"])
+    # the idle share against the profiled step's own wall: under the
+    # profiler the kernels run a little slower, so their sum can pass the
+    # unprofiled median, and that ratio is kept beside it
+    out["idle_share"] = out["profile"]["idle_share"]
+    out["device_over_median_wall"] = out["profile"]["device_us"] / (median_s * 1e6)
+    log(f"[lm-train] a profiled step: device time {out['profile']['device_us']:.1f} us "
+        f"in {out['profile']['wall_us']:.1f} us: idle share {out['idle_share']:.4f}; "
+        f"device time / unprofiled median step {out['device_over_median_wall']:.4f}")
+
+    # a NaN-poisoned step: one embedding row of a token in the batch
+    poison = data.batch(6 + LM_TRAIN_TIMED + 2)
+    with torch.no_grad():
+        p["embed"]["w"][poison["tokens"][0, 0]] = float("nan")
+    before = tree_map(torch.clone, [p, o])
+    p, o, hist4 = tr.run(p, o, steps=6 + LM_TRAIN_TIMED + 3,
+                         start_step=6 + LM_TRAIN_TIMED + 2)
+    if hist4 or tr.skipped_steps != 1 or not _bitwise(before, [p, o]):
+        raise AssertionError("lm-train: a NaN step changed the state or was not skipped")
+    log("[lm-train] NaN-poisoned step skipped, params and moments bitwise untouched, "
+        "skipped_steps 1")
+    out["nan_step_skipped"] = True
+    out["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    log(f"[lm-train] peak device memory {out['peak_memory_bytes'] / 2**30:.2f} GiB "
+        f"(state {out['state_bytes'] / 2**30:.2f} GiB)")
+    del tr, p, o, before
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_entry_points() -> dict:
+    """``python -m repro_torch.launch.train`` (reduced Qwen2-0.5B) and each
+    port example, run at once as processes on the card; each must exit 0.
+    Their output goes to chiprun_out/entry/."""
+    import subprocess
+    import tempfile
+
+    py = sys.executable
+    runs = {
+        "launch_train": [py, "-m", "repro_torch.launch.train", "--arch", "qwen2-0.5b",
+                         "--reduced", "--steps", "20", "--batch", "8", "--seq", "128",
+                         "--ckpt-every", "10"],
+        "torch_quickstart": [py, "examples/torch_quickstart.py"],
+        "torch_serve_gan": [py, "examples/torch_serve_gan.py", "--requests", "32",
+                            "--sequential"],
+        "torch_train_dcgan": [py, "examples/torch_train_dcgan.py", "--steps", "20"],
+        "torch_serve_lm": [py, "examples/torch_serve_lm.py"],
+    }
+    logs = os.path.join(ROOT, "chiprun_out", "entry")
+    os.makedirs(logs, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=SRC)
+    out, procs = {}, {}
+    with tempfile.TemporaryDirectory() as ckpt:
+        runs["launch_train"] += ["--ckpt-dir", ckpt]
+        t0 = time.perf_counter()
+        try:
+            for name, cmd in runs.items():
+                f = open(os.path.join(logs, f"{name}.log"), "w")
+                procs[name] = (subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=f,
+                                                stderr=subprocess.STDOUT), f)
+            for name, (proc, f) in procs.items():
+                left = max(ENTRY_TIMEOUT_S - (time.perf_counter() - t0), 1)
+                try:
+                    rc = proc.wait(timeout=left)
+                except subprocess.TimeoutExpired:
+                    rc = "timeout"
+                f.close()
+                with open(f.name) as g:
+                    tail = g.read().strip().splitlines()[-1:] or [""]
+                out[name] = {"rc": rc, "s": time.perf_counter() - t0, "last": tail[0]}
+                log(f"[entry] {name}: exit {rc} after {out[name]['s']:.1f} s: {tail[0]}")
+        finally:
+            for proc, f in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+                f.close()
+    bad = {k: v["rc"] for k, v in out.items() if v["rc"] != 0}
+    if bad:
+        raise AssertionError(f"entry points failed (logs in chiprun_out/entry): {bad}")
+    return out
+
+
 def phase_graph_failure(torch) -> dict:
     """A function that reads a device value on the host cannot be captured:
     building its graph raises (nothing falls back to eager launches), and
@@ -3350,34 +3627,49 @@ def main() -> int:
         json.dump({"version": 4, "entries": {}}, f)
     os.environ["REPRO_AUTOTUNE_CACHE"] = cold_cache
     t_start = time.perf_counter()
-    dev = phase_device(torch)
-    build = phase_build()
-    worst = phase_check(torch)
-    times = phase_times(torch)
-    profiled = phase_profile(torch)
-    engine = phase_engine(torch)
-    projection = phase_projection(torch)
-    serving = phase_serving(torch) + phase_serving(torch, eager=True)
-    worst.update(phase_bwd_check(torch))
-    grads = phase_autograd(torch)
-    bwd_times = phase_bwd_times(torch)
-    pair_worst, pair_clusters = phase_pair_check(torch)
+    seconds = {}
+
+    def run(name, fn, *args, **kwargs):
+        """``fn(...)``, its wall seconds kept under ``name`` and logged."""
+        t0 = time.perf_counter()
+        result = fn(*args, **kwargs)
+        seconds[name] = time.perf_counter() - t0
+        log(f"[seconds] {name} {seconds[name]:.1f} s "
+            f"({time.perf_counter() - t_start:.1f} s in all)")
+        return result
+
+    dev = run("1 device", phase_device, torch)
+    build = run("2 build", phase_build)
+    worst = run("3 check", phase_check, torch)
+    times = run("4 times", phase_times, torch)
+    profiled = run("4 profile", phase_profile, torch)
+    engine = run("5 engine", phase_engine, torch)
+    projection = run("5 projection", phase_projection, torch)
+    serving = run("6 serving", lambda: phase_serving(torch)
+                  + phase_serving(torch, eager=True))
+    worst.update(run("7 bwd", phase_bwd_check, torch))
+    grads = run("8 autograd", phase_autograd, torch)
+    bwd_times = run("9 bwd times", phase_bwd_times, torch)
+    pair_worst, pair_clusters = run("10 pair check", phase_pair_check, torch)
     worst.update(pair_worst)
-    pair_times = phase_pair_times(torch)
-    fused_engine = phase_fused_engine(torch)
-    fused_serving = phase_serving(torch, fuse="force")
-    pair_grads = phase_pair_autograd(torch)
-    decode_check = phase_decode_check(torch)
+    pair_times = run("11 pair times", phase_pair_times, torch)
+    fused_engine = run("12 fused engine", phase_fused_engine, torch)
+    fused_serving = run("12 fused serving", phase_serving, torch, fuse="force")
+    pair_grads = run("13 pair autograd", phase_pair_autograd, torch)
+    decode_check = run("14 decode check", phase_decode_check, torch)
     worst["decode_attention"] = decode_check["worst"]
-    decode_times = phase_decode_times(torch)
-    lm_serve = phase_lm_serve(torch)
-    lm_parity = phase_lm_parity(torch)
-    zoo = phase_zoo_check(torch)
-    paper = phase_paper(torch)
-    train = phase_train(torch)
-    obs_replicas = phase_obs(torch, dev, engine["eager_launches_per_bucket"], train)
-    tuned = phase_autotune(torch, dev, cold_cache)
-    graph_failure = phase_graph_failure(torch)
+    decode_times = run("15 decode times", phase_decode_times, torch)
+    lm_serve = run("16 LM serve", phase_lm_serve, torch)
+    lm_parity = run("17 LM parity", phase_lm_parity, torch)
+    zoo = run("18 zoo", phase_zoo_check, torch)
+    paper = run("19 paper", phase_paper, torch)
+    train = run("20 train", phase_train, torch)
+    obs_replicas = run("21 obs", phase_obs, torch, dev,
+                       engine["eager_launches_per_bucket"], train)
+    tuned = run("22 autotune", phase_autotune, torch, dev, cold_cache)
+    graph_failure = run("23 graph failure", phase_graph_failure, torch)
+    lm_train = run("24 LM train", phase_lm_train, torch)
+    entry = run("25 entry points", phase_entry_points)
 
     entries = []
     for name in FORWARD:   # launches: the serving run of phase 5
@@ -3439,7 +3731,8 @@ def main() -> int:
                    "decode_times": decode_times, "lm_serve": lm_serve,
                    "lm_parity": lm_parity, "zoo_check": zoo, "paper": paper,
                    "train": train, "obs": obs_replicas, "autotune": tuned,
-                   "graph_failure": graph_failure,
+                   "graph_failure": graph_failure, "lm_train": lm_train,
+                   "entry_points": entry, "phase_seconds": seconds,
                    "seconds": time.perf_counter() - t_start}, f, indent=1)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": entries}))

@@ -1,4 +1,4 @@
 """Deterministic synthetic data."""
-from repro_torch.data.pipeline import SyntheticImages
+from repro_torch.data.pipeline import SyntheticImages, SyntheticTokens
 
-__all__ = ["SyntheticImages"]
+__all__ = ["SyntheticImages", "SyntheticTokens"]

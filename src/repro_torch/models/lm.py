@@ -10,13 +10,18 @@ positions of :class:`~repro_torch.models.layers.KVCache` with tensors
 ``(n_periods, B, S, KV, hd)``; :meth:`LM.decode_step` writes it in place.
 
 Modes:
-  apply         forward over a whole sequence (``mode`` "train" or "prefill")
+  apply/loss    training forward; ``loss`` is the reference's chunked
+                cross-entropy, whose (B, S, V) logits never exist whole
   prefill       forward that also returns the serving cache
   decode_step   one token against a cache: every layer's attention runs the
                 hand-written flash-decode kernel
 
-The MoE, Mamba, xLSTM, encoder-decoder and VLM families and ``loss`` are
-not ported yet (ROADMAP queue 1 item 12): :func:`build_model` raises
+With ``cfg.remat`` a training forward runs each period body under
+``torch.utils.checkpoint``, as the reference wraps it in ``jax.checkpoint``:
+the backward recomputes one period's activations at a time.
+
+The MoE, Mamba, xLSTM, encoder-decoder and VLM families are not ported yet
+(ROADMAP queue 1, "The rest of the LM stack"): :func:`build_model` raises
 ``NotImplementedError`` for them.
 """
 from __future__ import annotations
@@ -24,12 +29,21 @@ from __future__ import annotations
 import functools
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.tree import tree_map
 
-_NOT_PORTED = "is not ported yet (ROADMAP queue 1 item 12)"
+_NOT_PORTED = 'is not ported yet (ROADMAP queue 1, "The rest of the LM stack")'
+LOSS_CHUNK = 512   # tokens a cross-entropy chunk, as the reference's
+
+
+def _checkpointed(fn, *args):
+    """``fn(*args)`` with its activations recomputed in the backward. The
+    recompute draws no randomness, so the RNG state is not saved: that
+    would read the generator's state, which a CUDA graph capture refuses."""
+    return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
 
 
 class LM:
@@ -122,14 +136,26 @@ class LM:
         or None."""
         cfg = self.cfg
         new = [[] for _ in range(cfg.period)]
-        for rep in range(cfg.n_periods):
+
+        def period_body(h, rep):
+            out = []
             for pos in range(cfg.period):
-                pp = tree_map(lambda t, r=rep: t[r], params["layers"][pos])
+                pp = tree_map(lambda t: t[rep], params["layers"][pos])
                 c_in = None
                 if caches is not None:
                     c_in = L.KVCache(caches[pos].k[rep], caches[pos].v[rep])
                 h, c = self._layer(pp, h, positions=positions, mode=mode,
                                    cache=c_in, cache_pos=cache_pos)
+                out.append(c)
+            return h, out
+
+        remat = cfg.remat and mode == "train" and torch.is_grad_enabled()
+        for rep in range(cfg.n_periods):
+            if remat:
+                h = _checkpointed(lambda h_, r=rep: period_body(h_, r)[0], h)
+                continue
+            h, cs = period_body(h, rep)
+            for pos, c in enumerate(cs):
                 new[pos].append(c)
         if mode == "decode":
             return h, caches
@@ -159,6 +185,46 @@ class LM:
         if mode == "prefill":
             return self._logits(params, h[:, -1:]), caches
         return self._logits(params, h), torch.zeros((), dtype=torch.float32, device=dev)
+
+    def loss(self, params, batch):
+        """``(loss, {"ce", "aux"})`` over ``batch["tokens"]`` and
+        ``batch["targets"]`` (B, S); a target below 0 is masked out. The
+        cross-entropy runs in chunks of ``min(512, S)`` positions (all of
+        ``S`` when 512 does not divide it), each computing fp32 logits, a
+        logsumexp and the target's log-likelihood under a checkpoint, so
+        only one chunk's ``(B, chunk, V)`` logits exist at a time, forward
+        or backward. The chunks' sums add in order."""
+        cfg = self.cfg
+        dev = self._device(params)
+        tokens = torch.as_tensor(batch["tokens"], device=dev)
+        targets = torch.as_tensor(batch["targets"], device=dev).long()
+        h = self._embed(params, tokens)
+        positions = torch.arange(h.shape[1], device=dev)
+        h, _ = self._stack(params, h, positions=positions, mode="train")
+        h = L.rmsnorm(params["final_norm"], h)
+        w = params["embed"]["w"] if cfg.tie_embeddings else params["lm_head"]["w"]
+
+        def chunk_ce(h_c, t_c, w_):
+            logits = h_c.float() @ w_.float().T
+            lse = torch.logsumexp(logits, dim=-1)
+            # gather refuses a negative index, which the mask zeroes anyway
+            ll = logits.gather(-1, t_c.clamp(min=0)[..., None])[..., 0] - lse
+            mask = (t_c >= 0).float()
+            return -(ll * mask).sum(), mask.sum()
+
+        S = h.shape[1]
+        chunk = min(LOSS_CHUNK, S)
+        if S % chunk:
+            chunk = S   # odd lengths: one chunk
+        tot = torch.zeros((), dtype=torch.float32, device=dev)
+        cnt = torch.zeros((), dtype=torch.float32, device=dev)
+        for c0 in range(0, S, chunk):
+            s, n = _checkpointed(chunk_ce, h[:, c0:c0 + chunk],
+                                 targets[:, c0:c0 + chunk], w)
+            tot, cnt = tot + s, cnt + n
+        ce = tot / torch.clamp(cnt, min=1.0)
+        aux = torch.zeros((), dtype=torch.float32, device=dev)   # dense: no MoE
+        return ce + 0.01 * aux / max(cfg.n_layers, 1), {"ce": ce, "aux": aux}
 
     # ----------------------------------------------------------- serving
 

@@ -7,7 +7,7 @@
   "int8"     block-wise 8-bit absmax second moment, blocked along the last
              axis (256 a block); first moment bf16
 
-Functions over nested dicts of tensors (:mod:`repro_torch.tree`); they
+Functions over nested dicts and lists of tensors (:mod:`repro_torch.tree`); they
 allocate new tensors and never update their inputs in place, so a caller
 can keep the old state (the trainer's NaN guard does).
 """
@@ -134,4 +134,7 @@ def _update_tree(p, g, m, v, upd):
     if isinstance(p, dict):
         outs = {k: _update_tree(p[k], g[k], m[k], v[k], upd) for k in sorted(p)}
         return tuple({k: o[i] for k, o in outs.items()} for i in range(3))
+    if isinstance(p, list):
+        outs = [_update_tree(*args, upd) for args in zip(p, g, m, v)]
+        return tuple([o[i] for o in outs] for i in range(3))
     return upd(p, g, m, v)

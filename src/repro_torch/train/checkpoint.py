@@ -5,7 +5,9 @@ interchange between the two packages.
 Layout: ``<dir>/step_<N>.npz``, written to a temp file and published with
 ``os.replace`` (atomic on POSIX), so a crash mid-save never tears the
 latest checkpoint. The tree's nesting is encoded in the keys, joined by
-``|``. numpy has no bfloat16, so a bf16 leaf is stored as its ``uint16``
+``|``, with the reference's scheme: a dict's key as it is, a list's (or a
+tuple's) item ``i`` as ``#i`` and a NamedTuple's field ``f`` as ``@f``
+(restored as a dict, as the reference restores it). numpy has no bfloat16, so a bf16 leaf is stored as its ``uint16``
 bits under the key's ``::bf16`` tag (the reference does the same through
 ``ml_dtypes``, which the port does not use).
 
@@ -37,6 +39,14 @@ def _flatten(tree, prefix: str = "") -> dict:
         for k, v in tree.items():
             out.update(_flatten(v, f"{prefix}{k}{_SEP}"))
         return out
+    if hasattr(tree, "_fields"):   # a NamedTuple
+        for k in tree._fields:
+            out.update(_flatten(getattr(tree, k), f"{prefix}@{k}{_SEP}"))
+        return out
+    if isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            out.update(_flatten(v, f"{prefix}#{i}{_SEP}"))
+        return out
     key = prefix.rstrip(_SEP)
     if isinstance(tree, torch.Tensor):
         t = tree.detach().cpu()
@@ -56,6 +66,19 @@ def _leaf(key: str, val: np.ndarray):
     return key, torch.from_numpy(np.array(val))
 
 
+def _rebuild(node):
+    """A node whose keys are all ``#i`` as a list, all ``@f`` as a dict of
+    the fields."""
+    if not isinstance(node, dict):
+        return node
+    keys = list(node)
+    if keys and all(k.startswith("#") for k in keys):
+        return [_rebuild(node[f"#{i}"]) for i in range(len(keys))]
+    if keys and all(k.startswith("@") for k in keys):
+        return {k[1:]: _rebuild(v) for k, v in node.items()}
+    return {k: _rebuild(v) for k, v in node.items()}
+
+
 def _unflatten(flat: dict) -> dict:
     tree: dict = {}
     for key, val in flat.items():
@@ -65,7 +88,7 @@ def _unflatten(flat: dict) -> dict:
         for p in parts[:-1]:
             node = node.setdefault(p, {})
         node[parts[-1]] = leaf
-    return tree
+    return _rebuild(tree)
 
 
 def save_checkpoint(ckpt_dir, step: int, params, opt_state, extra=None) -> str:
@@ -130,6 +153,10 @@ def place_like(restored, live):
     """Each restored leaf on its live leaf's device, in its dtype."""
     if isinstance(live, dict):
         return {k: place_like(restored[k], v) for k, v in live.items()}
+    if isinstance(live, list):
+        if len(restored) != len(live):
+            raise ValueError(f"restored list of {len(restored)} items, live {len(live)}")
+        return [place_like(r, v) for r, v in zip(restored, live)]
     return restored.to(device=live.device, dtype=live.dtype)
 
 

@@ -25,6 +25,8 @@ The file imports no JAX, so it runs on a machine that has only PyTorch:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
+import dataclasses
+import math
 import os
 
 import numpy as np
@@ -819,6 +821,50 @@ def test_trainer_refuses_a_plan_replaced_after_capture(card):
     tr.train_plan = gan.generator_plan(tr.cfg, tr.micro, bwd="autograd")
     with pytest.raises(ValueError, match="train_plan"):
         tr._step_fn(state, *tr._batches(1))
+
+
+def _lm_trainer(card, **cfg_kw):
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train.train_step import TrainConfig, init_train_state, make_train_step
+    from repro_torch.train.trainer import Trainer
+
+    cfg = dataclasses.replace(reduced(get_config("qwen2-0.5b")), **cfg_kw)
+    model = build_model(cfg)
+    tc = TrainConfig(optimizer=AdamWConfig(lr=1e-3), warmup_steps=2, total_steps=30)
+    state = init_train_state(model, torch.Generator(device=card).manual_seed(0), tc,
+                             device=card)
+    data = SyntheticTokens(cfg.vocab_size, 64, 2, device=card)
+    return Trainer(model, make_train_step(model, tc), data, log_fn=lambda *a: None), state
+
+
+@pytest.mark.parametrize("remat", [False, True])
+def test_lm_graphed_train_step_is_bitwise_the_eager_step(card, remat):
+    """Three graphed LM steps (one capture, under deterministic algorithms)
+    against three eager ones from the same state: equal metrics, params and
+    moments bit for bit; the caller's first state is copied in, never
+    written; a non-finite step commits nothing."""
+    tr, state = _lm_trainer(card, remat=remat)
+    kept = tree_map(torch.clone, list(state))
+    eager, graphed = state, state
+    for step in range(3):
+        batch = tr.data.batch(step)
+        p, o, m = tr.step_eager(*eager, batch)
+        eager = (p, o)
+        gp, go, vals = tr._step_fn(*graphed, batch)
+        graphed = (gp, go)
+        assert vals == {k: float(v) for k, v in m.items()}
+        assert _equal_trees([gp, go], [p, o])
+    graph = tr._graph
+    assert gp is graph.inputs[0] and _equal_trees(list(state), kept)
+    with torch.no_grad():
+        gp["embed"]["w"].fill_(float("nan"))
+    poisoned = tree_map(torch.clone, [gp, go])
+    gp, go, vals = tr._step_fn(gp, go, tr.data.batch(3))
+    assert not math.isfinite(vals["loss"]) and tr._graph is graph
+    ints = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    assert all(torch.equal(x.view(ints[x.element_size()]), y.view(ints[y.element_size()]))
+               for x, y in zip(tree_leaves([gp, go]), tree_leaves(poisoned)))
 
 
 def test_failed_capture_raises(card):

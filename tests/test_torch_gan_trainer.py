@@ -1,6 +1,7 @@
 """Port of the training path: AdamW, int8 compression, the discriminator,
 checkpoints and the GAN trainer (repro_torch.optim, repro_torch.models.gan,
-repro_torch.train).
+repro_torch.train). AdamW, checkpoints and ``place_like`` also take an LM's
+tree, whose per-period layers are a list.
 
 Against the JAX package on the CPU, on the same numpy inputs: three AdamW
 steps per moment dtype, the compressors bit for bit, the discriminator at
@@ -20,15 +21,19 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import get_config as jget_config
+from repro.configs import reduced as jreduced
 from repro.data import SyntheticImages as JSyntheticImages
 from repro.models import gan as jgan
 from repro.optim import adamw as jadamw
 from repro.optim import compression as jcomp
 from repro.train import checkpoint as jckpt
+from repro.models.lm import build_model as jbuild_model
 from repro.train.gan_trainer import GanTrainer as JGanTrainer
 from repro.train.gan_trainer import GanTrainerConfig as JGanTrainerConfig
 from repro_torch.data import SyntheticImages
 from repro_torch.data.pipeline import bilinear_matrix
+from repro_torch.models.layers import KVCache
 from repro_torch.models import gan
 from repro_torch.optim import adamw, compression
 from repro_torch.train import checkpoint as ckpt
@@ -95,6 +100,74 @@ def test_adamw_three_steps_match_reference(moments, tol):
         assert a.dtype == b.dtype
         np.testing.assert_allclose(a.astype(np.float32), b.astype(np.float32),
                                    rtol=1e-2, atol=1e-6)
+
+
+def _lm_params(seed=0, dtype="float32"):
+    """A reduced Qwen2-0.5B's parameters from the reference, as numpy:
+    ``params["layers"]`` is a list of period positions."""
+    cfg = dataclasses.replace(jreduced(jget_config("qwen2-0.5b")), dtype=dtype)
+    return jax.tree_util.tree_map(
+        np.asarray, jbuild_model(cfg).init(jax.random.key(seed)))
+
+
+def _lm_np(tree):
+    """A port tree of dicts and lists as numpy (bf16 as ml_dtypes arrays)."""
+    if isinstance(tree, list):
+        return [_lm_np(v) for v in tree]
+    if isinstance(tree, dict):
+        return {k: _lm_np(v) for k, v in tree.items()}
+    return _np(tree)
+
+
+def _lm_torch(tree):
+    if isinstance(tree, list):
+        return [_lm_torch(v) for v in tree]
+    if isinstance(tree, dict):
+        return {k: _lm_torch(v) for k, v in tree.items()}
+    return _to_torch(tree)
+
+
+def _assert_lm_trees_equal(a, b):
+    """Bitwise, structure included: lists stay lists."""
+    assert jax.tree_util.tree_structure(_lm_np(a)) == jax.tree_util.tree_structure(
+        _lm_np(b))
+    for x, y in zip(jax.tree_util.tree_leaves(_lm_np(a)),
+                    jax.tree_util.tree_leaves(_lm_np(b))):
+        assert x.dtype == y.dtype and x.shape == y.shape
+        np.testing.assert_array_equal(_bits(x), _bits(y))
+
+
+@pytest.mark.parametrize("moments", ["float32", "bfloat16", "int8"])
+def test_adamw_on_the_lm_tree_matches_reference(moments):
+    cfg_kw = dict(lr=1e-2, weight_decay=0.1, clip_norm=1.0, moment_dtype=moments)
+    jcfg, tcfg = jadamw.AdamWConfig(**cfg_kw), adamw.AdamWConfig(**cfg_kw)
+    p0 = _lm_params()
+    jp = jax.tree_util.tree_map(jnp.asarray, p0)
+    tp = _lm_torch(p0)
+    js, ts = jadamw.adamw_init(jp, jcfg), adamw.adamw_init(tp, tcfg)
+    for step in range(3):
+        rng = np.random.default_rng(10 + step)
+        g = jax.tree_util.tree_map(
+            lambda a: rng.standard_normal(a.shape).astype(np.float32), p0)
+        jp, js, jn = jadamw.adamw_update(jax.tree_util.tree_map(jnp.asarray, g), js,
+                                         jp, jcfg, jcfg.lr)
+        tp, ts, tn = adamw.adamw_update(_lm_torch(g), ts, tp, tcfg, tcfg.lr)
+        np.testing.assert_allclose(float(tn), float(jn), rtol=1e-6)
+    assert isinstance(tp["layers"], list) and isinstance(ts["v"]["layers"], list)
+    for a, b in zip(jax.tree_util.tree_leaves(_lm_np(tp)),
+                    jax.tree_util.tree_leaves(_np_tree(jp))):
+        np.testing.assert_allclose(a, b, rtol=0, atol=1e-6)
+    assert int(ts["count"]) == int(js["count"]) == 3
+    for k in ("m", "v"):
+        for a, b in zip(jax.tree_util.tree_leaves(_lm_np(ts[k])),
+                        jax.tree_util.tree_leaves(_np_tree(js[k]))):
+            assert a.dtype == b.dtype and a.shape == b.shape
+            np.testing.assert_allclose(a.astype(np.float32), b.astype(np.float32),
+                                       rtol=1e-2, atol=1e-6)
+
+
+def _np_tree(tree):
+    return jax.tree_util.tree_map(np.asarray, tree)
 
 
 def test_adamw_refuses_unknown_moment_dtype():
@@ -188,6 +261,65 @@ def test_port_checkpoint_reads_in_the_reference(tmp_path):
     assert o["g"]["m"]["w"].dtype == ml_dtypes.bfloat16
     _assert_trees_equal(p, params)
     _assert_trees_equal(o, opt)
+
+
+def _jax_lm_state(moments):
+    """A reduced Qwen2-0.5B train state (bf16 params) from the reference,
+    its moments of ``moments`` dtype made non-zero."""
+    params = jax.tree_util.tree_map(jnp.asarray, _lm_params(dtype="bfloat16"))
+    opt = jadamw.adamw_init(params, jadamw.AdamWConfig(moment_dtype=moments))
+    g = jax.tree_util.tree_map(lambda a: jnp.ones(a.shape, jnp.float32) * 0.01, params)
+    _, opt, _ = jadamw.adamw_update(g, opt, params, jadamw.AdamWConfig(
+        moment_dtype=moments), 1e-3)
+    return params, opt
+
+
+@pytest.mark.parametrize("moments", ["float32", "int8"])
+@pytest.mark.parametrize("direction", ["reference_to_port", "port_to_reference"])
+def test_lm_checkpoints_interchange_with_the_reference(tmp_path, direction, moments):
+    """An LM state (its layers a list, bf16 params, int8 moments as
+    ``{"q", "scale"}``) written by one package restores in the other
+    bitwise, with lists restored as lists."""
+    params, opt = _jax_lm_state(moments)
+    if direction == "reference_to_port":
+        jckpt.save_checkpoint(tmp_path, 4, params, opt)
+        step, p, o, _ = ckpt.restore_checkpoint(tmp_path)
+    else:
+        ckpt.save_checkpoint(tmp_path, 4, _lm_torch(_np_tree(params)),
+                             _lm_torch(_np_tree(opt)))
+        step, p, o, _ = jckpt.restore_checkpoint(tmp_path)
+    assert step == 4
+    _assert_lm_trees_equal(p, params)
+    _assert_lm_trees_equal(o, opt)
+
+
+def test_list_and_namedtuple_trees_round_trip_bitwise(tmp_path):
+    """Lists and tuples come back as lists, a NamedTuple as a dict of its
+    fields (the reference's scheme), every leaf bitwise."""
+    rng = np.random.default_rng(0)
+    k, v = (torch.from_numpy(rng.standard_normal((2, 3, 4)).astype(np.float32))
+            .to(torch.bfloat16) for _ in range(2))
+    q = torch.from_numpy(rng.integers(-127, 128, (2, 1, 256)).astype(np.int8))
+    params = {"layers": [{"w": torch.arange(6.0).reshape(2, 3)}, {"w": k}],
+              "cache": [KVCache(k, v)], "pair": (v, q)}
+    opt = {"v": [{"q": q, "scale": torch.ones(2, 1, 1)}], "count": torch.tensor(3)}
+    ckpt.save_checkpoint(tmp_path, 1, params, opt)
+    _, p, o, _ = ckpt.restore_checkpoint(tmp_path)
+    want = {"layers": params["layers"], "cache": [{"k": k, "v": v}], "pair": [v, q]}
+    _assert_lm_trees_equal(p, want)
+    _assert_lm_trees_equal(o, opt)
+
+
+def test_place_like_walks_lists(tmp_path):
+    params, opt = _jax_lm_state("int8")
+    live_p, live_o = _lm_torch(_np_tree(params)), _lm_torch(_np_tree(opt))
+    ckpt.save_checkpoint(tmp_path, 2, live_p, live_o)
+    _, p, o, _ = ckpt.restore_checkpoint(tmp_path)
+    placed_p, placed_o = ckpt.place_like(p, live_p), ckpt.place_like(o, live_o)
+    _assert_lm_trees_equal(placed_p, live_p)
+    _assert_lm_trees_equal(placed_o, live_o)
+    with pytest.raises(ValueError, match="list"):
+        ckpt.place_like({"layers": p["layers"][:1]}, {"layers": live_p["layers"] * 2})
 
 
 def _to_torch(a):

@@ -11,32 +11,39 @@ import torch
 
 import repro_torch
 from repro_torch.configs import get_config, reduced
-from repro_torch.data import SyntheticImages
+from repro_torch.data import SyntheticImages, SyntheticTokens
 from repro_torch.device import resolve_device
 from repro_torch.kernels import autotune
 from repro_torch.kernels.epilogue import Epilogue
+from repro_torch.launch.train import main as train_main
 from repro_torch.models import gan
 from repro_torch.models.lm import build_model
 from repro_torch.serve import GanEngine, Replica, ReplicaSupervisor, ServeEngine
 from repro_torch.train.gan_trainer import GanTrainer, GanTrainerConfig
+from repro_torch.train.train_step import TrainConfig, init_train_state
 from repro_torch.tree import tree_map
 from repro_torch.weights import from_jax_lm_params, from_jax_params, from_jax_state
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 MODULES = sorted(m.name for m in pkgutil.walk_packages(
     repro_torch.__path__, "repro_torch."))
+EXAMPLES = sorted(f for f in os.listdir(os.path.join(ROOT, "examples"))
+                  if f.startswith("torch_") and f.endswith(".py"))
 
 
 def test_port_imports_without_jax_or_reference():
-    """Every port module, and chip_smoke.py, imports with ``jax`` and
-    ``ml_dtypes`` blocked and loads no ``repro`` module."""
+    """Every port module, chip_smoke.py and the port's examples import with
+    ``jax`` and ``ml_dtypes`` blocked and load no ``repro`` module."""
     code = (
-        "import importlib, sys\n"
+        "import importlib, importlib.util, sys\n"
         "sys.modules['jax'] = None\n"
         "sys.modules['jaxlib'] = None\n"
         "sys.modules['ml_dtypes'] = None\n"
         f"for name in {MODULES!r} + ['chip_smoke']:\n"
         "    importlib.import_module(name)\n"
+        f"for name in {EXAMPLES!r}:\n"
+        "    spec = importlib.util.spec_from_file_location(name[:-3], 'examples/' + name)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m == 'repro' or m.startswith('repro.'))\n"
         "assert not bad, bad\n"
@@ -48,6 +55,21 @@ def test_port_imports_without_jax_or_reference():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     assert res.stdout.startswith("ok")
+
+
+def test_examples_import_neither_jax_nor_the_reference():
+    """The port's examples import what they run inside ``main``: no line
+    of theirs imports ``jax`` or a ``repro`` module."""
+    import re
+
+    assert EXAMPLES == ["torch_quickstart.py", "torch_serve_gan.py",
+                        "torch_serve_lm.py", "torch_train_dcgan.py"]
+    for name in EXAMPLES:
+        with open(os.path.join(ROOT, "examples", name)) as f:
+            text = f.read()
+        assert not re.search(r"^\s*(import|from)\s+(jax|jaxlib|ml_dtypes|repro)\b",
+                             text, re.M), name
+        assert "repro_torch" in text and "def main(argv=None)" in text, name
 
 
 def test_cuda_sources_use_no_atomics():
@@ -81,7 +103,9 @@ def test_module_list_covers_the_slice():
                  "obs.timeline", "obs.export", "obs.flight_recorder",
                  "obs.audit", "obs.__main__", "serve.replica",
                  "serve.supervisor", "serve.fault_injection",
-                 "train.fault_injection", "kernels.autotune"):
+                 "train.fault_injection", "kernels.autotune",
+                 "optim.schedule", "train.train_step", "train.trainer", "launch",
+                 "launch.train"):
         assert f"repro_torch.{name}" in MODULES
 
 
@@ -117,6 +141,12 @@ def _entry_points(cfg, params_cpu):
         "LM.init": lambda: lm.init(torch.Generator().manual_seed(0)),
         "ServeEngine": lambda: ServeEngine(lm, lm_cpu),
         "from_jax_lm_params": lambda: from_jax_lm_params(lm_np, lm_cfg, None),
+        "SyntheticTokens": lambda: SyntheticTokens(8, 4, 1),
+        "init_train_state": lambda: init_train_state(
+            lm, torch.Generator().manual_seed(0), TrainConfig()),
+        "launch.train": lambda: train_main(["--arch", "qwen2-0.5b", "--reduced",
+                                            "--steps", "1", "--batch", "1",
+                                            "--seq", "8"]),
         "tune_layer": lambda: autotune.tune_layer(1, 4, 4, 8, 6, 2, repeats=1,
                                                   persist=False),
         "tune_pair": lambda: autotune.tune_pair(
@@ -133,7 +163,8 @@ def _entry_points(cfg, params_cpu):
                                    "SyntheticImages", "GanTrainer",
                                    "from_jax_state", "LM.init", "ServeEngine",
                                    "from_jax_lm_params", "tune_layer",
-                                   "tune_pair"])
+                                   "tune_pair", "SyntheticTokens",
+                                   "init_train_state", "launch.train"])
 def test_entry_points_default_to_the_card(entry):
     """Without ``device=`` an entry point runs on the card; with no card it
     raises instead of falling back to the CPU."""
