@@ -119,7 +119,8 @@ Phases, in order; any failure raises and the script exits non-zero:
 14. decode check -- the decode attention kernel against its plain version
               at the Llama-3-8B (S = 1024 as phase 16 serves it, 4096, and
               32768 as phase 16's long step runs it), Qwen2-0.5B, Yi-9B,
-              CodeQwen1.5 (MHA), an odd shape and a cache of 40 splits
+              CodeQwen1.5 (MHA), DBRX (G 6), Whisper's decoder (KV 20, G 1,
+              448 rows), an odd shape and a cache of 40 splits
               (DECODE_CHECKS), fp32 and bf16, kv_len holding 1, S and
               lengths off the split grid (one past 32 splits among them),
               one ending inside a tile and one on a tile's edge, within
@@ -252,10 +253,27 @@ Phases, in order; any failure raises and the script exits non-zero:
               profiled step (device time by kernel and by kind, idle share)
               and the peak device memory.
 25. entry points -- python -m repro_torch.launch.train (reduced
-              Qwen2-0.5B, 20 steps, checkpoints) and the four examples/torch_*.py,
-              run at once as processes on the card; each must exit 0 within
+              Qwen2-0.5B, 20 steps, checkpoints) and the five examples/torch_*.py
+              (torch_train_lm.py: 20 steps of its reduced xLSTM), run at once
+              as processes on the card; each must exit 0 within
               ENTRY_TIMEOUT_S (logs in chiprun_out/entry/).
-26. result -- each phase's seconds, a JSON line of per-kernel numbers, then
+26. LM families -- (run right after phase 17, while the card's memory
+              is as the LM phases leave it) bf16 at full width, random
+              weights from seeds, each model freed before the next
+              (FAMILY_SERVE, FAMILY_PREFILL,
+              FAMILY_PARITY list the cuts): DBRX (4 layers), Jamba (one
+              period, 8 experts) and xLSTM-125M served as phase 16 serves
+              Llama-3-8B (the same 16 requests and gates, decode launches =
+              attention layers x steps, xLSTM's 0; tokens/s, memory, a
+              profiled step); Jamba (at capacity E / k) and xLSTM: a request
+              in a recycled slot serves the tokens it serves alone in a fresh
+              engine; Whisper-large-v3 (8 x 1500 frames + 416 tokens) and
+              LLaVA-NeXT-Mistral-7B (4 x 2880 patches + 192 tokens): prefill,
+              then 32 greedy decode steps through one CUDA graph, bitwise the
+              eager steps, decode launches counted; then fp32 parity as in
+              phase 17 for each family (MoE at capacity E / k; DBRX 2 layers,
+              Jamba one period of 3 experts with a 256-token prompt).
+27. result -- each phase's seconds, a JSON line of per-kernel numbers, then
               the last line {"ok": true, "device": {...}}.
 
 Full results also go to chiprun_out/chip_smoke.json.
@@ -380,6 +398,8 @@ DECODE_CHECKS = [  # (B, S, KV, G, hd) of the decode kernel's check
     (2, 1024, 32, 1, 128),   # CodeQwen1.5-7B (MHA)
     (3, 1000, 2, 3, 64),     # S not a multiple of the split, odd G
     (4, 40000, 2, 4, 64),    # 40 splits: a lane of the combine takes two
+    (8, 1024, 8, 6, 128),    # DBRX as phase 26 serves it (G 6: fp32 rounds G to 8)
+    (8, 448, 20, 1, 64),     # Whisper's decoder self-attention, 448 rows
 ]
 DECODE_TIMES = [(8, 4096, 8, 4, 128), (8, 32768, 8, 4, 128), (8, 32768, 2, 7, 64),
                 (8, 1024, 8, 4, 128)]   # the last: Llama-3-8B as phase 16 serves it
@@ -411,6 +431,36 @@ LM_TRAIN_TIMED = 10      # graphed steps timed after the 6 checked ones
 LM_LOSS_DROP = 0.3       # tests/test_archs_smoke.py::test_train_step_decreases_loss
 PEAK_BF16_FLOPS = 989e12  # H100 SXM, dense bf16 on the tensor cores
 ENTRY_TIMEOUT_S = 300
+# Phase 26's configurations: full width, bf16; cut in depth (and Jamba's
+# experts) to fit one card beside the engine. (arch, cut, why)
+FAMILY_SERVE = [
+    ("dbrx-132b", {"n_layers": 4}, "4 of 40 layers"),
+    ("jamba-1.5-large-398b", {"n_layers": 8, "n_experts": 8},
+     "one period (8 of 72 layers: 7 Mamba, 1 attention, 4 MoE, 4 dense); experts "
+     "16 -> 8 (one period with 16 is 84.27 GiB in bf16)"),
+    ("xlstm-125m", {}, "none (12 layers)"),
+]
+# (arch, batch, text prompt, greedy steps, why): Whisper's 448 rows are its
+# decoder's own limit; LLaVA's 2880 patches + 192 tokens divide into the
+# chunked attention's 1024-row tiles
+FAMILY_PREFILL = [
+    ("whisper-large-v3", 8, 416, 32, "none (32 + 32 layers, 1500 frames); a cache of "
+     "416 + 32 = 448 rows"),
+    ("llava-next-mistral-7b", 4, 192, 32, "none (32 layers, 2880 patches + 192 tokens)"),
+]
+# fp32 parity at full width: (arch, cut, batch, tokens, prefilled, forward
+# tokens or None, why); MoE at capacity E / k. Jamba's prompt is one 256-token
+# Mamba chunk, its forward two
+FAMILY_PARITY = [
+    ("dbrx-132b", {"n_layers": 2}, 2, 48, 40, None, "2 of 40 layers (fp32)"),
+    ("jamba-1.5-large-398b", {"n_layers": 8, "n_experts": 3}, 2, 264, 256, 512,
+     "one period, experts 16 -> 3 (fp32: 4 would not fit beside the init)"),
+    ("xlstm-125m", {}, 2, 48, 40, None, "none"),
+    ("whisper-large-v3", {}, 2, 48, 40, None, "none"),
+    ("llava-next-mistral-7b", {}, 2, 48, 40, None, "none (2880 patches + 48 tokens)"),
+]
+# the prefills profiled: the Mamba scan's and the sLSTM loop's library calls
+FAMILY_PROFILED_PREFILL = ("jamba-1.5-large-398b", "xlstm-125m")
 
 
 def log(*args) -> None:
@@ -2145,39 +2195,105 @@ def _serve_lm(torch, eng, cfg, decode) -> dict:
     return {"reqs": reqs, "launches": counts, "steps": eng.steps - steps0, "wall_s": wall}
 
 
-def phase_lm_serve(torch) -> dict:
-    """Full-width Llama-3-8B in bf16 served by ServeEngine through its
-    decode graph: the requests' checks, tokens/s, then the same requests
-    through the eager decode step (equal tokens), a decode step's time and
-    profile at 8 slots through the graph and eagerly (bitwise equal
-    logits), then one decode step over a full 32k cache both ways."""
-    from repro_torch.configs import get_config
-    from repro_torch.models.lm import build_model
-    from repro_torch.serve import ServeEngine
-    from repro_torch.timing import time_cuda
+def _cache_tensors(cache) -> list:
+    """Every tensor of a serving cache: a list of KVCaches and state dicts
+    (decoder-only) or a dict of KVCaches (encoder-decoder)."""
+    if isinstance(cache, dict):
+        return [t for v in cache.values() for t in _cache_tensors(v)]
+    if isinstance(cache, (list, tuple)):
+        return [t for v in cache for t in _cache_tensors(v)]
+    return [cache]
+
+
+def _attn_layers(model) -> int:
+    """Layers whose decode runs the decode kernel: an LM's attention
+    layers, an encoder-decoder's decoder self-attention layers."""
+    cfg = model.cfg
+    if cfg.encoder_layers:
+        return cfg.n_layers
+    return cfg.n_periods * sum(k == "attn" for k in model.mixer_kinds)
+
+
+def _init_lm(torch, model, seed) -> tuple:
+    """Random parameters from ``seed`` on the card, and their counts."""
+    import gc
+
     from repro_torch.tree import tree_leaves
 
+    gc.collect()
     torch.cuda.empty_cache()
-    cfg = get_config(LM_ARCH)
-    model = build_model(cfg)
     t0 = time.perf_counter()
-    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    params = model.init(torch.Generator(device="cuda").manual_seed(seed))
     torch.cuda.synchronize()
-    out = {"arch": LM_ARCH, "dtype": cfg.dtype, "init_s": time.perf_counter() - t0,
-           "params": sum(t.numel() for t in tree_leaves(params)),
-           "param_bytes": sum(t.numel() * t.element_size() for t in tree_leaves(params))}
+    leaves = tree_leaves(params)
+    return params, {"arch": model.cfg.name, "dtype": model.cfg.dtype,
+                    "init_s": time.perf_counter() - t0,
+                    "params": sum(t.numel() for t in leaves),
+                    "param_bytes": sum(t.numel() * t.element_size() for t in leaves)}
+
+
+def _decode_step_fns(torch, model, params, vocab, seed=3):
+    """``(tok, step, graph_step, bitwise)`` over 8 slots: a seeded token a
+    slot, the eager decode step on a cache, the engine's graphed step, and
+    the gate that the graphed step's logits at ``pos`` are finite and
+    bitwise the eager step's on the engine's cache."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    tok = torch.randint(0, vocab, (LM_SLOTS, 1), device="cuda", generator=gen).int()
+
+    def step(tokens, pos, cache):
+        return model.decode_step(params, cache, {"tokens": tokens, "pos": pos})
+
+    def graph_step(engine, pos):
+        return engine._decode(params, engine.cache, {"tokens": tok, "pos": pos})
+
+    def bitwise(engine, pos, where, tag):
+        if not hasattr(engine._decode, "graph"):
+            raise AssertionError(f"{tag}: the engine's decode step is not its graph")
+        # a step rewrites its K/V rows with the same bits, but advances a
+        # recurrent state: the eager step starts from the state the graph did
+        states = [t for c in engine.cache if isinstance(c, dict) for t in c.values()]
+        before = [t.clone() for t in states]
+        got = graph_step(engine, pos)[0].clone()
+        for t, b in zip(states, before):
+            t.copy_(b)
+        want = step(tok, pos, engine.cache)[0]
+        if got.shape != (LM_SLOTS, 1, vocab) or not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"{tag}: the graphed step's logits at {where} are not "
+                                 f"finite or of shape {tuple(got.shape)}")
+        if not torch.equal(got, want):
+            raise AssertionError(f"{tag}: the graphed decode step at {where} differs "
+                                 f"from the eager one by {(got - want).abs().max().item()}")
+
+    return tok, step, graph_step, bitwise
+
+
+def _engine_serve(torch, model, params, tag) -> tuple:
+    """ServeEngine(slots=8, max_len=1024) over ``params``: the 16 seeded
+    requests through the decode graph (every request done at its length,
+    tokens in the vocabulary, logits finite, decode-kernel launches =
+    attention layers x engine steps), then through the eager step (the same
+    tokens); tokens/s, device memory; a decode step at pos 320 through the
+    graph bitwise the eager step, both timed and profiled. Returns the
+    numbers and the engine."""
+    from repro_torch.serve import ServeEngine
+    from repro_torch.timing import time_cuda
+
+    cfg = model.cfg
+    out = {}
     torch.cuda.reset_peak_memory_stats()
     mem = {"before_engine": _memory(torch)}
     eng = ServeEngine(model, params, slots=LM_SLOTS, max_len=LM_MAX_LEN)
     mem["after_engine"] = _memory(torch)
-    mem["cache_bytes"] = sum(t.numel() * t.element_size() for c in eng.cache for t in c)
+    mem["cache_bytes"] = sum(t.numel() * t.element_size() for t in _cache_tensors(eng.cache))
     graphed = _serve_lm(torch, eng, cfg, eng._decode)
-    if graphed["launches"]["decode_attention"] != cfg.n_layers * graphed["steps"]:
-        raise AssertionError(f"LM serve: {graphed['launches']['decode_attention']} decode "
-                             f"launches in {graphed['steps']} steps of {cfg.n_layers} layers")
+    want = _attn_layers(model) * graphed["steps"]
+    if graphed["launches"]["decode_attention"] != want:
+        raise AssertionError(f"{tag}: {graphed['launches']['decode_attention']} decode "
+                             f"launches in {graphed['steps']} steps, want {want}")
     eager = _serve_lm(torch, eng, cfg, model.decode_step)
     if [r.output for r in eager["reqs"]] != [r.output for r in graphed["reqs"]]:
-        raise AssertionError("LM serve: the eager decode step served other tokens")
+        raise AssertionError(f"{tag}: the eager decode step served other tokens")
+    mem["after_serving"] = _memory(torch)
     reqs = graphed["reqs"]
     generated = sum(len(r.output) for r in reqs)
     fed = sum(len(r.prompt) for r in reqs) + generated
@@ -2190,42 +2306,20 @@ def phase_lm_serve(torch) -> dict:
                 "launches": graphed["launches"], "eager_launches": eager["launches"],
                 "memory": mem, "prompt_lens": [len(r.prompt) for r in reqs],
                 "new_tokens": [r.max_new_tokens for r in reqs]})
-    log(f"[lm-serve] {LM_ARCH} {cfg.dtype}, {out['params']} params "
-        f"({out['param_bytes'] / 1e9:.2f} GB, init {out['init_s']:.1f} s): "
-        f"{len(reqs)} requests, {graphed['steps']} engine steps, {generated} tokens "
-        f"generated ({fed} fed); through the decode graph {graphed['wall_s']:.3f} s: "
-        f"{out['tokens_per_s']:.1f} generated tokens/s, {out['fed_tokens_per_s']:.1f} "
-        f"fed tokens/s; eagerly {eager['wall_s']:.3f} s: {out['eager_tokens_per_s']:.1f}"
-        f" / {out['eager_fed_tokens_per_s']:.1f} (host clock), the same tokens; "
-        f"launches {graphed['launches']}")
-    log(f"[lm-serve] device memory before / after the engine (its {mem['cache_bytes']}"
-        f" B cache and decode graph) {mem['before_engine']} / {mem['after_engine']} "
-        f"(bytes)")
+    log(f"[{tag}] {cfg.name} {cfg.dtype}: {len(reqs)} requests, {graphed['steps']} "
+        f"engine steps, {generated} tokens generated ({fed} fed); through the decode "
+        f"graph {graphed['wall_s']:.3f} s: {out['tokens_per_s']:.1f} generated tokens/s, "
+        f"{out['fed_tokens_per_s']:.1f} fed tokens/s; eagerly {eager['wall_s']:.3f} s: "
+        f"{out['eager_tokens_per_s']:.1f} / {out['eager_fed_tokens_per_s']:.1f} (host "
+        f"clock), the same tokens; decode launches {graphed['launches']['decode_attention']}")
+    log(f"[{tag}] device memory before / after the engine (its {mem['cache_bytes']} B "
+        f"cache and decode graph) / after serving {mem['before_engine']} / "
+        f"{mem['after_engine']} / {mem['after_serving']} (bytes)")
 
-    gen = torch.Generator(device="cuda").manual_seed(3)
-    tok = torch.randint(0, cfg.vocab_size, (LM_SLOTS, 1), device="cuda",
-                        generator=gen).int()
-
-    def step(tokens, pos, cache):
-        return model.decode_step(params, cache, {"tokens": tokens, "pos": pos})
-
-    def graph_step(engine, pos):
-        return engine._decode(params, engine.cache, {"tokens": tok, "pos": pos})
-
-    def bitwise(engine, pos, where):
-        if not hasattr(engine._decode, "graph"):
-            raise AssertionError("LM serve: the engine's decode step is not its graph")
-        got = graph_step(engine, pos)[0].clone()
-        want = step(tok, pos, engine.cache)[0]
-        if got.shape != (LM_SLOTS, 1, cfg.vocab_size) or not bool(torch.isfinite(got).all()):
-            raise AssertionError(f"LM serve: the graphed step's logits at {where} are not "
-                                 f"finite or of shape {tuple(got.shape)}")
-        if not torch.equal(got, want):
-            raise AssertionError(f"LM serve: the graphed decode step at {where} differs "
-                                 f"from the eager one by {(got - want).abs().max().item()}")
-
+    tok, step, graph_step, bitwise = _decode_step_fns(torch, model, params,
+                                                      cfg.vocab_size)
     pos = torch.full((LM_SLOTS,), 320, dtype=torch.int32, device="cuda")
-    bitwise(eng, pos, "pos 320")
+    bitwise(eng, pos, "pos 320", tag)
     out["step_ms"] = time_cuda(step, tok, pos, eng.cache)
     out["graph_step_ms"] = time_cuda(graph_step, eng, pos)
     out["step_profile"] = _profile_step(torch, step, tok, pos, eng.cache)
@@ -2234,25 +2328,44 @@ def phase_lm_serve(torch) -> dict:
         per_step_us = 1e6 * out[f"{name}wall_s"] / out["steps"]
         out[f"{name}served_step_idle_share"] = (
             1 - out["graph_step_profile"]["device_us"] / per_step_us)
-    log(f"[lm-serve] decode step at {LM_SLOTS} slots, pos 320, max_len {LM_MAX_LEN}: "
+    log(f"[{tag}] decode step at {LM_SLOTS} slots, pos 320, max_len {LM_MAX_LEN}: "
         f"graph {out['graph_step_ms']:.4f} ms, eager {out['step_ms']:.4f} ms (CUDA "
         f"events, 20 steps); graph bitwise equal to the eager step; a served step's "
         f"idle share (host clock) graph {out['served_step_idle_share']:.3f}, eager "
         f"{out['eager_served_step_idle_share']:.3f}")
-    _log_profile("lm-serve graph", out["graph_step_profile"])
-    _log_profile("lm-serve eager", out["step_profile"])
+    _log_profile(f"{tag} graph", out["graph_step_profile"])
+    _log_profile(f"{tag} eager", out["step_profile"])
+    return out, eng
 
-    del eng, reqs, graphed, eager
+
+def phase_lm_serve(torch) -> dict:
+    """Full-width Llama-3-8B in bf16 served by ServeEngine through its
+    decode graph (:func:`_engine_serve`), then one decode step over a full
+    32k cache both ways."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import build_model
+    from repro_torch.serve import ServeEngine
+    from repro_torch.timing import time_cuda
+
+    model = build_model(get_config(LM_ARCH))
+    params, out = _init_lm(torch, model, seed=0)
+    log(f"[lm-serve] {LM_ARCH}, {out['params']} params ({out['param_bytes'] / 1e9:.2f} "
+        f"GB, init {out['init_s']:.1f} s)")
+    served, eng = _engine_serve(torch, model, params, "lm-serve")
+    out.update(served)
+    del eng
     torch.cuda.empty_cache()
+    tok, step, graph_step, bitwise = _decode_step_fns(torch, model, params,
+                                                      model.cfg.vocab_size)
+    gen = torch.Generator(device="cuda").manual_seed(4)
     long_eng = ServeEngine(model, params, slots=LM_SLOTS, max_len=LM_LONG)
-    for c in long_eng.cache:
-        for t in c:
-            t.normal_(generator=gen)
+    for t in _cache_tensors(long_eng.cache):
+        t.normal_(generator=gen)
     torch.cuda.synchronize()
     pos = torch.full((LM_SLOTS,), LM_LONG - 1, dtype=torch.int32, device="cuda")
     out["long_cache_bytes"] = sum(t.numel() * t.element_size()
-                                  for c in long_eng.cache for t in c)
-    bitwise(long_eng, pos, f"kv_len {LM_LONG}")
+                                  for t in _cache_tensors(long_eng.cache))
+    bitwise(long_eng, pos, f"kv_len {LM_LONG}", "lm-serve")
     out["long_step_ms"] = time_cuda(step, tok, pos, long_eng.cache, iters=5, warmup=1)
     out["long_graph_step_ms"] = time_cuda(graph_step, long_eng, pos, iters=5, warmup=1)
     out["long_step_profile"] = _profile_step(torch, step, tok, pos, long_eng.cache)
@@ -2269,23 +2382,38 @@ def phase_lm_serve(torch) -> dict:
     return out
 
 
-def phase_lm_parity(torch) -> dict:
-    """Full-width Llama-3-8B in fp32: teacher-forced decode_step logits
-    (through the decode kernel) against the full-sequence apply logits."""
-    import dataclasses
+def _pad_kv(cache, n: int):
+    """A prefill cache with ``n`` zero rows more in every decoder KV cache
+    (an encoder-decoder's cross K/V and recurrent states as they are)."""
+    import torch.nn.functional as F
 
-    from repro_torch.configs import get_config
     from repro_torch.models import layers as L
-    from repro_torch.models.lm import build_model
 
-    torch.cuda.empty_cache()
-    cfg = dataclasses.replace(get_config(LM_ARCH), dtype="float32")
-    model = build_model(cfg)
-    params = model.init(torch.Generator(device="cuda").manual_seed(1))
-    batch, n_tok, n_pre = LM_PARITY
-    gen = torch.Generator(device="cuda").manual_seed(2)
-    toks = torch.randint(0, cfg.vocab_size, (batch, n_tok), device="cuda", generator=gen)
-    full, _ = model.apply(params, {"tokens": toks})
+    def pad(kv):
+        return L.KVCache(*(F.pad(t, (0, 0, 0, 0, 0, n)) for t in kv))
+
+    if isinstance(cache, dict):
+        return {"self": pad(cache["self"]), "cross": cache["cross"]}
+    return [c if isinstance(c, dict) else pad(c) for c in cache]
+
+
+def _lm_parity(torch, model, tag, batch, n_tok, n_pre, seed=1, extra=None,
+               n_full=None, profile=False) -> dict:
+    """Teacher-forced fp32 ``decode_step`` logits (through the decode
+    kernel) against the full-sequence ``apply`` logits: ``batch`` rows of
+    ``n_tok`` seeded tokens (``n_full`` for the forward, when longer),
+    ``n_pre`` prefilled, rtol/atol LM_RTOL/LM_ATOL; ``extra`` (patch
+    embeddings or frames) goes to the forward and the prefill. Checks the
+    decode launches; times the prefill (host clock, synced) and, with
+    ``profile``, profiles it."""
+    cfg = model.cfg
+    params, info = _init_lm(torch, model, seed)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    toks = torch.randint(0, cfg.vocab_size, (batch, n_full or n_tok), device="cuda",
+                         generator=gen)
+    extra = extra or {}
+    full, _ = model.apply(params, {"tokens": toks, **extra})
+    off = cfg.n_patches if "patch_embeds" in extra else 0   # text after the patches
     worst = {"err": 0.0, "excess": 0.0}
 
     def compare(got, want, where):
@@ -2294,31 +2422,246 @@ def phase_lm_parity(torch) -> dict:
         worst["err"] = max(worst["err"], err.max().item())
         worst["excess"] = max(worst["excess"], excess)
         if excess > 0:
-            raise AssertionError(f"LM parity at {where}: decode logits off the full "
+            raise AssertionError(f"{tag} at {where}: decode logits off the full "
                                  f"forward by {err.max().item()} (rtol/atol {LM_RTOL})")
 
-    logits, cache = model.prefill(params, {"tokens": toks[:, :n_pre]})
-    compare(logits[:, 0], full[:, n_pre - 1], "the prefill")
-    cache = [L.KVCache(*(torch.nn.functional.pad(t, (0, 0, 0, 0, 0, n_tok - n_pre))
-                         for t in c)) for c in cache]
+    inputs = {"tokens": toks[:, :n_pre], **extra}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = model.prefill(params, inputs)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    compare(logits[:, 0], full[:, off + n_pre - 1], "the prefill")
+    cache = _pad_kv(cache, n_tok - n_pre)
     _reset_counts()
     for t in range(n_pre, n_tok):
         logits, cache = model.decode_step(params, cache, {
             "tokens": toks[:, t : t + 1],
-            "pos": torch.full((batch,), t, device="cuda")})
-        compare(logits[:, 0], full[:, t], f"position {t}")
+            "pos": torch.full((batch,), off + t, device="cuda")})
+        compare(logits[:, 0], full[:, off + t], f"position {t}")
     launches = _read_counts()["decode_attention"]
-    if launches != cfg.n_layers * (n_tok - n_pre):
-        raise AssertionError(f"LM parity: {launches} decode launches")
-    out = {"arch": LM_ARCH, "dtype": "float32", "batch": batch, "tokens": n_tok,
-           "prefill": n_pre, "max_abs_err": worst["err"],
+    if launches != _attn_layers(model) * (n_tok - n_pre):
+        raise AssertionError(f"{tag}: {launches} decode launches")
+    out = {**info, "batch": batch, "tokens": n_tok, "prefill": n_pre,
+           "forward_tokens": n_full or n_tok, "prefill_s": prefill_s,
+           "max_abs_err": worst["err"],
            "max_logit": full.abs().max().item(), "rtol": LM_RTOL, "atol": LM_ATOL,
            "decode_launches": launches}
-    log(f"[lm-parity] {LM_ARCH} fp32 full width: prefill {n_pre} + {n_tok - n_pre} "
-        f"decoded at batch {batch} vs apply: max abs err {worst['err']:.3e} (max "
-        f"|logit| {out['max_logit']:.3f}; rtol/atol {LM_RTOL}); decode launches {launches}")
-    del params, cache
+    log(f"[{tag}] {cfg.name} fp32, {out['params']} params, {cfg.n_layers} layers: "
+        f"prefill {n_pre} + {n_tok - n_pre} decoded at batch {batch} vs apply over "
+        f"{out['forward_tokens']}: max abs err {worst['err']:.3e} (max |logit| "
+        f"{out['max_logit']:.3f}; rtol/atol {LM_RTOL}); decode launches {launches}; "
+        f"the prefill {prefill_s:.3f} s (host clock)")
+    if profile:
+        del cache
+        out["prefill_profile"] = _profile_step(torch, model.prefill, params, inputs)
+        _log_profile(f"{tag} prefill", out["prefill_profile"])
+        cache = None
+    del params, cache, full
     torch.cuda.empty_cache()
+    return out
+
+
+def phase_lm_parity(torch) -> dict:
+    """Full-width Llama-3-8B in fp32: teacher-forced decode_step logits
+    (through the decode kernel) against the full-sequence apply logits."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import build_model
+
+    cfg = dataclasses.replace(get_config(LM_ARCH), dtype="float32")
+    batch, n_tok, n_pre = LM_PARITY
+    return _lm_parity(torch, build_model(cfg), "lm-parity", batch, n_tok, n_pre)
+
+
+def _family_cfg(arch, dtype="bfloat16", no_drops=False, **cut):
+    """``arch``'s full config in ``dtype``, cut by ``cut`` (``n_layers``,
+    ``n_experts``), with capacity for every token when ``no_drops``
+    (``capacity_factor = n_experts / top_k``, so ``C >= T``)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    moe = cfg.moe
+    if "n_experts" in cut:
+        moe = dataclasses.replace(moe, n_experts=cut.pop("n_experts"))
+    if no_drops and moe.n_experts:
+        moe = dataclasses.replace(moe, capacity_factor=moe.n_experts / moe.top_k)
+    return dataclasses.replace(cfg, dtype=dtype, moe=moe, **cut)
+
+
+def _slot_reset(torch, model, params, tag) -> dict:
+    """Three seeded requests through two slots, so the third enters the
+    slot the first left (its recurrent state zeroed at admission); the
+    third request alone in a fresh engine gives the same tokens."""
+    import numpy as np
+
+    from repro_torch.serve import Request, ServeEngine
+
+    rng = np.random.default_rng(5)
+    reqs = [Request(prompt=rng.integers(0, model.cfg.vocab_size, size=n).tolist(),
+                    max_new_tokens=k) for n, k in ((24, 8), (40, 16), (32, 12))]
+    ServeEngine(model, params, slots=2, max_len=LM_MAX_LEN).run(reqs)
+    alone = Request(prompt=reqs[2].prompt, max_new_tokens=reqs[2].max_new_tokens)
+    ServeEngine(model, params, slots=2, max_len=LM_MAX_LEN).run([alone])
+    if not all(r.done for r in reqs) or alone.output != reqs[2].output:
+        raise AssertionError(f"{tag}: a request in a recycled slot served "
+                             f"{reqs[2].output}, alone {alone.output}")
+    log(f"[{tag}] slot reset: the third of three requests through two slots "
+        f"(a recycled slot) served the tokens it serves alone in a fresh engine")
+    torch.cuda.empty_cache()
+    return {"tokens": alone.output, "equal": True}
+
+
+def _prefill_decode(torch, model, params, tag, batch, n_prompt, n_gen, extra) -> dict:
+    """Prefill of ``batch`` seeded prompts of ``n_prompt`` tokens after
+    ``extra`` (frames or patch embeddings), its cache copied into a cache of
+    the prefill's length + ``n_gen`` rows, then ``n_gen`` greedy decode
+    steps through one CUDA graph and again eagerly over the same cache:
+    every step's logits bitwise equal, finite, the same tokens, decode
+    launches = attention layers x steps. Times the prefill (host clock,
+    synced) and a decode step (CUDA events), profiles one."""
+    from repro_torch.graphs import CudaGraph
+    from repro_torch.timing import time_cuda
+
+    cfg = model.cfg
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    toks = torch.randint(0, cfg.vocab_size, (batch, n_prompt), device="cuda",
+                         generator=gen)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, pre = model.prefill(params, {"tokens": toks, **extra})
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    s0 = n_prompt + (cfg.n_patches if "patch_embeds" in extra else 0)
+    max_len = s0 + n_gen
+    cache = model.init_cache(batch, max_len)
+    for full, part in zip(_cache_tensors(cache), _cache_tensors(pre)):
+        full[:, :, : part.shape[2]].copy_(part)
+    del pre
+    tok0 = logits[:, -1].argmax(-1)[:, None].int()
+    pos0 = torch.full((batch,), s0, dtype=torch.int32, device="cuda")
+
+    def step(tok, pos):
+        return model.decode_step(params, cache, {"tokens": tok, "pos": pos})[0]
+
+    # the warm-up writes the first step's own row: the same bits it writes
+    graph = CudaGraph(step, tok0, pos0)
+
+    def greedy(run):
+        tok, out_toks, out_logits = tok0, [], []
+        for i in range(n_gen):
+            lg = run(tok, pos0 + i).clone()
+            out_logits.append(lg)
+            tok = lg[:, -1].argmax(-1)[:, None].int()
+            out_toks.append(tok)
+        return torch.cat(out_toks, 1), out_logits
+
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    g_toks, g_logits = greedy(graph)
+    torch.cuda.synchronize()
+    graph_s = time.perf_counter() - t0
+    launches = _read_counts()["decode_attention"]
+    e_toks, e_logits = greedy(step)
+    if launches != _attn_layers(model) * n_gen:
+        raise AssertionError(f"{tag}: {launches} decode launches in {n_gen} steps")
+    if not all(bool(torch.isfinite(x).all()) for x in g_logits):
+        raise AssertionError(f"{tag}: non-finite decode logits")
+    if not (torch.equal(g_toks, e_toks) and all(torch.equal(a, b)
+                                                for a, b in zip(g_logits, e_logits))):
+        raise AssertionError(f"{tag}: the graphed greedy decode differs from the eager one")
+    if int(g_toks.min()) < 0 or int(g_toks.max()) >= cfg.vocab_size:
+        raise AssertionError(f"{tag}: a token outside the vocabulary")
+    out = {"batch": batch, "prompt": n_prompt, "prefill_tokens": s0,
+           "decode_steps": n_gen, "cache_rows": max_len, "prefill_s": prefill_s,
+           "graph_decode_s": graph_s, "decode_launches": launches,
+           "peak_bytes": torch.cuda.max_memory_allocated(),
+           "step_ms": time_cuda(step, tok0, pos0),
+           "graph_step_ms": time_cuda(graph, tok0, pos0),
+           "graph_step_profile": _profile_step(torch, graph, tok0, pos0)}
+    log(f"[{tag}] {cfg.name}: prefill of {batch} x {s0} tokens {prefill_s:.3f} s (host "
+        f"clock); {n_gen} greedy decode steps over {max_len} cache rows through one "
+        f"graph {graph_s:.3f} s, bitwise the eager steps (logits and tokens); decode "
+        f"launches {launches}; a step graph {out['graph_step_ms']:.4f} ms, eager "
+        f"{out['step_ms']:.4f} ms (CUDA events); peak {out['peak_bytes'] / 1e9:.1f} GB")
+    _log_profile(f"{tag} graph", out["graph_step_profile"])
+    del cache, graph
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_lm_families(torch) -> dict:
+    """The families beyond the dense decoder at full width, bf16, random
+    weights from seeds, each freed before the next: DBRX, Jamba and xLSTM
+    served by ServeEngine (:func:`_engine_serve`), the recycled-slot check
+    on Jamba (at capacity ``E / k``) and xLSTM; Whisper's and LLaVA's
+    prefill then a graphed greedy decode; then each family's fp32 parity of
+    teacher-forced decode against the forward (:func:`_lm_parity`), MoE at
+    capacity ``E / k``. FAMILY_SERVE, FAMILY_PREFILL and FAMILY_PARITY list
+    the configurations and their cuts."""
+    from repro_torch.models.lm import build_model
+
+    out = {"serve": {}, "prefill_decode": {}, "parity": {}}
+    for arch, cut, why in FAMILY_SERVE:
+        tag = f"lm-families {arch}"
+        model = build_model(_family_cfg(arch, **cut))
+        params, info = _init_lm(torch, model, seed=7)
+        log(f"[{tag}] bf16, {info['params']} params ({info['param_bytes'] / 2 ** 30:.2f}"
+            f" GiB, init {info['init_s']:.1f} s); cut: {why}")
+        served, eng = _engine_serve(torch, model, params, tag)
+        del eng
+        torch.cuda.empty_cache()
+        row = {**info, "cut": why, **served}
+        if model.mixer_kinds != ["attn"]:   # recurrent state: the slot-reset check
+            row["slot_reset"] = _slot_reset(
+                torch, build_model(_family_cfg(arch, no_drops=True, **cut)), params, tag)
+        out["serve"][arch] = row
+        del params
+        torch.cuda.empty_cache()
+    for arch, batch, n_prompt, n_gen, why in FAMILY_PREFILL:
+        tag = f"lm-families {arch}"
+        model = build_model(_family_cfg(arch))
+        params, info = _init_lm(torch, model, seed=8)
+        cfg = model.cfg
+        gen = torch.Generator(device="cuda").manual_seed(9)
+        if cfg.encoder_layers:
+            extra = {"frames": torch.randn((batch, cfg.n_frames, cfg.d_model), device="cuda",
+                                           generator=gen).to(torch.bfloat16)}
+        else:
+            extra = {"patch_embeds": torch.randn((batch, cfg.n_patches, cfg.d_model),
+                                                 device="cuda", generator=gen
+                                                 ).to(torch.bfloat16)}
+        log(f"[{tag}] bf16, {info['params']} params ({info['param_bytes'] / 2 ** 30:.2f}"
+            f" GiB); cut: {why}")
+        out["prefill_decode"][arch] = {**info, "cut": why, **_prefill_decode(
+            torch, model, params, tag, batch, n_prompt, n_gen, extra)}
+        del params, extra
+        torch.cuda.empty_cache()
+    for arch, cut, batch, n_tok, n_pre, n_full, why in FAMILY_PARITY:
+        model = build_model(_family_cfg(arch, dtype="float32", no_drops=True, **cut))
+        cfg = model.cfg
+        gen = torch.Generator(device="cuda").manual_seed(10)
+        extra = None
+        if cfg.encoder_layers:
+            extra = {"frames": torch.randn((batch, cfg.n_frames, cfg.d_model),
+                                           device="cuda", generator=gen)}
+        elif cfg.n_patches:
+            extra = {"patch_embeds": torch.randn((batch, cfg.n_patches, cfg.d_model),
+                                                 device="cuda", generator=gen)}
+        log(f"[lm-families parity {arch}] cut: {why}")
+        out["parity"][arch] = {"cut": why, **_lm_parity(
+            torch, model, f"lm-families parity {arch}", batch, n_tok, n_pre,
+            extra=extra, n_full=n_full, profile=arch in FAMILY_PROFILED_PREFILL)}
+        del extra
+        torch.cuda.empty_cache()
+    out["decode_launches"] = (
+        sum(r["launches"]["decode_attention"] for r in out["serve"].values())
+        + sum(r["decode_launches"] for r in out["prefill_decode"].values()))
     return out
 
 
@@ -3515,7 +3858,8 @@ def phase_lm_train(torch) -> dict:
 
 def phase_entry_points() -> dict:
     """``python -m repro_torch.launch.train`` (reduced Qwen2-0.5B) and each
-    port example, run at once as processes on the card; each must exit 0.
+    port example (``torch_train_lm.py`` 20 steps of its reduced xLSTM), run
+    at once as processes on the card; each must exit 0.
     Their output goes to chiprun_out/entry/."""
     import subprocess
     import tempfile
@@ -3530,13 +3874,15 @@ def phase_entry_points() -> dict:
                             "--sequential"],
         "torch_train_dcgan": [py, "examples/torch_train_dcgan.py", "--steps", "20"],
         "torch_serve_lm": [py, "examples/torch_serve_lm.py"],
+        "torch_train_lm": [py, "examples/torch_train_lm.py", "--steps", "20"],
     }
     logs = os.path.join(ROOT, "chiprun_out", "entry")
     os.makedirs(logs, exist_ok=True)
     env = dict(os.environ, PYTHONPATH=SRC)
     out, procs = {}, {}
     with tempfile.TemporaryDirectory() as ckpt:
-        runs["launch_train"] += ["--ckpt-dir", ckpt]
+        runs["launch_train"] += ["--ckpt-dir", os.path.join(ckpt, "launch_train")]
+        runs["torch_train_lm"] += ["--ckpt-dir", os.path.join(ckpt, "torch_train_lm")]
         t0 = time.perf_counter()
         try:
             for name, cmd in runs.items():
@@ -3661,6 +4007,9 @@ def main() -> int:
     decode_times = run("15 decode times", phase_decode_times, torch)
     lm_serve = run("16 LM serve", phase_lm_serve, torch)
     lm_parity = run("17 LM parity", phase_lm_parity, torch)
+    # the LM families need up to ~62 GB at once: they run while the card's
+    # memory is as phases 16-17 leave it, before the GAN phases' graphs
+    families = run("26 LM families", phase_lm_families, torch)
     zoo = run("18 zoo", phase_zoo_check, torch)
     paper = run("19 paper", phase_paper, torch)
     train = run("20 train", phase_train, torch)
@@ -3709,12 +4058,14 @@ def main() -> int:
                                              for r in bwd_times),
             })
         entries.append(entry)
-    # launches: the LM serving run; numbers: Llama-3-8B, S 4096, device-only
+    # launches: the LM serving runs (phase 16's and phase 26's graphed
+    # serving and greedy decodes); numbers: Llama-3-8B, S 4096, device-only
     d4k = decode_times[0]
     source, replaces = SOURCES["decode_attention"]
     entries.append({"name": "decode_attention", "route": "cuda", "source": source,
                     "replaces": replaces,
-                    "launches": lm_serve["launches"]["decode_attention"],
+                    "launches": (lm_serve["launches"]["decode_attention"]
+                                 + families["decode_launches"]),
                     "max_abs_err": decode_check["llama_4k"], "ms": d4k["ms"],
                     "plain_ms": d4k["plain_ms"], "bound_ms": d4k["bound_ms"],
                     "bound_by": d4k["bound_by"], "library_ms": d4k["library_ms"]})
@@ -3732,7 +4083,8 @@ def main() -> int:
                    "lm_parity": lm_parity, "zoo_check": zoo, "paper": paper,
                    "train": train, "obs": obs_replicas, "autotune": tuned,
                    "graph_failure": graph_failure, "lm_train": lm_train,
-                   "entry_points": entry, "phase_seconds": seconds,
+                   "entry_points": entry, "lm_families": families,
+                   "phase_seconds": seconds,
                    "seconds": time.perf_counter() - t_start}, f, indent=1)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": entries}))

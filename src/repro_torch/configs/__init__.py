@@ -1,12 +1,13 @@
-"""Model configurations of the LM side. Mirrors ``repro/configs``; the
-dry-run's ``input_specs`` is not ported (it builds JAX shape structs for
-``launch/*``)."""
+"""Model configurations of the LM side. Mirrors ``repro/configs``;
+``input_specs`` gives meta tensors where the reference gives
+``jax.ShapeDtypeStruct``."""
 from repro_torch.configs.base import (
     MambaConfig,
     ModelConfig,
     MoEConfig,
     SHAPES,
     ShapeSpec,
+    input_specs,
     reduced,
     runnable,
 )

@@ -5,7 +5,9 @@ Every assigned architecture gets a ``ModelConfig`` in its own module under
 ``repro_torch.configs``; ``repro_torch.configs.registry`` maps ``--arch``
 ids to them. The dataclasses are data only and copied field for field.
 ``param_count`` counts the shapes of the port's own parameter layout
-(``LM.abstract_params``), which is the reference's.
+(``abstract_params`` of the model :func:`build_model` gives), which is the
+reference's. ``input_specs`` gives meta tensors where the reference gives
+``jax.ShapeDtypeStruct``: the same keys, shapes and dtypes, no storage.
 """
 from __future__ import annotations
 
@@ -142,8 +144,7 @@ class ModelConfig:
         return self.n_layers // self.period
 
     def param_count(self) -> int:
-        """Total parameter count (exact for our parameterization). Raises
-        ``NotImplementedError`` for a family the port does not build yet."""
+        """Total parameter count (exact for our parameterization)."""
         from repro_torch.models.lm import build_model
         from repro_torch.tree import tree_leaves
 
@@ -183,6 +184,41 @@ def runnable(cfg: ModelConfig, shape: ShapeSpec) -> tuple[bool, str]:
     if shape.name == "long_500k" and not cfg.sub_quadratic:
         return False, "full-attention arch: 500k decode needs sub-quadratic mixer"
     return True, ""
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeSpec) -> dict:
+    """Meta-tensor stand-ins (shape and dtype, no storage) for every model
+    input of this cell.
+
+    Modality frontends are stubs, as in the reference: the VLM takes
+    precomputed anyres patch embeddings, the audio arch precomputed
+    conv-frontend frame embeddings.
+    """
+    import torch
+
+    B, S = shape.global_batch, shape.seq_len
+    act = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+
+    def spec(shape_, dtype):
+        return torch.empty(shape_, dtype=dtype, device="meta")
+
+    def tok(b, s):
+        return spec((b, s), torch.int32)
+
+    batch: dict = {}
+    if shape.kind in ("train", "prefill"):
+        s_text = S - cfg.n_patches if cfg.n_patches else S
+        batch["tokens"] = tok(B, s_text)
+        if shape.kind == "train":
+            batch["targets"] = tok(B, s_text if cfg.encoder_layers else S)
+        if cfg.n_patches:
+            batch["patch_embeds"] = spec((B, cfg.n_patches, cfg.d_model), act)
+        if cfg.encoder_layers:
+            batch["frames"] = spec((B, cfg.n_frames, cfg.d_model), act)
+    else:  # decode: one new token against a cache of length S
+        batch["tokens"] = tok(B, 1)
+        batch["pos"] = spec((B,), torch.int32)
+    return batch
 
 
 def reduced(cfg: ModelConfig, **overrides) -> ModelConfig:

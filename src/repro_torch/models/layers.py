@@ -1,7 +1,7 @@
 """Shared layers. Mirrors ``repro/models/layers.py``: the transpose-conv
 layers of the GAN generators (``tconv_init``, ``tconv_apply``) and the LM
-layers of the dense decoder (RMSNorm, RoPE, GQA attention with a KV cache,
-SwiGLU MLP).
+layers (RMSNorm, RoPE, GQA attention with a KV cache and cross-attention,
+SwiGLU MLP, capacity-based mixture-of-experts).
 
 Parameters are plain dicts of tensors with the reference's names and
 layouts (a dense weight is ``(d_in, d_out)``, applied as ``x @ w``). The
@@ -13,6 +13,13 @@ compute the same function (the reference's tests hold its Pallas kernel,
 which the CUDA kernel replaces, to the oracle at 2e-4/2e-5), except that
 the kernel keeps scores and probabilities in fp32 where the oracle rounds
 them to a bf16 model's dtype.
+
+:func:`moe` is the reference's single-device path (no mesh: one group of
+tokens; the expert-parallel ``shard_map`` path waits for ROADMAP queue 1,
+"Distribution"). Its dispatch and combine are gathers: nothing is
+scattered, so no sum depends on the order of atomic adds. Each token's
+``k`` expert outputs are added in ascending expert order starting from
+zero, where the reference scatter-adds them.
 """
 from __future__ import annotations
 
@@ -22,6 +29,7 @@ import torch
 
 from repro_torch.core.transpose_conv import transpose_conv2d
 from repro_torch.kernels.decode_attention import decode_attention
+from repro_torch.tree import tree_map
 
 NEG_INF = -1e30
 
@@ -70,6 +78,22 @@ def _normal(generator: torch.Generator, shape, std: float, dtype, device):
         return torch.empty(shape, dtype=dtype, device=device)
     w = torch.randn(shape, generator=generator, device=generator.device) * std
     return w.to(device=device, dtype=dtype)
+
+
+def stack_layers(make, n: int):
+    """``n`` layers drawn by ``make()`` in turn, their leaves stacked over a
+    new leading axis (filled one layer at a time, so at most one unstacked
+    layer exists at once; with ``n == 1`` the layer itself, as a view)."""
+    out = None
+    for i in range(n):
+        one = make()
+        if n == 1:
+            return tree_map(lambda t: t.unsqueeze(0), one)
+        if out is None:
+            out = tree_map(lambda t: t.new_empty((n,) + tuple(t.shape)), one)
+        tree_map(lambda dst, src: dst[i].copy_(src), out, one)
+        del one   # before the next layer's draw
+    return out
 
 
 def dense_init(generator, d_in, d_out, dtype, *, bias=False, std=None,
@@ -121,7 +145,9 @@ class KVCache(NamedTuple):
     v: torch.Tensor
 
 
-def attn_init(generator, cfg, *, device) -> dict:
+def attn_init(generator, cfg, *, cross=False, device) -> dict:
+    """Query, key, value and output projections. ``cross`` (a
+    cross-attention layer) changes nothing, as in the reference."""
     d, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     dt = _dtype(cfg)
     return {
@@ -202,18 +228,23 @@ def _scatter_kv(cache, kv, pos):
 
 
 def attention(p, cfg, x, *, positions, causal=True, cache: KVCache | None = None,
-              cache_pos=None, prefill=False):
+              cache_pos=None, kv_override=None, prefill=False):
     """GQA attention. Returns (out, new_cache).
 
     cache + cache_pos: decode mode -- writes this step's K/V into the cache
     at cache_pos, in place, and attends over the cache through the decode
-    kernel. prefill: also return this call's full K/V as a KVCache.
-    Cross-attention (the reference's ``kv_override``) is not ported yet.
+    kernel. kv_override: cross-attention over the given ``(k, v)`` (B, Skv,
+    KV, hd), with no RoPE and no cache write; ``cache`` comes back as given.
+    prefill: also return this call's full K/V as a KVCache.
     """
     B, S, _ = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     G = H // KV
     q = dense(p["wq"], x).reshape(B, S, H, hd)
+    if kv_override is not None:
+        k, v = kv_override
+        return _prefill_attention(p, cfg, x, q, k, v, causal=causal,
+                                  positions=positions), cache
     k = dense(p["wk"], x).reshape(B, S, KV, hd)
     v = dense(p["wv"], x).reshape(B, S, KV, hd)
     if cfg.rope_theta:
@@ -228,10 +259,18 @@ def attention(p, cfg, x, *, positions, causal=True, cache: KVCache | None = None
         o = o.to(x.dtype).reshape(B, S, H * hd)
         return dense(p["wo"], o), cache
     new_cache = KVCache(k, v) if prefill else None
+    return _prefill_attention(p, cfg, x, q, k, v, causal=causal,
+                              positions=positions), new_cache
 
-    if KV != H:  # expand KV -> H heads (no-op for MHA)
-        k = torch.repeat_interleave(k, G, dim=2)
-        v = torch.repeat_interleave(v, G, dim=2)
+
+def _prefill_attention(p, cfg, x, q, k, v, *, causal, positions):
+    """Attention of every query over ``k``/``v`` (KV heads expanded to
+    H): chunked where the reference chunks, direct otherwise; the output
+    projection applied."""
+    B, S, H, hd = q.shape
+    if k.shape[2] != H:  # expand KV -> H heads (no-op for MHA)
+        k = torch.repeat_interleave(k, H // k.shape[2], dim=2)
+        v = torch.repeat_interleave(v, H // v.shape[2], dim=2)
     Skv = k.shape[1]
     if (S * Skv > cfg.attn_chunk ** 2 and S > 1
             and S % min(cfg.attn_chunk, S) == 0
@@ -241,7 +280,7 @@ def attention(p, cfg, x, *, positions, causal=True, cache: KVCache | None = None
     else:
         o = _direct_attention(q, k, v, causal=causal, q_positions=positions)
     o = o.to(x.dtype).reshape(B, S, H * hd)
-    return dense(p["wo"], o), new_cache
+    return dense(p["wo"], o)
 
 
 def init_kv_cache(cfg, batch: int, seq_len: int, *, device) -> KVCache:
@@ -253,8 +292,8 @@ def init_kv_cache(cfg, batch: int, seq_len: int, *, device) -> KVCache:
 
 # ------------------------------------------------------------- dense SwiGLU
 
-def mlp_init(generator, cfg, *, device) -> dict:
-    d, ff, dt = cfg.d_model, cfg.d_ff, _dtype(cfg)
+def mlp_init(generator, cfg, d_ff=None, *, device) -> dict:
+    d, ff, dt = cfg.d_model, d_ff or cfg.d_ff, _dtype(cfg)
     return {
         "w_gate": dense_init(generator, d, ff, dt, device=device),
         "w_up": dense_init(generator, d, ff, dt, device=device),
@@ -265,3 +304,97 @@ def mlp_init(generator, cfg, *, device) -> dict:
 def mlp(p, x):
     h = torch.nn.functional.silu(dense(p["w_gate"], x)) * dense(p["w_up"], x)
     return dense(p["w_down"], h)
+
+
+# ------------------------------------------------------------------- MoE
+
+def moe_init(generator, cfg, *, device) -> dict:
+    """Router (fp32 ``w``, used in the model dtype), the experts' stacked
+    SwiGLU weights and, for a config with shared experts, one dense MLP
+    of their summed width."""
+    d, E, ff = cfg.d_model, cfg.moe.n_experts, cfg.moe.d_ff
+    dt, std = _dtype(cfg), d ** -0.5
+    p = {
+        "router": {"w": _normal(generator, (d, E), std, torch.float32, device)},
+        "experts": {
+            "w_gate": _normal(generator, (E, d, ff), std, dt, device),
+            "w_up": _normal(generator, (E, d, ff), std, dt, device),
+            "w_down": _normal(generator, (E, ff, d), ff ** -0.5, dt, device),
+        },
+    }
+    if cfg.moe.n_shared_experts:
+        p["shared"] = mlp_init(generator, cfg, d_ff=ff * cfg.moe.n_shared_experts,
+                               device=device)
+    return p
+
+
+def _router(p, cfg, x2d):
+    """Router logits in the model dtype, softmax and top-k in fp32; returns
+    ``(top_p, top_e, probs)`` with ``top_p`` renormalised. Among equal
+    probabilities the lower expert comes first, as ``lax.top_k`` takes it
+    (a stable descending sort; ``torch.topk`` promises no order)."""
+    logits = (x2d @ p["router"]["w"].to(x2d.dtype)).float()
+    probs = torch.softmax(logits, dim=-1)
+    top_p, top_e = torch.sort(probs, dim=-1, descending=True, stable=True)
+    k = cfg.moe.top_k
+    top_p, top_e = top_p[..., :k], top_e[..., :k]
+    top_p = top_p / torch.clamp(top_p.sum(-1, keepdim=True), min=1e-9)
+    return top_p, top_e, probs
+
+
+def moe(p, cfg, x):
+    """Top-k capacity-based MoE over ``x`` (B, S, d); returns ``(out,
+    aux)``.
+
+    The ``T = B*S`` tokens' ``(token, slot)`` pairs are sorted stably by
+    expert; each expert takes at most ``C = max(int(cf * k * T / E), 1)``
+    of them in that order and drops the rest (Switch semantics). Each
+    expert's ``(C, d)`` slab is gathered from the sorted pairs (rows past
+    its count are zero), the experts run as batched matmuls, and each
+    token gathers its ``k`` weighted outputs back (a dropped pair reads the
+    zero sentinel row) and adds them in fp32 in ascending expert order.
+    Every shape follows from ``T``, so a decode step captures as a graph.
+    ``aux`` is the Switch balance loss ``E * sum(frac_tokens *
+    frac_probs)``."""
+    B, S, d = x.shape
+    E, k = cfg.moe.n_experts, cfg.moe.top_k
+    T = B * S
+    xt = x.reshape(T, d)
+    top_p, top_e, probs = _router(p, cfg, xt)
+    C = max(int(cfg.moe.capacity_factor * k * T / E), 1)
+
+    flat_e = top_e.reshape(T * k)
+    order = torch.argsort(flat_e, stable=True)          # group pairs by expert
+    sorted_e = flat_e[order]
+    experts = torch.arange(E, device=x.device)
+    start = torch.searchsorted(sorted_e, experts, side="left")     # (E,)
+    count = torch.searchsorted(sorted_e, experts, side="right") - start
+    token_of = order // k                                # (T*k,)
+
+    # dispatch: row c of expert e is sorted pair start[e] + c, if c < count[e]
+    c = torch.arange(C, device=x.device)
+    src = torch.clamp(start[:, None] + c, max=T * k - 1)            # (E, C)
+    buf = torch.where((c < count[:, None])[..., None], xt[token_of[src]],
+                      torch.zeros((), dtype=x.dtype, device=x.device))
+    ex = p["experts"]
+    h = torch.nn.functional.silu(torch.bmm(buf, ex["w_gate"]))
+    h = h * torch.bmm(buf, ex["w_up"])
+    y = torch.bmm(h, ex["w_down"]).reshape(E * C, d)
+    y = torch.cat([y, y.new_zeros((1, d))])              # the sentinel row
+
+    # combine: pair i of the sorted order reads its slot (or the sentinel)
+    pos_in_e = torch.arange(T * k, device=x.device) - start[sorted_e]
+    slot = torch.where(pos_in_e < C, sorted_e * C + pos_in_e, E * C)
+    wts = top_p.reshape(T * k)[order][:, None]
+    contrib = y[slot].float() * wts                      # (T*k, d), sorted order
+    # each token's k positions in the sorted order, ascending: ascending expert
+    rows = torch.sort(torch.argsort(order).reshape(T, k), dim=-1).values
+    out = torch.zeros((T, d), dtype=torch.float32, device=x.device)
+    for j in range(k):
+        out = out + contrib[rows[:, j]]
+    out = out.to(x.dtype)
+    if "shared" in p:
+        out = out + mlp(p["shared"], xt)
+    frac_tokens = count.float() / (T * k)
+    aux = E * torch.sum(frac_tokens * probs.mean(0))
+    return out.reshape(B, S, d), aux

@@ -7,9 +7,14 @@ of different lengths decode in the same batched step (per-sequence ``pos``
 and ``kv_len`` masking). A prompt is fed token by token through the decode
 step. Finished slots are recycled without touching the others' cache rows;
 an idle slot runs through the step with token 0 at its stale position, as
-in the reference, and its rows are masked by ``kv_len`` once it is reused.
-Every step's attention runs the hand-written flash-decode kernel on the
-card (:mod:`repro_torch.kernels.decode_attention`).
+in the reference, and its KV rows are masked by ``kv_len`` once it is
+reused. A recurrent state (Mamba's ``conv`` and ``ssm``, xLSTM's ``C``,
+``n``, ``m``, ``c``, ``h``) has no such mask, so admitting a request zeroes
+its slot's rows of every recurrent state, in place; the reference does
+not, and there a request served in a used slot starts from the state its
+slot was left in. Every step's attention runs the hand-written
+flash-decode kernel on the card
+(:mod:`repro_torch.kernels.decode_attention`).
 
 On the card the decode step is one CUDA graph (:mod:`repro_torch.graphs`),
 the counterpart of the reference's ``jax.jit(model.decode_step)``,
@@ -56,7 +61,7 @@ class ServeEngine:
     def __init__(self, model, params, *, slots: int = 4, max_len: int = 256,
                  sampler: Callable | None = None, device=None):
         self.device = resolve_device(device)
-        where = params["embed"]["w"].device
+        where = model._device(params)
         if where != self.device:
             raise ValueError(f"params live on {where}, the engine on {self.device}")
         self.model = model
@@ -90,7 +95,7 @@ class ServeEngine:
 
         def decode(p, c, batch):
             require_captured(p, params, "params")
-            require_captured(c, cache, "KV cache")
+            require_captured(c, cache, "cache")
             return graph(batch["tokens"], batch["pos"]), c
 
         decode.graph = graph
@@ -115,6 +120,17 @@ class ServeEngine:
             self.active[slot] = req
             self.pos[slot] = 0
             self._pending_prompt[slot] = list(req.prompt)
+            self._reset_state(slot)
+
+    def _reset_state(self, slot: int) -> None:
+        """Zero ``slot``'s rows of every recurrent state of the cache (dict
+        entries, stacked over periods: ``(n_periods, B, ...)``) in place, so
+        a decode graph captured over the cache still reads them. KV caches
+        are left as they are: ``kv_len`` masks their stale rows."""
+        for entry in self.cache if isinstance(self.cache, list) else ():
+            if isinstance(entry, dict):
+                for t in entry.values():
+                    t[:, slot].zero_()
 
     # -------------------------------------------------------------- step
 

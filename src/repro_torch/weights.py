@@ -9,8 +9,9 @@ packages then compute the same function. :func:`from_jax_state` does the
 same for the reference trainer's whole state (both nets and both optimizer
 states), so both packages can start a step from one state.
 :func:`from_jax_lm_params` and :func:`from_jax_lm_cache` carry the
-reference LM's parameters (per-period stacking kept) and its serving cache
-over the same way.
+reference LM's parameters (per-period stacking kept; an encoder-decoder's
+``{"encoder", "decoder"}`` tree too) and its serving cache over the same
+way.
 """
 from __future__ import annotations
 
@@ -104,17 +105,39 @@ def from_jax_lm_params(params_np: dict, cfg, device) -> dict:
     return walk(build_model(cfg).abstract_params(), params_np, "")
 
 
-def from_jax_lm_cache(cache_np, device) -> list:
-    """The port LM's serving cache from numpy copies of the reference's: a
-    sequence (per period position) of ``(k, v)`` pairs ``(n_periods, B, S,
-    KV, hd)``, on ``device`` (``None`` means the CUDA card)."""
+_STATE_KEYS = ({"conv", "ssm"}, {"C", "n", "m"}, {"c", "n", "h", "m"})
+
+
+def from_jax_lm_cache(cache_np, device):
+    """The port LM's serving cache from numpy copies of the reference's, on
+    ``device`` (``None`` means the CUDA card): for a decoder-only LM a
+    sequence (per period position) of entries stacked over periods, each a
+    ``(k, v)`` pair ``(n_periods, B, S, KV, hd)`` (a KVCache) or a dict of
+    recurrent state arrays (Mamba ``conv``/``ssm``, mLSTM ``C``/``n``/``m``,
+    sLSTM ``c``/``n``/``h``/``m``); for an encoder-decoder a dict of
+    ``"self"`` and ``"cross"`` pairs ``(n_layers, B, S, KV, hd)``. Raises
+    ``ValueError`` on any other entry."""
     from repro_torch.models.layers import KVCache
 
     dev = resolve_device(device)
-    out = []
-    for k, v in cache_np:
+
+    def kv(pair):
+        k, v = pair
         if np.shape(k) != np.shape(v) or np.ndim(k) != 5:
             raise ValueError(f"expected k and v (n_periods, B, S, KV, hd), got "
                              f"{np.shape(k)} and {np.shape(v)}")
-        out.append(KVCache(_tensor(k, dev), _tensor(v, dev)))
-    return out
+        return KVCache(_tensor(k, dev), _tensor(v, dev))
+
+    def entry(e):
+        if isinstance(e, dict):
+            if set(e) not in _STATE_KEYS:
+                raise ValueError(f"unknown recurrent state keys {sorted(e)}")
+            return {k: _tensor(a, dev) for k, a in e.items()}
+        return kv(e)
+
+    if isinstance(cache_np, dict):
+        if set(cache_np) != {"self", "cross"}:
+            raise ValueError(f"an encoder-decoder cache holds self and cross, not "
+                             f"{sorted(cache_np)}")
+        return {name: kv(cache_np[name]) for name in ("self", "cross")}
+    return [entry(e) for e in cache_np]

@@ -512,6 +512,8 @@ DECODE_SHAPES = [  # (B, S, KV, G, hd): chip_smoke.py's decode check
     (2, 1024, 32, 1, 128),   # CodeQwen1.5 (MHA)
     (3, 1000, 2, 3, 64),     # S not a multiple of the split
     (4, 40000, 2, 4, 64),    # 40 splits: a lane of the combine takes two
+    (8, 1024, 8, 6, 128),    # DBRX as chip_smoke.py serves it (G 6)
+    (8, 448, 20, 1, 64),     # Whisper's decoder self-attention, 448 rows
 ]
 
 
@@ -722,7 +724,7 @@ def test_decode_graph_equals_eager_step_bitwise(card):
     assert again is got and not torch.equal(again, kept)
     with pytest.raises(ValueError, match="params"):
         eng._decode(dict(params), eng.cache, batch)
-    with pytest.raises(ValueError, match="KV cache"):
+    with pytest.raises(ValueError, match="own cache"):
         eng._decode(params, copy, batch)
 
 

@@ -4,6 +4,7 @@ import os
 import pkgutil
 import subprocess
 import sys
+import tempfile
 
 import numpy as np
 import pytest
@@ -63,7 +64,8 @@ def test_examples_import_neither_jax_nor_the_reference():
     import re
 
     assert EXAMPLES == ["torch_quickstart.py", "torch_serve_gan.py",
-                        "torch_serve_lm.py", "torch_train_dcgan.py"]
+                        "torch_serve_lm.py", "torch_train_dcgan.py",
+                        "torch_train_lm.py"]
     for name in EXAMPLES:
         with open(os.path.join(ROOT, "examples", name)) as f:
             text = f.read()
@@ -105,8 +107,21 @@ def test_module_list_covers_the_slice():
                  "serve.supervisor", "serve.fault_injection",
                  "train.fault_injection", "kernels.autotune",
                  "optim.schedule", "train.train_step", "train.trainer", "launch",
-                 "launch.train"):
+                 "launch.train", "models.ssm", "models.xlstm", "models.encdec",
+                 "configs.dbrx_132b", "configs.jamba_1_5_large_398b",
+                 "configs.kimi_k2_1t_a32b", "configs.xlstm_125m",
+                 "configs.whisper_large_v3", "configs.llava_next_mistral_7b"):
         assert f"repro_torch.{name}" in MODULES
+
+
+def _example(name):
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(ROOT, "examples", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def _entry_points(cfg, params_cpu):
@@ -118,6 +133,7 @@ def _entry_points(cfg, params_cpu):
     lm = build_model(lm_cfg)
     lm_cpu = lm.init(torch.Generator().manual_seed(0), device="cpu")
     lm_np = tree_map(lambda t: t.float().numpy(), lm_cpu)
+    encdec = build_model(reduced(get_config("whisper-large-v3")))
     return {
         "resolve_device": lambda: resolve_device(None),
         "GanEngine": lambda: GanEngine(),
@@ -139,6 +155,12 @@ def _entry_points(cfg, params_cpu):
             {"g_params": np_params, "d_params": {}, "g_opt": {}, "d_opt": {}},
             cfg, None),
         "LM.init": lambda: lm.init(torch.Generator().manual_seed(0)),
+        "LM.init_cache": lambda: lm.init_cache(2, 8),
+        "EncDecLM.init": lambda: encdec.init(torch.Generator().manual_seed(0)),
+        "EncDecLM.init_cache": lambda: encdec.init_cache(2, 8),
+        "torch_train_lm": lambda: _example("torch_train_lm").main(
+            ["--steps", "1", "--batch", "1", "--seq", "8",
+             "--ckpt-dir", tempfile.mkdtemp()]),
         "ServeEngine": lambda: ServeEngine(lm, lm_cpu),
         "from_jax_lm_params": lambda: from_jax_lm_params(lm_np, lm_cfg, None),
         "SyntheticTokens": lambda: SyntheticTokens(8, 4, 1),
@@ -161,7 +183,9 @@ def _entry_points(cfg, params_cpu):
                                    "generator_init", "generator_apply",
                                    "from_jax_params", "discriminator_init",
                                    "SyntheticImages", "GanTrainer",
-                                   "from_jax_state", "LM.init", "ServeEngine",
+                                   "from_jax_state", "LM.init", "LM.init_cache",
+                                   "EncDecLM.init", "EncDecLM.init_cache",
+                                   "torch_train_lm", "ServeEngine",
                                    "from_jax_lm_params", "tune_layer",
                                    "tune_pair", "SyntheticTokens",
                                    "init_train_state", "launch.train"])

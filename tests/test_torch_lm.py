@@ -1,8 +1,10 @@
-"""The port's dense LM against the reference on the CPU: configs, layers
-(RMSNorm, RoPE, attention prefill direct and chunked, and decode), and
-``LM.apply`` / ``prefill`` / ``decode_step`` with weights carried over from
-the reference, on reduced configs of the four dense archs. The decode step
-runs the decode kernel's plain version here (CPU tensors)."""
+"""The port's LM against the reference on the CPU: configs, parameter
+counts, full-size parameter layouts and ``input_specs`` of every arch;
+layers (RMSNorm, RoPE, attention prefill direct and chunked, and decode);
+and ``LM.apply`` / ``prefill`` / ``decode_step`` with weights carried over
+from the reference, on reduced configs of the four dense archs (the other
+families: ``tests/test_torch_lm_families.py``). The decode step runs the
+decode kernel's plain version here (CPU tensors)."""
 import dataclasses
 
 import jax
@@ -14,13 +16,15 @@ import torch
 from repro.configs import ARCH_IDS as J_ARCH_IDS
 from repro.configs import SHAPES as J_SHAPES
 from repro.configs import get_config as jget_config
+from repro.configs import input_specs as jinput_specs
 from repro.configs import reduced as jreduced
 from repro.configs import runnable as jrunnable
 from repro.models import layers as JL
 from repro.models.lm import build_model as jbuild_model
-from repro_torch.configs import ARCH_IDS, SHAPES, get_config, reduced, runnable
+from repro_torch.configs import ARCH_IDS, SHAPES, get_config, input_specs, reduced, runnable
 from repro_torch.models import layers as L
 from repro_torch.models.lm import build_model
+from repro_torch.tree import tree_leaves
 from repro_torch.weights import from_jax_lm_cache, from_jax_lm_params
 
 DENSE = ["llama3-8b", "yi-9b", "codeqwen1.5-7b", "qwen2-0.5b"]
@@ -79,15 +83,44 @@ def test_configs_match_the_reference():
         get_config("gpt-2")
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", ARCH_IDS)
 def test_full_config_param_count_matches_the_reference(arch):
-    assert get_config(arch).param_count() == jget_config(arch).param_count()
+    """Every architecture at full size, counted on meta tensors."""
+    cfg, jcfg = get_config(arch), jget_config(arch)
+    assert cfg.param_count() == jcfg.param_count()
+    assert cfg.active_param_count() == jcfg.active_param_count()
 
 
 @pytest.mark.parametrize("arch", [a for a in ARCH_IDS if a not in DENSE])
-def test_build_model_refuses_what_is_not_ported(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(get_config(arch))
+def test_build_model_builds_the_other_families(arch):
+    """The six architectures beyond the dense family build, and their
+    full-config parameter trees (meta tensors) equal the reference's
+    ``abstract_params`` leaf for leaf in path, shape and dtype."""
+    model = build_model(get_config(arch))
+    assert type(model).__name__ == type(jbuild_model(jget_config(arch))).__name__
+    got = model.abstract_params()
+    want = jax.tree_util.tree_leaves_with_path(
+        jbuild_model(jget_config(arch)).abstract_params())
+    leaves = tree_leaves(got)
+    assert len(leaves) == len(want)
+    for (path, w), t in zip(want, leaves):
+        assert t.device.type == "meta"
+        assert (tuple(t.shape), str(t.dtype).split(".")[-1]) == (w.shape, str(w.dtype)), \
+            jax.tree_util.keystr(path)
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+@pytest.mark.parametrize("shape", list(J_SHAPES))
+def test_input_specs_match_the_reference(arch, shape):
+    """``input_specs``: the reference's keys, shapes and dtypes, as meta
+    tensors."""
+    got = input_specs(get_config(arch), SHAPES[shape])
+    want = jinput_specs(jget_config(arch), J_SHAPES[shape])
+    assert set(got) == set(want)
+    for k, w in want.items():
+        assert got[k].device.type == "meta", k
+        assert (tuple(got[k].shape), str(got[k].dtype).split(".")[-1]) == (
+            w.shape, str(w.dtype)), k
 
 
 # ------------------------------------------------------------------- layers

@@ -468,8 +468,11 @@ def _example(name):
     ("torch_serve_gan", ["--requests", "8", "--sequential"]),
     ("torch_train_dcgan", ["--steps", "2", "--batch", "2"]),
     ("torch_serve_lm", []),
+    ("torch_train_lm", ["--steps", "3", "--batch", "2", "--seq", "16"]),
 ])
 def test_examples_run_on_the_cpu(name, argv, monkeypatch, tmp_path):
     monkeypatch.setenv("REPRO_AUTOTUNE_CACHE", str(tmp_path / "autotune.json"))
+    if name == "torch_train_lm":
+        argv = argv + ["--ckpt-dir", str(tmp_path / "ckpt")]
     out = _example(name).main(argv + ["--device", "cpu"])
     assert out is not None

@@ -1,7 +1,9 @@
 """The port's continuous-batching LM engine: ports of the three tests of
 ``tests/test_serve_engine.py`` (slot recycling, mixed lengths, greedy
-against a sequential decode, EOS), and the reference engine's tokens from
-the port's engine on a reduced fp32 Llama-3 with carried weights."""
+against a sequential decode, EOS), the reference engine's tokens from the
+port's engine on a reduced fp32 Llama-3 with carried weights, and the
+recurrent families (reduced Jamba and xLSTM), whose admitted slots start
+from a zeroed state."""
 import dataclasses
 
 import jax
@@ -145,3 +147,67 @@ def test_engine_refuses_params_elsewhere_and_long_requests(small_model):
         eng.run([Request(prompt=[1] * 6, max_new_tokens=3)])
     with pytest.raises(ValueError, match="params live on"):
         ServeEngine(model, params, device="meta")
+
+
+# ------------------------------------------- recurrent families (slot reset)
+
+def _family_cfg(arch, **mamba):
+    """Reduced fp32 ``arch`` with capacity for every token (MoE) and the
+    given Mamba fields."""
+    cfg = dataclasses.replace(reduced(get_config(arch)), dtype="float32")
+    if cfg.moe.n_experts:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k))
+    if mamba:
+        cfg = dataclasses.replace(cfg, mamba=dataclasses.replace(cfg.mamba, **mamba))
+    return cfg
+
+
+def _pad_kv(cache, n):
+    return [c if isinstance(c, dict) else
+            L.KVCache(*(torch.nn.functional.pad(t, (0, 0, 0, 0, 0, n)) for t in c))
+            for c in cache]
+
+
+def _sequential(m, p, prompt, n_new):
+    """Greedy tokens of one request alone: prefill, then decode steps."""
+    logits, cache = m.prefill(p, {"tokens": torch.tensor([prompt])})
+    cache = _pad_kv(cache, n_new)
+    out = [int(logits[0, -1].argmax())]
+    for t in range(len(prompt), len(prompt) + n_new - 1):
+        logits, cache = m.decode_step(p, cache, {"tokens": torch.tensor([[out[-1]]]),
+                                                 "pos": torch.tensor([t])})
+        out.append(int(logits[0, -1].argmax()))
+    return out
+
+
+@pytest.mark.parametrize("arch", ["jamba-1.5-large-398b", "xlstm-125m"])
+def test_engine_serves_sequential_tokens_in_recycled_slots(arch):
+    """Five requests through two slots (so three are admitted into slots
+    that served before, and idle slots run token 0 meanwhile): each
+    request's greedy tokens equal its sequential decode, which needs the
+    admitted slot's recurrent state zeroed. Jamba runs at capacity
+    ``n_experts / top_k`` (co-batched requests would otherwise change each
+    other's routes through drops) and a Mamba chunk of 1, so a prompt of
+    any length prefills (at least ``d_conv - 1`` tokens, which the conv
+    state holds)."""
+    cfg = _family_cfg(arch, **({"chunk": 1} if arch.startswith("jamba") else {}))
+    m = build_model(cfg)
+    p = m.init(torch.Generator().manual_seed(2), device="cpu")
+    rng = np.random.default_rng(3)
+    reqs = [Request(prompt=rng.integers(0, cfg.vocab_size, int(n)).tolist(),
+                    max_new_tokens=int(k))
+            for n, k in ((5, 4), (3, 7), (6, 2), (4, 5), (7, 3))]
+    eng = ServeEngine(m, p, slots=2, max_len=32, device="cpu")
+    eng.run(reqs)
+    assert all(r.done for r in reqs)
+    for r in reqs:
+        assert r.output == _sequential(m, p, r.prompt, r.max_new_tokens), r.rid
+
+    # the reference's engine does not reset: there a recycled slot starts
+    # from its last request's state, and the served tokens differ
+    stale = [dataclasses.replace(r, rid=-1, output=[], done=False) for r in reqs]
+    eng = ServeEngine(m, p, slots=2, max_len=32, device="cpu")
+    eng._reset_state = lambda slot: None
+    eng.run(stale)
+    assert [r.output for r in stale] != [r.output for r in reqs]
