@@ -253,7 +253,9 @@ Phases, in order; any failure raises and the script exits non-zero:
               profiled step (device time by kernel and by kind, idle share)
               and the peak device memory.
 25. entry points -- python -m repro_torch.launch.train (reduced
-              Qwen2-0.5B, 20 steps, checkpoints) and the five examples/torch_*.py
+              Qwen2-0.5B, 20 steps, checkpoints, --mesh host: its log's
+              last line must name the one-rank NCCL group) and the five
+              examples/torch_*.py
               (torch_train_lm.py: 20 steps of its reduced xLSTM), run at once
               as processes on the card; each must exit 0 within
               ENTRY_TIMEOUT_S (logs in chiprun_out/entry/).
@@ -273,7 +275,34 @@ Phases, in order; any failure raises and the script exits non-zero:
               eager steps, decode launches counted; then fp32 parity as in
               phase 17 for each family (MoE at capacity E / k; DBRX 2 layers,
               Jamba one period of 3 experts with a 256-token prompt).
-27. result -- each phase's seconds, a JSON line of per-kernel numbers, then
+27. distribution -- (run after phase 23, before phase 24) (a) under
+              make_host_mesh(), a 1x1 (data, model) mesh over a one-rank
+              NCCL group: full-width DCGAN through shard_plan_apply at
+              buckets 1 and 8, per layer and fuse="force", bitwise the
+              unsharded calls with equal launches (and one all-gather a
+              call); Replica(shard=True, mesh=...) per bucket, each graph
+              bitwise its eager sharded call and the unsharded replica's
+              graph, counting its launches; GanTrainer(data_parallel=True)
+              under the mesh: 3 graphed steps bitwise the data_parallel=False
+              steps, with equal launches; the MoE's expert-parallel path at
+              DBRX width (2 layers, 4 of 16 experts, fp32, capacity E / k,
+              its FSDP gather of the expert slices) within 1e-4 * max|ref| +
+              1e-5 of the no-mesh moe (a layer, and the model's logits), and
+              ServeEngine's graphed decode step under the mesh bitwise its
+              eager step. Times (CUDA events over graph replays, in turns):
+              the bucket-8 generator with and without the mesh, the training
+              step with and without it. (b) two processes on the one card
+              over gloo (DIST_PROCS_TIMEOUT_S): full-width DCGAN at batch 8
+              on a data = 2 mesh, each rank running the kernels on its 4
+              images; the gathered output bitwise the unsharded call on
+              both ranks; the parameter gradients through the region
+              within 1e-4 * max|ref| + 1e-5 of the unsharded ones; the
+              run's wall (host clock). (c) python -m repro_torch.launch.train
+              --mesh single-pod exits non-zero with the ValueError naming
+              256 ranks (phase 25 runs --mesh host through the one-rank
+              group). NCCL's and gloo's kernels are no hand-written kernels:
+              the launch counters do not count them.
+28. result -- each phase's seconds, a JSON line of per-kernel numbers, then
               the last line {"ok": true, "device": {...}}.
 
 Full results also go to chiprun_out/chip_smoke.json.
@@ -289,8 +318,6 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
 
-PEAK_FP32_FLOPS = 67e12   # H100 SXM, fp32 outside the tensor cores
-PEAK_HBM_BPS = 3.35e12    # H100 SXM HBM3
 BATCH = 8
 TOL_REL, TOL_ABS = 1e-4, 1e-5   # fp32 sums of up to 16384 terms, reordered
 DCGAN_SHAPES = [  # (B, N, n, P, Cin, Cout) of DCGAN L0..L3 at batch 8
@@ -429,7 +456,6 @@ LM_TRAIN_ARCH = "qwen2-0.5b"
 LM_TRAIN_SEQ, LM_TRAIN_BATCH = 4096, 4   # train_4k's length; its batch of 256 cut to 4
 LM_TRAIN_TIMED = 10      # graphed steps timed after the 6 checked ones
 LM_LOSS_DROP = 0.3       # tests/test_archs_smoke.py::test_train_step_decreases_loss
-PEAK_BF16_FLOPS = 989e12  # H100 SXM, dense bf16 on the tensor cores
 ENTRY_TIMEOUT_S = 300
 # Phase 26's configurations: full width, bf16; cut in depth (and Jamba's
 # experts) to fit one card beside the engine. (arch, cut, why)
@@ -461,17 +487,29 @@ FAMILY_PARITY = [
 ]
 # the prefills profiled: the Mamba scan's and the sLSTM loop's library calls
 FAMILY_PROFILED_PREFILL = ("jamba-1.5-large-398b", "xlstm-125m")
+# Phase 27: the buckets sharded, the replays a time takes, the two-process
+# run's time limit, and the MoE parity's cut (arch, cut, batch, tokens, why)
+DIST_BUCKETS = (1, 8)
+DIST_TIMED_CALLS = 50
+DIST_PROCS_TIMEOUT_S = 300
+DIST_MOE = ("dbrx-132b", {"n_layers": 2, "n_experts": 4}, 2, 48,
+            "2 of 40 layers, experts 16 -> 4 (fp32, before phase 24's graphs)")
 
 
 def log(*args) -> None:
     print(*args, flush=True)
 
 
-def phase_device(torch) -> dict:
-    smi = subprocess.run(
+def _smi() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0]
+
+
+def phase_device(torch) -> dict:
+    smi = _smi()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cudnn.benchmark = False
@@ -648,7 +686,9 @@ def phase_check(torch) -> dict:
 def _limits(flops, nbytes) -> dict:
     """The least time for ``flops`` fp32 operations on ``nbytes`` moved once:
     the larger of the two over the card's peak rates."""
-    t_ops, t_bytes = flops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_HBM_BPS * 1e3
+    from repro_torch.launch.roofline import HBM_BW, PEAK_FP32_FLOPS
+
+    t_ops, t_bytes = flops / PEAK_FP32_FLOPS * 1e3, nbytes / HBM_BW * 1e3
     return {"flops": flops, "bytes": nbytes, "ops_ms": t_ops,
             "bytes_ms": t_bytes, "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
@@ -3699,6 +3739,7 @@ def phase_lm_train(torch) -> dict:
 
     from repro_torch.configs import get_config
     from repro_torch.data import SyntheticTokens
+    from repro_torch.launch import roofline
     from repro_torch.models.lm import build_model
     from repro_torch.optim import AdamWConfig
     from repro_torch.train.train_step import TrainConfig, init_train_state, make_train_step
@@ -3808,7 +3849,7 @@ def phase_lm_train(torch) -> dict:
         "model_flops_per_step": flops,
         "model_flops_formula": "6*N*T + 12*L*H*hd*S*T (N params with the tied head "
                                "once, T = B*S tokens, full S x S attention)",
-        "bf16_peak_share": flops / median_s / PEAK_BF16_FLOPS,
+        "bf16_peak_share": flops / median_s / roofline.PEAK_BF16_FLOPS,
     })
     log(f"[lm-train] {LM_TRAIN_TIMED} graphed steps (host clock, each ending in the "
         f"metrics' read): median {median_s * 1e3:.1f} ms, p90 "
@@ -3856,6 +3897,423 @@ def phase_lm_train(torch) -> dict:
     return out
 
 
+def _count_collectives(fn, *args, **kwargs):
+    """``(fn(...), {"all_gather": n, "all_reduce": n})``: the collectives
+    of :mod:`repro_torch.distributed.collectives` the call ran."""
+    from repro_torch.distributed import collectives as col
+
+    calls = {"all_gather": 0, "all_reduce": 0}
+    orig = {name: getattr(col, name) for name in calls}
+
+    def counting(name):
+        def call(*a, **k):
+            calls[name] += 1
+            return orig[name](*a, **k)
+        return call
+
+    for name in calls:
+        setattr(col, name, counting(name))
+    try:
+        return fn(*args, **kwargs), calls
+    finally:
+        for name in calls:
+            setattr(col, name, orig[name])
+
+
+def _graph_us(torch, graph, calls: int = DIST_TIMED_CALLS) -> float:
+    """Device microseconds a replay of ``graph`` (a ``torch.cuda.CUDAGraph``):
+    CUDA events around ``calls`` replays, after one untimed replay."""
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(calls):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) * 1e3 / calls
+
+
+def _in_turns(torch, graphs: dict) -> dict:
+    """Each graph's replay us, timed in turns (a b b a), and the median of
+    its two."""
+    import numpy as np
+
+    names = list(graphs)
+    times = {n: [] for n in names}
+    for n in names + names[::-1]:
+        times[n].append(_graph_us(torch, graphs[n]))
+    return {n: {"us": t, "median_us": float(np.median(t))} for n, t in times.items()}
+
+
+def _dist_generator(torch, mesh) -> dict:
+    """Full-width DCGAN through shard_plan_apply on the host mesh, per layer
+    and through fused pairs, at DIST_BUCKETS: bitwise the unsharded calls,
+    the same launches, one all-gather a call."""
+    from repro_torch.distributed.sharding import shard_plan_apply
+    from repro_torch.models import gan
+
+    cfg = gan.DCGAN
+    params = gan.generator_init(torch.Generator().manual_seed(0), cfg)
+    gen = torch.Generator(device="cuda").manual_seed(21)
+
+    def apply_fn(p, z, pl):
+        return gan.generator_apply(p, cfg, z, plan=pl)
+
+    out = {}
+    for fuse in ("off", "force"):
+        for bucket in DIST_BUCKETS:
+            plan = gan.generator_plan(cfg, bucket, fuse=fuse)
+            z = torch.randn((bucket, cfg.z_dim), device="cuda", generator=gen)
+            want, counts = _count_delta(apply_fn, params, z, plan)
+            (got, sharded), calls = _count_collectives(
+                _count_delta, shard_plan_apply, apply_fn, params, z, plan, mesh=mesh)
+            tag = f"fuse={fuse} bucket {bucket}"
+            if not torch.equal(got, want):
+                raise AssertionError(f"distribution: sharded generator ({tag}) differs "
+                                     f"by {(got - want).abs().max().item()}")
+            if sharded != counts or calls != {"all_gather": 1, "all_reduce": 0}:
+                raise AssertionError(f"distribution: sharded generator ({tag}) launched "
+                                     f"{sharded} with collectives {calls}, unsharded "
+                                     f"{counts}")
+            out[f"{fuse}_b{bucket}"] = {"launches": counts, "collectives": calls}
+    log(f"[distribution] shard_plan_apply on the host mesh: full-width DCGAN per layer "
+        f"and fused at buckets {DIST_BUCKETS} bitwise the unsharded calls, the same "
+        f"launches, one all-gather a call: {out}")
+    return out
+
+
+def _dist_replica(torch, mesh, card) -> dict:
+    """Replica(shard=True, mesh=...) beside an unsharded replica: each
+    bucket's graph bitwise its eager sharded call and the unsharded graph,
+    counting its launches; the bucket-8 graphs timed in turns."""
+    from repro_torch.distributed.sharding import shard_plan_apply
+    from repro_torch.models import gan
+    from repro_torch.serve import Replica
+
+    cfg = gan.DCGAN
+    params = gan.generator_init(torch.Generator().manual_seed(0), cfg)
+    sharded, plain = (Replica("dp", fuse="off", shard=True, mesh=mesh),
+                      Replica("plain", fuse="off"))
+    for rep in (sharded, plain):
+        rep.register(cfg, params)
+        rep.warmup(DIST_BUCKETS)
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    out = {}
+    for bucket in DIST_BUCKETS:
+        z = torch.randn((bucket, cfg.z_dim), device="cuda", generator=gen)
+        plan = sharded.registry[cfg.name].plans[bucket]
+        want, counts = _count_delta(
+            shard_plan_apply, lambda p, zz, pl: gan.generator_apply(p, cfg, zz, plan=pl),
+            params, z, plan, mesh=mesh)
+        got, replayed = _count_delta(sharded._executable(cfg.name, bucket), params, z)
+        got = got.clone()
+        unsharded = plain._executable(cfg.name, bucket)(params, z).clone()
+        served = sharded.execute(cfg.name, z, bucket)
+        if not (torch.equal(got, want) and torch.equal(got, unsharded)
+                and torch.equal(served, got.cpu())):
+            raise AssertionError(f"distribution: the sharded replica's bucket {bucket} "
+                                 f"graph is not bitwise its eager call and the "
+                                 f"unsharded graph")
+        if replayed != counts:
+            raise AssertionError(f"distribution: the sharded replica's bucket {bucket} "
+                                 f"replay counted {replayed}, its eager call {counts}")
+        out[f"b{bucket}"] = {"launches": counts}
+    if sharded.recompiles != len(DIST_BUCKETS):
+        raise AssertionError(f"distribution: {sharded.recompiles} builds, want "
+                             f"{len(DIST_BUCKETS)}")
+    top = max(DIST_BUCKETS)
+    out["graph_us"] = _in_turns(torch, {
+        "unsharded": plain._executable(cfg.name, top).graph.graph,
+        "host_mesh": sharded._executable(cfg.name, top).graph.graph})
+    log(f"[distribution] Replica(shard=True) on the host mesh: each bucket's graph "
+        f"bitwise its eager sharded call and the unsharded replica's, counting its "
+        f"launches {[out[f'b{b}']['launches'] for b in DIST_BUCKETS]}; "
+        f"{sharded.recompiles} builds")
+    log(f"[distribution] bucket-{top} DCGAN call, one graph replay (CUDA events, "
+        f"{DIST_TIMED_CALLS} replays, in turns): unsharded "
+        f"{out['graph_us']['unsharded']['median_us']:.1f} us, through the host mesh "
+        f"{out['graph_us']['host_mesh']['median_us']:.1f} us, on {card}")
+    return out
+
+
+def _dist_train(torch, mesh, card) -> dict:
+    """GanTrainer(data_parallel=True) under the host mesh against
+    data_parallel=False: 3 graphed steps bitwise, with equal launches; the
+    two step graphs timed in turns."""
+    from repro_torch.data import SyntheticImages
+    from repro_torch.distributed.sharding import use_mesh
+    from repro_torch.models import gan
+    from repro_torch.train.gan_trainer import GanTrainer, GanTrainerConfig
+
+    cfg = gan.DCGAN
+    data = SyntheticImages(cfg.out_hw(cfg.layers[-1][0]), cfg.layers[-1][2],
+                           GanTrainerConfig().global_batch)
+    quiet = lambda *a: None  # noqa: E731
+    with use_mesh(mesh):
+        dp = GanTrainer(cfg, GanTrainerConfig(), data, log_fn=quiet)
+    plain = GanTrainer(cfg, GanTrainerConfig(data_parallel=False), data, log_fn=quiet)
+    s_dp = dp.init_state(torch.Generator().manual_seed(0))
+    s_pl = plain.init_state(torch.Generator().manual_seed(0))
+    out = {"steps": []}
+    for step in range(3):
+        reals, zs = dp._batches(step)
+        with use_mesh(mesh):
+            (s_dp, m_dp), c_dp = _count_delta(dp._step_fn, s_dp, reals, zs)
+        (s_pl, m_pl), c_pl = _count_delta(plain._step_fn, s_pl, reals, zs)
+        if m_dp != m_pl or not _bitwise(s_dp, s_pl) or c_dp != c_pl:
+            raise AssertionError(f"distribution: data-parallel step {step} under the host "
+                                 f"mesh is not bitwise the plain step ({m_dp} vs {m_pl}; "
+                                 f"launches {c_dp} vs {c_pl})")
+        out["steps"].append({"metrics": m_dp, "launches": c_dp})
+    out["graph_us"] = _in_turns(torch, {"plain": plain._graph.graph,
+                                        "host_mesh": dp._graph.graph})
+    log(f"[distribution] GanTrainer(data_parallel=True) under the host mesh: 3 graphed "
+        f"steps bitwise the data_parallel=False steps (scalars, params, moments), equal "
+        f"launches; a step's graph replay (CUDA events, {DIST_TIMED_CALLS} replays, in "
+        f"turns): plain {out['graph_us']['plain']['median_us']:.1f} us, host mesh "
+        f"{out['graph_us']['host_mesh']['median_us']:.1f} us, on {card}")
+    return out
+
+
+def _dist_moe(torch, mesh) -> dict:
+    """The MoE's expert-parallel path at DBRX width under the host mesh (its
+    FSDP gather of the expert slices included): a layer and the model's
+    logits against the no-mesh ``moe`` and forward, then ServeEngine's
+    graphed decode step under the mesh bitwise its eager step."""
+    from repro_torch.distributed.sharding import use_mesh
+    from repro_torch.models import layers as L
+    from repro_torch.models.lm import build_model
+    from repro_torch.serve import ServeEngine
+    from repro_torch.tree import tree_map
+
+    arch, cut, batch, n_tok, why = DIST_MOE
+    cfg = _family_cfg(arch, dtype="float32", no_drops=True, **dict(cut))
+    model = build_model(cfg)
+    params, info = _init_lm(torch, model, seed=12)
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    toks = torch.randint(0, cfg.vocab_size, (batch, n_tok), device="cuda", generator=gen)
+    x = torch.randn((batch, n_tok, cfg.d_model), device="cuda", generator=gen) * 0.5
+    p0 = tree_map(lambda t: t[0], params["layers"][0]["ffn"])
+    out = {**info, "cut": why, "fsdp": cfg.fsdp}
+
+    def close(got, want, what):
+        err = (got - want).abs().max().item()
+        tol = TOL_REL * want.abs().max().item() + TOL_ABS
+        out[what] = {"max_abs_err": err, "tol": tol}
+        if not err <= tol:
+            raise AssertionError(f"distribution: the expert-parallel {what} is off the "
+                                 f"no-mesh one by {err} > {tol}")
+
+    want_layer, want_aux = L.moe(p0, cfg, x)
+    want_logits, _ = model.apply(params, {"tokens": toks})
+    with use_mesh(mesh):
+        if not L._moe_supported_by_shard_map(cfg, batch):
+            raise AssertionError("distribution: the host mesh did not take the MoE's "
+                                 "expert-parallel path")
+        (got_layer, got_aux), calls = _count_collectives(L.moe, p0, cfg, x)
+        got_logits, _ = model.apply(params, {"tokens": toks})
+    close(got_layer, want_layer, "layer")
+    close(got_aux, want_aux, "aux")
+    close(got_logits, want_logits, "logits")
+    out["collectives"] = calls
+    del got_logits, want_logits
+    torch.cuda.empty_cache()   # the decode graph's warm-up on a cache of no large blocks
+    with use_mesh(mesh):
+        eng = ServeEngine(model, params, slots=LM_SLOTS, max_len=64)
+        _, _, _, bitwise = _decode_step_fns(torch, model, params, cfg.vocab_size)
+        bitwise(eng, torch.full((LM_SLOTS,), 5, dtype=torch.int32, device="cuda"),
+                "pos 5", "distribution moe")
+    del eng, bitwise
+    log(f"[distribution] MoE expert-parallel path on the host mesh, {cfg.name} fp32 "
+        f"({why}; {info['params']} params, fsdp {cfg.fsdp}), collectives a layer "
+        f"{calls}: layer max abs err {out['layer']['max_abs_err']:.3e} (tol "
+        f"{out['layer']['tol']:.3e}), logits {out['logits']['max_abs_err']:.3e} (tol "
+        f"{out['logits']['tol']:.3e}) of the no-mesh path; the graphed decode step under "
+        f"the mesh bitwise its eager step")
+    return out
+
+
+def gloo_worker(rank: int, world: int, port: int, out_path: str) -> int:
+    """One rank of phase 27's two-process run on the one card over gloo:
+    full-width DCGAN at batch 8 on a ``data`` mesh of ``world`` ranks, its
+    output and parameter gradients against the unsharded call's; the
+    result as JSON at ``out_path``."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    sys.path.insert(0, SRC)
+    from repro_torch.distributed.sharding import shard_plan_apply
+    from repro_torch.models import gan
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            world_size=world, rank=rank,
+                            timeout=datetime.timedelta(seconds=DIST_PROCS_TIMEOUT_S))
+    try:
+        mesh = init_device_mesh("cuda", (world,), mesh_dim_names=("data",))
+        cfg = gan.DCGAN
+        params = gan.generator_init(torch.Generator().manual_seed(0), cfg)
+        gen = torch.Generator(device="cuda").manual_seed(23)
+        z = torch.randn((BATCH, cfg.z_dim), device="cuda", generator=gen)
+        plan = gan.generator_plan(cfg, BATCH)
+
+        def apply_fn(p, zz, pl):
+            return gan.generator_apply(p, cfg, zz, plan=pl)
+
+        _reset_counts()
+        want = apply_fn(params, z, plan)
+        full = _read_counts()
+        _reset_counts()
+        got = shard_plan_apply(apply_fn, params, z, plan, mesh=mesh)
+        torch.cuda.synchronize()
+        mine = _read_counts()
+        r = torch.randn(want.shape, device="cuda", generator=gen)
+        grads = {}
+        for name, fn in (("unsharded", lambda p: apply_fn(p, z, plan)),
+                         ("sharded", lambda p: shard_plan_apply(apply_fn, p, z, plan,
+                                                                mesh=mesh))):
+            live = _live(params)
+            (fn(live) * r).sum().backward()
+            grads[name] = {f"{k}.{n}": t.grad for k, v in live.items() for n, t in v.items()}
+        errs = {}
+        for key, ref in grads["unsharded"].items():
+            errs[key] = {"max_abs_err": (grads["sharded"][key] - ref).abs().max().item(),
+                         "tol": TOL_REL * ref.abs().max().item() + TOL_ABS}
+        result = {"rank": rank, "bitwise": torch.equal(got, want),
+                  "max_abs_err": (got - want).abs().max().item(),
+                  "launches_unsharded": full, "launches_sharded": mine,
+                  "grads": errs, "backend": dist.get_backend()}
+        with open(out_path, "w") as f:
+            json.dump(result, f)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def _dist_two_process(torch, card) -> dict:
+    """Phase 27(b): two processes on the one card over gloo (gloo_worker),
+    spawned with a time limit; logs in chiprun_out/dist/."""
+    import socket
+    import tempfile
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    logs = os.path.join(ROOT, "chiprun_out", "dist")
+    os.makedirs(logs, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=SRC)
+    world = 2
+    with tempfile.TemporaryDirectory() as tmp:
+        files = [open(os.path.join(logs, f"rank{r}.log"), "w") for r in range(world)]
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--gloo-rank", str(r),
+             "--gloo-world", str(world), "--gloo-port", str(port), "--gloo-out",
+             os.path.join(tmp, f"rank{r}.json")],
+            cwd=ROOT, env=env, stdout=files[r], stderr=subprocess.STDOUT)
+            for r in range(world)]
+        try:
+            for p in procs:
+                p.wait(timeout=max(DIST_PROCS_TIMEOUT_S - (time.perf_counter() - t0), 1))
+        except subprocess.TimeoutExpired:
+            raise AssertionError(f"distribution: the two-process gloo run did not end "
+                                 f"in {DIST_PROCS_TIMEOUT_S} s (logs in chiprun_out/dist)")
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+            for f in files:
+                f.close()
+        wall = time.perf_counter() - t0
+        if any(p.returncode != 0 for p in procs):
+            raise AssertionError(f"distribution: gloo ranks exited "
+                                 f"{[p.returncode for p in procs]} (logs in "
+                                 f"chiprun_out/dist)")
+        ranks = []
+        for r in range(world):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    for res in ranks:
+        bad = {k: v for k, v in res["grads"].items() if not v["max_abs_err"] <= v["tol"]}
+        if not res["bitwise"] or bad:
+            raise AssertionError(f"distribution: gloo rank {res['rank']}: output bitwise "
+                                 f"{res['bitwise']} (max abs err {res['max_abs_err']}), "
+                                 f"gradients off {bad}")
+        if min(res["launches_sharded"][n] for n in FORWARD) < 1:
+            raise AssertionError(f"distribution: gloo rank {res['rank']} launched "
+                                 f"{res['launches_sharded']}")
+    worst = max(v["max_abs_err"] / v["tol"] for res in ranks for v in res["grads"].values())
+    log(f"[distribution] two processes on the one card over {ranks[0]['backend']}, "
+        f"full-width DCGAN at batch {BATCH} on a data = {world} mesh: each rank's "
+        f"gathered output bitwise the unsharded call; each rank launched "
+        f"{ranks[0]['launches_sharded']} for its {BATCH // world} images (unsharded "
+        f"{ranks[0]['launches_unsharded']}); parameter gradients through the region "
+        f"within tolerance (worst err / tol {worst:.3f}); the run's wall {wall:.1f} s "
+        f"(host clock, two processes started, built kernels loaded, joined), on {card}")
+    return {"world": world, "ranks": ranks, "wall_s": wall}
+
+
+def _dist_entry() -> dict:
+    """Phase 27(c): ``launch.train --mesh single-pod`` on one card exits
+    non-zero with the ValueError that names 256 ranks."""
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch", "qwen2-0.5b",
+           "--reduced", "--steps", "1", "--mesh", "single-pod"]
+    res = subprocess.run(cmd, cwd=ROOT, env=dict(os.environ, PYTHONPATH=SRC),
+                         capture_output=True, text=True, timeout=ENTRY_TIMEOUT_S)
+    last = (res.stderr.strip().splitlines() or [""])[-1]
+    if res.returncode == 0 or "ValueError" not in last or "256 ranks" not in last:
+        raise AssertionError(f"distribution: --mesh single-pod exited {res.returncode}: "
+                             f"{last}")
+    log(f"[distribution] launch.train --mesh single-pod on one card: exit "
+        f"{res.returncode}: {last}")
+    return {"rc": res.returncode, "last": last}
+
+
+def phase_distribution(torch) -> dict:
+    """Phase 27: the sharded paths on the card (see the module docstring)."""
+    import gc
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    owned = not dist.is_initialized()
+    mesh = make_host_mesh()
+    out = {"mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)),
+           "backend": dist.get_backend(), "nvidia_smi": _smi()}
+    card = out["nvidia_smi"]
+    log(f"[distribution] host mesh {out['mesh']} over {dist.get_world_size()} "
+        f"{out['backend']} rank; card {out['nvidia_smi']}")
+    try:   # the MoE's large buffers first, on an empty cache, then released
+        out["moe"] = _dist_moe(torch, mesh)
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["generator"] = _dist_generator(torch, mesh)
+        out["replica"] = _dist_replica(torch, mesh, card)
+        out["train"] = _dist_train(torch, mesh, card)
+        torch.cuda.synchronize()
+    finally:
+        # the graphs (and their pools) go before the group their
+        # collectives ran on; then every segment the phase reserved goes
+        # back, so phase 24's allocations do not land in its large ones
+        gc.collect()
+        if owned:
+            dist.destroy_process_group()
+        torch.cuda.empty_cache()
+    out["two_process"] = _dist_two_process(torch, card)
+    out["entry"] = _dist_entry()
+    return out
+
+
 def phase_entry_points() -> dict:
     """``python -m repro_torch.launch.train`` (reduced Qwen2-0.5B) and each
     port example (``torch_train_lm.py`` 20 steps of its reduced xLSTM), run
@@ -3868,7 +4326,7 @@ def phase_entry_points() -> dict:
     runs = {
         "launch_train": [py, "-m", "repro_torch.launch.train", "--arch", "qwen2-0.5b",
                          "--reduced", "--steps", "20", "--batch", "8", "--seq", "128",
-                         "--ckpt-every", "10"],
+                         "--ckpt-every", "10", "--mesh", "host"],
         "torch_quickstart": [py, "examples/torch_quickstart.py"],
         "torch_serve_gan": [py, "examples/torch_serve_gan.py", "--requests", "32",
                             "--sequential"],
@@ -3909,6 +4367,10 @@ def phase_entry_points() -> dict:
     bad = {k: v["rc"] for k, v in out.items() if v["rc"] != 0}
     if bad:
         raise AssertionError(f"entry points failed (logs in chiprun_out/entry): {bad}")
+    if "mesh host" not in out["launch_train"]["last"] or "1 nccl" not in out[
+            "launch_train"]["last"]:
+        raise AssertionError(f"launch.train did not run under the one-rank NCCL host "
+                             f"mesh: {out['launch_train']['last']}")
     return out
 
 
@@ -3949,9 +4411,13 @@ def _entry(name, launches, err, rows, times_of, bound_of) -> dict:
     }
 
 
-def main() -> int:
+def main(argv) -> int:
     # cuBLAS is deterministic only with a fixed workspace, set before it starts
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    if argv[:1] == ["--gloo-rank"]:   # one rank of phase 27's two-process run
+        opts = dict(zip(argv[::2], argv[1::2]))
+        return gloo_worker(int(opts["--gloo-rank"]), int(opts["--gloo-world"]),
+                           int(opts["--gloo-port"]), opts["--gloo-out"])
     try:
         import torch
     except ImportError:
@@ -4017,6 +4483,7 @@ def main() -> int:
                        engine["eager_launches_per_bucket"], train)
     tuned = run("22 autotune", phase_autotune, torch, dev, cold_cache)
     graph_failure = run("23 graph failure", phase_graph_failure, torch)
+    distribution = run("27 distribution", phase_distribution, torch)
     lm_train = run("24 LM train", phase_lm_train, torch)
     entry = run("25 entry points", phase_entry_points)
 
@@ -4084,6 +4551,7 @@ def main() -> int:
                    "train": train, "obs": obs_replicas, "autotune": tuned,
                    "graph_failure": graph_failure, "lm_train": lm_train,
                    "entry_points": entry, "lm_families": families,
+                   "distribution": distribution,
                    "phase_seconds": seconds,
                    "seconds": time.perf_counter() - t_start}, f, indent=1)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
@@ -4095,4 +4563,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -105,11 +105,12 @@ from repro_torch.kernels import transpose_conv2d as fusedlib
 from repro_torch.kernels import transpose_conv2d_bwd as bwdlib
 from repro_torch.kernels import transpose_conv2d_gemm as gemmlib
 from repro_torch.kernels import transpose_conv2d_pair as pairlib
+from repro_torch.launch.roofline import HBM_BW as PEAK_BW
+from repro_torch.launch.roofline import PEAK_FP32_FLOPS as PEAK_FLOPS
 from repro_torch.obs import audit as obs_audit
 
-# One H100 SXM: fp32 outside the tensor cores and HBM3 (PERF.md section 3).
-PEAK_FLOPS = 67e12
-PEAK_BW = 3.35e12
+# The proxies' rates (one H100 SXM: fp32 outside the tensor cores and HBM3)
+# are the data-sheet peaks of launch/roofline.py.
 GRAPH_CALLS = 20   # calls a timed CUDA graph replays, as PERF.md's "graph" µs
 # the batch a batch-1 race checks its candidates' invariance at
 INVARIANCE_BATCH = 4

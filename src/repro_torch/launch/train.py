@@ -8,9 +8,18 @@ names another:
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b --reduced \\
       --steps 200 --batch 8 --seq 128 --ckpt-dir /tmp/ckpt [--device cpu]
 
-``--mesh`` keeps only ``host`` (one device); the reference's ``single-pod``
-and ``multi-pod`` meshes wait for the distribution item (ROADMAP queue 1,
-"Distribution") and raise ``NotImplementedError``.
+The run is under a mesh (:func:`~repro_torch.distributed.sharding.use_mesh`).
+``--mesh host`` (the default) is the 1x1 ``(data, model)`` mesh over a
+one-rank process group (NCCL on the card, gloo on the CPU;
+:func:`~repro_torch.launch.mesh.make_host_mesh`). ``single-pod`` and
+``multi-pod`` are the production meshes, which need a ``torchrun`` world
+of 256 or 512 ranks (:func:`~repro_torch.launch.mesh.make_production_mesh`
+raises ``ValueError`` under any other), each rank on the card of its
+``LOCAL_RANK``. Under a mesh every rank builds the same global batch, a
+pure function of ``(seed, step)``, and holds the whole state; the MoE's
+expert-parallel path is the region that splits work
+(:mod:`repro_torch.distributed.sharding`). Global rank 0 writes the
+checkpoints.
 """
 from __future__ import annotations
 
@@ -37,46 +46,60 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="torch device to train on (default: the CUDA card)")
     args = ap.parse_args(argv)
-    if args.mesh != "host":
-        raise NotImplementedError(
-            f"--mesh {args.mesh}: the port runs on one device; multi-device meshes "
-            'wait for ROADMAP queue 1, "Distribution"')
     # the step runs under deterministic algorithms (Trainer): cuBLAS needs a
     # fixed workspace, set before its first call
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
     import torch
+    import torch.distributed as dist
 
     from repro_torch.data import SyntheticTokens
     from repro_torch.device import resolve_device
+    from repro_torch.distributed.sharding import use_mesh
+    from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
     from repro_torch.models.lm import build_model
     from repro_torch.optim import AdamWConfig
     from repro_torch.train.train_step import TrainConfig, init_train_state, make_train_step
     from repro_torch.train.trainer import Trainer
 
-    device = resolve_device(args.device)
-    cfg = get_config(args.arch)
-    if args.reduced:
-        cfg = reduce_cfg(cfg)
-    model = build_model(cfg)
-    train_cfg = TrainConfig(
-        optimizer=AdamWConfig(lr=args.lr),
-        warmup_steps=max(args.steps // 20, 1),
-        total_steps=args.steps,
-        compress_grads=args.compress_grads,
-    )
-    data = SyntheticTokens(vocab_size=cfg.vocab_size, seq_len=args.seq,
-                           global_batch=args.batch, device=device)
-    params, opt_state = init_train_state(
-        model, torch.Generator(device=device).manual_seed(0), train_cfg, device=device)
-    trainer = Trainer(model, make_train_step(model, train_cfg), data,
-                      ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every)
-    params, opt_state, history = trainer.run(params, opt_state, steps=args.steps)
-    if history:
-        print(f"[train] {args.arch}: loss {history[0]:.4f} -> {history[-1]:.4f} "
-              f"over {len(history)} steps (skipped {trainer.skipped_steps}), "
-              f"median step {trainer.timer.median() * 1e3:.1f} ms on {device}")
-    return history
+    owned = not dist.is_initialized()   # a group made here is destroyed here
+    try:
+        if args.mesh == "host":
+            device = resolve_device(args.device)
+            mesh = make_host_mesh(device)
+        else:
+            mesh = make_production_mesh(multi_pod=args.mesh == "multi-pod")
+            device = resolve_device(args.device)
+        cfg = get_config(args.arch)
+        if args.reduced:
+            cfg = reduce_cfg(cfg)
+        model = build_model(cfg)
+        train_cfg = TrainConfig(
+            optimizer=AdamWConfig(lr=args.lr),
+            warmup_steps=max(args.steps // 20, 1),
+            total_steps=args.steps,
+            compress_grads=args.compress_grads,
+        )
+        data = SyntheticTokens(vocab_size=cfg.vocab_size, seq_len=args.seq,
+                               global_batch=args.batch, device=device)
+        with use_mesh(mesh):
+            params, opt_state = init_train_state(
+                model, torch.Generator(device=device).manual_seed(0), train_cfg,
+                device=device)
+            trainer = Trainer(model, make_train_step(model, train_cfg), data,
+                              ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every)
+            params, opt_state, history = trainer.run(params, opt_state,
+                                                     steps=args.steps)
+        if history:
+            print(f"[train] {args.arch}: loss {history[0]:.4f} -> {history[-1]:.4f} "
+                  f"over {len(history)} steps (skipped {trainer.skipped_steps}), "
+                  f"median step {trainer.timer.median() * 1e3:.1f} ms on {device}, "
+                  f"mesh {args.mesh} {dict(zip(mesh.mesh_dim_names, mesh.shape))} over "
+                  f"{dist.get_world_size()} {dist.get_backend()} rank(s)")
+        return history
+    finally:
+        if owned and dist.is_initialized():
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -5,8 +5,9 @@ SwiGLU MLP, capacity-based mixture-of-experts).
 
 Parameters are plain dicts of tensors with the reference's names and
 layouts (a dense weight is ``(d_in, d_out)``, applied as ``x @ w``). The
-reference's sharding hints (``constrain``) are no-ops without a mesh and
-are dropped. The decode branch of :func:`attention` runs the hand-written
+reference's sharding hints (``constrain``) are dropped: a hint never
+changes a value, and the port's parameters and activations are whole
+tensors on every rank. The decode branch of :func:`attention` runs the hand-written
 flash-decode kernel (:mod:`repro_torch.kernels.decode_attention`) where
 the reference calls its jnp oracle ``_grouped_decode_attention``; the two
 compute the same function (the reference's tests hold its Pallas kernel,
@@ -14,20 +15,25 @@ which the CUDA kernel replaces, to the oracle at 2e-4/2e-5), except that
 the kernel keeps scores and probabilities in fp32 where the oracle rounds
 them to a bf16 model's dtype.
 
-:func:`moe` is the reference's single-device path (no mesh: one group of
-tokens; the expert-parallel ``shard_map`` path waits for ROADMAP queue 1,
-"Distribution"). Its dispatch and combine are gathers: nothing is
-scattered, so no sum depends on the order of atomic adds. Each token's
-``k`` expert outputs are added in ascending expert order starting from
-zero, where the reference scatter-adds them.
+:func:`moe` has the reference's two paths: the grouped one (one group of
+tokens with no mesh, a group a data-parallel rank under a mesh) and the
+expert-parallel one under a ``DeviceMesh`` with a ``model`` dimension
+(:func:`_moe_shard_map`, bracketed by the collectives of
+:mod:`repro_torch.distributed.collectives`). Their dispatch and combine are
+gathers: nothing is scattered, so no sum depends on the order of atomic
+adds. Each token's ``k`` expert outputs are added in ascending expert order
+starting from zero, where the reference scatter-adds them.
 """
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
 
 from repro_torch.core.transpose_conv import transpose_conv2d
+from repro_torch.distributed import sharding
+from repro_torch.distributed.collectives import enter, gather, gather_shards, reduce
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.tree import tree_map
 
@@ -342,59 +348,167 @@ def _router(p, cfg, x2d):
     return top_p, top_e, probs
 
 
+def _dp_groups(batch: int) -> int:
+    """Number of data-parallel groups the batch dim is split into: the
+    ambient mesh's ``pod x data`` when it divides ``batch``, else 1."""
+    sizes = sharding.mesh_axis_sizes(sharding.get_abstract_mesh())
+    g = math.prod(sizes.get(a, 1) for a in ("pod", "data"))
+    return g if (g > 1 and batch % g == 0) else 1
+
+
+def _dispatch_compute_combine(xt, top_p, top_e, experts, E, k, C, e0=0):
+    """Dispatch ``Tl`` tokens' ``(token, slot)`` pairs into ``(E, C, d)``
+    slabs, run the experts and combine: pure local computation (no
+    collectives). The expert-parallel path calls it a model rank with its
+    expert slice and ``e0`` offset.
+
+    Pairs are sorted stably by expert; each expert takes at most ``C`` of
+    them in that order. Its slab is gathered from the sorted pairs (rows
+    past its count are zero), the experts run as batched matmuls, and each
+    token gathers its ``k`` weighted outputs back and adds them in fp32 in
+    ascending expert order from zero. A pair routed outside ``[e0, e0+E)``
+    or beyond capacity reads the zero sentinel row. Every shape follows
+    from ``Tl``, so a decode step captures as a graph."""
+    Tl, d = xt.shape
+    flat_e = top_e.reshape(Tl * k) - e0
+    in_range = (flat_e >= 0) & (flat_e < E)
+    sort_key = torch.where(in_range, flat_e, E)
+    order = torch.argsort(sort_key, stable=True)        # group pairs by expert
+    sorted_e = sort_key[order]
+    experts_ids = torch.arange(E, device=xt.device)
+    start = torch.searchsorted(sorted_e, experts_ids, side="left")     # (E,)
+    count = torch.searchsorted(sorted_e, experts_ids, side="right") - start
+    token_of = order // k                                # (Tl*k,)
+
+    # dispatch: row c of expert e is sorted pair start[e] + c, if c < count[e]
+    c = torch.arange(C, device=xt.device)
+    src = torch.clamp(start[:, None] + c, max=Tl * k - 1)           # (E, C)
+    buf = torch.where((c < count[:, None])[..., None], xt[token_of[src]],
+                      torch.zeros((), dtype=xt.dtype, device=xt.device))
+    h = torch.nn.functional.silu(torch.bmm(buf, experts["w_gate"]))
+    h = h * torch.bmm(buf, experts["w_up"])
+    y = torch.bmm(h, experts["w_down"]).reshape(E * C, d)
+    y = torch.cat([y, y.new_zeros((1, d))])              # the sentinel row
+
+    # combine: pair i of the sorted order reads its slot (or the sentinel)
+    in_e = sorted_e < E
+    pos_in_e = (torch.arange(Tl * k, device=xt.device)
+                - start[torch.clamp(sorted_e, max=E - 1)])
+    slot = torch.where((pos_in_e < C) & in_e, sorted_e * C + pos_in_e, E * C)
+    wts = top_p.reshape(Tl * k)[order][:, None]
+    contrib = y[slot].float() * wts                      # (Tl*k, d), sorted order
+    # each token's k positions in the sorted order, ascending: ascending expert
+    rows = torch.sort(torch.argsort(order).reshape(Tl, k), dim=-1).values
+    out = torch.zeros((Tl, d), dtype=torch.float32, device=xt.device)
+    for j in range(k):
+        out = out + contrib[rows[:, j]]
+    return out.to(xt.dtype)
+
+
+def _expert_counts(top_e, E: int):
+    """Routed pairs an expert over every token (integers, as sorted
+    counts, so no sum depends on an atomic order)."""
+    flat = torch.sort(top_e.reshape(-1)).values
+    experts = torch.arange(E, device=top_e.device)
+    return (torch.searchsorted(flat, experts, side="right")
+            - torch.searchsorted(flat, experts, side="left"))
+
+
+def _aux_loss(top_e, probs, E: int):
+    """The Switch balance loss ``E * sum(frac_tokens * frac_probs)``."""
+    frac_tokens = _expert_counts(top_e, E).float() / top_e.numel()
+    return E * torch.sum(frac_tokens * probs.mean(0))
+
+
+def _moe_shard_map(p, cfg, x):
+    """Expert-parallel MoE over the ambient ``DeviceMesh``: rank ``(d, m)``
+    takes its data-parallel slice of the tokens and the expert weights
+    ``[e0, e0 + E // model)``, dispatches its tokens to its experts with
+    the capacity of its local token count (as the reference's
+    ``shard_map`` body does), then ``reduce`` sums the partial outputs over
+    ``model`` in the model dtype and ``gather`` joins the data-parallel
+    slices. The tokens, router weights and expert weights enter through
+    ``enter`` over every rank of the region. Under ``fsdp`` each expert
+    slice is first taken as its ``data`` shard and gathered over ``data``
+    (``gather_shards``), as the reference's FSDP gather is."""
+    mesh = sharding.get_concrete_mesh()
+    sizes = sharding.mesh_axis_sizes(mesh)
+    dp = tuple(a for a in ("pod", "data") if a in sizes)
+    B, S, d = x.shape
+    E, k, cf = cfg.moe.n_experts, cfg.moe.top_k, cfg.moe.capacity_factor
+    E_local = E // sizes["model"]
+    fsdp = cfg.fsdp and "data" in sizes
+
+    x2d = x.reshape(B * S, d)
+    top_p, top_e, probs = _router(p, cfg, x2d)
+
+    everyone, _ = sharding.mesh_group(mesh, dp + ("model",))
+    model_group, m = sharding.mesh_group(mesh, ("model",))
+    e0 = m * E_local
+    Tl, r = B * S, 0
+    if dp:
+        dp_group, r = sharding.mesh_group(mesh, dp)
+        Tl = (B // math.prod(sizes[a] for a in dp)) * S
+    rows = slice(r * Tl, (r + 1) * Tl)
+    xl = enter(x2d, everyone)[rows]
+    tpl = enter(top_p, everyone)[rows]
+    tel = top_e[rows]
+    wl = {name: enter(w, everyone)[e0:e0 + E_local]
+          for name, w in p["experts"].items()}
+    if fsdp:   # the FSDP gather of this rank's expert slice over data
+        data_group, dr = sharding.mesh_group(mesh, ("data",))
+        for name, dim in (("w_gate", 1), ("w_up", 1), ("w_down", 2)):
+            n = wl[name].shape[dim] // sizes["data"]
+            wl[name] = gather_shards(wl[name].narrow(dim, dr * n, n), data_group, dim)
+    C = max(int(cf * k * Tl / E), 1)    # capacity per (global) expert
+    out = _dispatch_compute_combine(xl, tpl, tel, wl, E_local, k, C, e0=e0)
+    out = reduce(out, model_group)
+    if dp:
+        out = gather(out, dp_group)
+    if "shared" in p:
+        out = out + mlp(p["shared"], x2d)
+    return out.reshape(B, S, d), _aux_loss(top_e, probs, E)
+
+
+def _moe_supported_by_shard_map(cfg, batch) -> bool:
+    """Whether the expert-parallel path runs: an ambient ``DeviceMesh``
+    with a ``model`` dimension that divides the experts, and data-parallel
+    ranks that divide the batch. (An abstract mesh has no ranks: there the
+    grouped path runs, whose values the expert-parallel path equals.)"""
+    sizes = sharding.mesh_axis_sizes(sharding.get_concrete_mesh())
+    if "model" not in sizes:
+        return False
+    dp = math.prod(sizes.get(a, 1) for a in ("pod", "data"))
+    return cfg.moe.n_experts % sizes["model"] == 0 and batch % dp == 0
+
+
 def moe(p, cfg, x):
     """Top-k capacity-based MoE over ``x`` (B, S, d); returns ``(out,
     aux)``.
 
-    The ``T = B*S`` tokens' ``(token, slot)`` pairs are sorted stably by
-    expert; each expert takes at most ``C = max(int(cf * k * T / E), 1)``
-    of them in that order and drops the rest (Switch semantics). Each
-    expert's ``(C, d)`` slab is gathered from the sorted pairs (rows past
-    its count are zero), the experts run as batched matmuls, and each
-    token gathers its ``k`` weighted outputs back (a dropped pair reads the
-    zero sentinel row) and adds them in fp32 in ascending expert order.
-    Every shape follows from ``T``, so a decode step captures as a graph.
-    ``aux`` is the Switch balance loss ``E * sum(frac_tokens *
-    frac_probs)``."""
+    Under a ``DeviceMesh`` with a ``model`` dimension this is the
+    expert-parallel path (:func:`_moe_shard_map`); otherwise the grouped
+    path below, the same math. The tokens are grouped by the data-parallel
+    shard they live on (``G = _dp_groups(B)`` groups of ``Tl = B*S / G``;
+    one group with no mesh), and each group dispatches its own tokens
+    (:func:`_dispatch_compute_combine`) with the capacity ``C = max(int(cf
+    * k * Tl / E), 1)``: tokens beyond an expert's capacity in their group
+    are dropped (Switch semantics). ``aux`` is the Switch balance loss
+    ``E * sum(frac_tokens * frac_probs)``."""
+    if _moe_supported_by_shard_map(cfg, x.shape[0]):
+        return _moe_shard_map(p, cfg, x)
     B, S, d = x.shape
     E, k = cfg.moe.n_experts, cfg.moe.top_k
+    G = _dp_groups(B)
     T = B * S
+    Tl = T // G                                          # tokens per DP group
     xt = x.reshape(T, d)
     top_p, top_e, probs = _router(p, cfg, xt)
-    C = max(int(cfg.moe.capacity_factor * k * T / E), 1)
-
-    flat_e = top_e.reshape(T * k)
-    order = torch.argsort(flat_e, stable=True)          # group pairs by expert
-    sorted_e = flat_e[order]
-    experts = torch.arange(E, device=x.device)
-    start = torch.searchsorted(sorted_e, experts, side="left")     # (E,)
-    count = torch.searchsorted(sorted_e, experts, side="right") - start
-    token_of = order // k                                # (T*k,)
-
-    # dispatch: row c of expert e is sorted pair start[e] + c, if c < count[e]
-    c = torch.arange(C, device=x.device)
-    src = torch.clamp(start[:, None] + c, max=T * k - 1)            # (E, C)
-    buf = torch.where((c < count[:, None])[..., None], xt[token_of[src]],
-                      torch.zeros((), dtype=x.dtype, device=x.device))
-    ex = p["experts"]
-    h = torch.nn.functional.silu(torch.bmm(buf, ex["w_gate"]))
-    h = h * torch.bmm(buf, ex["w_up"])
-    y = torch.bmm(h, ex["w_down"]).reshape(E * C, d)
-    y = torch.cat([y, y.new_zeros((1, d))])              # the sentinel row
-
-    # combine: pair i of the sorted order reads its slot (or the sentinel)
-    pos_in_e = torch.arange(T * k, device=x.device) - start[sorted_e]
-    slot = torch.where(pos_in_e < C, sorted_e * C + pos_in_e, E * C)
-    wts = top_p.reshape(T * k)[order][:, None]
-    contrib = y[slot].float() * wts                      # (T*k, d), sorted order
-    # each token's k positions in the sorted order, ascending: ascending expert
-    rows = torch.sort(torch.argsort(order).reshape(T, k), dim=-1).values
-    out = torch.zeros((T, d), dtype=torch.float32, device=x.device)
-    for j in range(k):
-        out = out + contrib[rows[:, j]]
-    out = out.to(x.dtype)
+    C = max(int(cfg.moe.capacity_factor * k * Tl / E), 1)
+    out = torch.cat([
+        _dispatch_compute_combine(xt[g * Tl:(g + 1) * Tl], top_p[g * Tl:(g + 1) * Tl],
+                                  top_e[g * Tl:(g + 1) * Tl], p["experts"], E, k, C)
+        for g in range(G)])
     if "shared" in p:
         out = out + mlp(p["shared"], xt)
-    frac_tokens = count.float() / (T * k)
-    aux = E * torch.sum(frac_tokens * probs.mean(0))
-    return out.reshape(B, S, d), aux
+    return out.reshape(B, S, d), _aux_loss(top_e, probs, E)

@@ -12,6 +12,10 @@ the same function, its products taken in another order.
 A decode step writes the cache in place (the reference returns a new one):
 the conv buffer rolls by one row and the new ``ssm`` state replaces the
 old, so a CUDA graph captured over the cache stays valid.
+
+A prefill shorter than ``d_conv - 1`` tokens keeps its conv state
+left-padded with zeros, the inputs the causal conv saw before the prompt;
+the reference keeps fewer rows there, and its next decode step raises.
 """
 from __future__ import annotations
 
@@ -93,7 +97,11 @@ def mamba(p, cfg, x, *, cache=None, want_cache=False):
     if cache is None:
         xc = F.silu(_causal_conv(xin, m["conv_w"], m["conv_b"]))
         y, h_last = _chunked_scan(p, cfg, xc)
-        new_cache = ({"conv": xin[:, -(k_conv - 1):, :], "ssm": h_last}
+        # the conv state is the last k_conv - 1 inputs, left-padded with the
+        # zeros the causal conv saw before a prompt shorter than that
+        # (the reference keeps S rows and its next decode step raises)
+        conv = F.pad(xin, (0, 0, max(k_conv - 1 - xin.shape[1], 0), 0))
+        new_cache = ({"conv": conv[:, -(k_conv - 1):, :], "ssm": h_last}
                      if want_cache else None)
     else:
         # decode: roll the conv buffer, one step of the SSM recurrence

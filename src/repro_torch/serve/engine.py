@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import check_capturable, get_concrete_mesh
 from repro_torch.graphs import CudaGraph, require_captured
 
 
@@ -85,7 +86,10 @@ class ServeEngine:
         ``model.decode_step`` is called, replaying one CUDA graph of it over
         this engine's params and cache. The graph's warm-up step writes
         token 0's K/V at position 0 of every slot, a row each request's
-        first token overwrites (and ``kv_len`` masks until then)."""
+        first token overwrites (and ``kv_len`` masks until then). Under a
+        mesh the MoE's expert-parallel collectives go into the graph
+        (:func:`~repro_torch.distributed.sharding.check_capturable`)."""
+        check_capturable(get_concrete_mesh(), self.device)
         params, cache, model = self.params, self.cache, self.model
         tokens = torch.zeros((self.B, 1), dtype=torch.int32, device=self.device)
         graph = CudaGraph(

@@ -56,6 +56,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import shard_plan_apply
 from repro_torch.graphs import CudaGraph, require_captured
 from repro_torch.kernels.plan import (
     check_fuse,
@@ -140,22 +141,30 @@ class _ModelSlot:
 
 
 def generator_executable(params: dict, cfg, plan, batch: int, device, *,
-                         pool=None):
+                         pool=None, shard: bool = False, mesh=None):
     """``fn(params, z)``: the whole generator at ``batch`` under ``plan``.
     On a CUDA device one CUDA graph, captured here over ``params`` (which
     each call must pass again, the same dict) and replayed per call; its
     output is the graph's static buffer, which the next call of this
     executable, or of any other whose graph shares ``pool``, may overwrite.
-    On another device the generator runs eagerly."""
+    On another device the generator runs eagerly. ``shard`` runs it through
+    :func:`~repro_torch.distributed.sharding.shard_plan_apply` over ``mesh``
+    (else the ambient ``DeviceMesh``, read when the graph is captured), its
+    collectives inside the graph."""
+
+    def apply_fn(p, z, pl):
+        return generator_apply(p, cfg, z, plan=pl, device=device)
+
+    def run(p, z):
+        if shard:
+            return shard_plan_apply(apply_fn, p, z, plan, mesh=mesh)
+        return apply_fn(p, z, plan)
+
     if device.type != "cuda":
-
-        def run(p, z):
-            return generator_apply(p, cfg, z, plan=plan, device=device)
-
         return run
     dtype = params["proj"]["w"].dtype
     graph = CudaGraph(
-        lambda z: generator_apply(params, cfg, z, plan=plan, device=device),
+        lambda z: run(params, z),
         torch.zeros((batch, cfg.z_dim), dtype=dtype, device=device), pool=pool)
 
     def replay(p, z):

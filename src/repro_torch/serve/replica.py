@@ -23,10 +23,16 @@ Two properties make the replica the isolation boundary:
   on the host before the graph replays. The serving chaos harness
   (:mod:`repro_torch.serve.fault_injection`) lives entirely on that seam.
 
-Departures from the reference: no ``shard=`` or ``mesh=`` (one device a
-replica; ROADMAP's "Distribution" item), and no ``dtype=`` (the port serves
-fp32). ``train`` and ``fuse`` (default ``"auto"``, the autotune cache's
-pair race) compile the plans as the engine's do.
+``shard=True`` runs each executable through
+:func:`~repro_torch.distributed.sharding.shard_plan_apply` over ``mesh``
+(else the ambient ``DeviceMesh`` when the executable is built): the batch
+split over the data-parallel ranks, every rank serving the whole output. On
+the card each (model, bucket) stays one CUDA graph with the collectives
+inside, so the mesh's groups must be NCCL (checked at construction, with
+one collective run before any capture). Departure from the reference: no
+``dtype=`` (the port serves fp32). ``train`` and ``fuse`` (default
+``"auto"``, the autotune cache's pair race) compile the plans as the
+engine's do.
 """
 from __future__ import annotations
 
@@ -36,6 +42,7 @@ import time
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import check_capturable, get_concrete_mesh
 from repro_torch.kernels.plan import check_fuse, compile_plan_buckets
 from repro_torch.models.gan import generator_epilogues
 from repro_torch.obs import trace as obs
@@ -69,12 +76,17 @@ class Replica:
     """
 
     def __init__(self, replica_id: str, *, device=None, train: bool = False,
-                 fuse="auto", dispatch_hook=None):
+                 fuse="auto", shard: bool = False, mesh=None, dispatch_hook=None):
         check_fuse(fuse)
         self.replica_id = str(replica_id)
         self.device = resolve_device(device)
         self.train = train
         self.fuse = fuse
+        self.shard = shard
+        self.mesh = mesh
+        if shard and self.device.type == "cuda":
+            check_capturable(mesh if mesh is not None else get_concrete_mesh(),
+                             self.device)
         self.dispatch_hook = dispatch_hook
         self.registry: dict[str, _ReplicaModel] = {}
         self.recompiles = 0        # executables built
@@ -134,7 +146,8 @@ class Replica:
             if self.device.type == "cuda" and self.pool is None:
                 self.pool = torch.cuda.graph_pool_handle()
             fn = generator_executable(slot.params, slot.cfg, slot.plans[bucket],
-                                      bucket, self.device, pool=self.pool)
+                                      bucket, self.device, pool=self.pool,
+                                      shard=self.shard, mesh=self.mesh)
             slot.apply[bucket] = fn
             self.recompiles += 1
         return fn

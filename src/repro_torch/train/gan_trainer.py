@@ -56,8 +56,20 @@ exception (``crash:<ExcType>``) and after SIGTERM's checkpoint
 (``sigterm``). The fault-injection harness is
 :mod:`repro_torch.train.fault_injection`.
 
-Still to port: ``shard_plan_apply`` with the reference's ``data_parallel``
-switch.
+**Data parallelism** (``data_parallel``, on by default, as in the
+reference): the generator runs through
+:func:`~repro_torch.distributed.sharding.shard_plan_apply`, split over the
+data-parallel ranks of the ambient ``DeviceMesh``
+(:func:`~repro_torch.distributed.sharding.use_mesh`); with no mesh it is
+the unsharded call, bit for bit. Every rank draws the same global batch and
+holds the whole state; the region's collectives sum the generator's
+gradients over the ranks, so the step has no gradient all-reduce of its
+own and every rank makes the same update. On the card the step's CUDA graph
+captures those collectives, so the mesh's groups must be NCCL: the
+trainer checks that at construction and runs one collective before any
+capture (a CUDA trainer under a mesh of another backend raises; nothing
+runs eagerly instead). Only global rank 0 writes checkpoints; every rank
+restores.
 """
 from __future__ import annotations
 
@@ -71,6 +83,12 @@ import torch
 from repro_torch.data.pipeline import step_generator
 from repro_torch.device import resolve_device
 from repro_torch.distributed.fault_tolerance import elastic_batch_schedule
+from repro_torch.distributed.sharding import (
+    check_capturable,
+    get_concrete_mesh,
+    is_writer,
+    shard_plan_apply,
+)
 from repro_torch.graphs import CudaGraph
 from repro_torch.models import gan
 from repro_torch.obs import trace as obs
@@ -104,6 +122,7 @@ class GanTrainerConfig:
     compress_grads: bool = False  # int8 + error feedback
     pods_alive: int = 1
     pods_total: int = 1
+    data_parallel: bool = True    # shard_plan_apply when a mesh is active
 
     def __post_init__(self):
         if not (1 <= self.pods_alive <= self.pods_total):
@@ -161,6 +180,9 @@ class GanTrainer:
         self._stop = False
         self._graph = None          # the step's CUDA graph, at the first step
         self._graph_plan = None     # the train_plan it captured
+        self._graph_mesh = None     # the ambient mesh it captured
+        if tcfg.data_parallel and self.device.type == "cuda":
+            check_capturable(get_concrete_mesh(), self.device)
 
     # ------------------------------------------------------------- state
 
@@ -180,6 +202,11 @@ class GanTrainer:
     # ---------------------------------------------------------- the step
 
     def _generate(self, gp, z):
+        if self.tcfg.data_parallel:
+            return shard_plan_apply(
+                lambda p, zz, plan: gan.generator_apply(p, self.cfg, zz, plan=plan,
+                                                        device=self.device),
+                gp, z, self.train_plan)
         return gan.generator_apply(gp, self.cfg, z, plan=self.train_plan,
                                    device=self.device)
 
@@ -254,10 +281,14 @@ class GanTrainer:
         none of its inputs, so the warm-up advances no state."""
         if self._graph is None:
             self._graph_plan = self.train_plan
+            self._graph_mesh = get_concrete_mesh()
             self._graph = CudaGraph(self._step_eager, state, reals, zs)
         elif self._graph_plan is not self.train_plan:
             raise ValueError("train_plan was replaced after the step's CUDA graph "
                              "was captured; set it before the first step")
+        elif self.tcfg.data_parallel and self._graph_mesh is not get_concrete_mesh():
+            raise ValueError("the ambient mesh changed after the step's CUDA graph "
+                             "was captured under another")
         return self._graph
 
     def _step_fn(self, state, reals, zs):
@@ -300,6 +331,8 @@ class GanTrainer:
     # ------------------------------------------------------- checkpoints
 
     def _save(self, step: int, state: dict) -> None:
+        if not is_writer():
+            return
         save_checkpoint(
             self.ckpt_dir, step,
             {"g": state["g_params"], "d": state["d_params"]},

@@ -31,6 +31,14 @@ atomics, in an order that differs from run to run. On the card, cuBLAS then
 needs ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` in the environment before its
 first call (:mod:`repro_torch.launch.train` sets it); without it the first
 step raises.
+
+**Under a mesh** (:func:`~repro_torch.distributed.sharding.use_mesh`)
+every rank runs the same step on the same global batch and holds the whole
+state; the MoE's expert-parallel region sums its gradients over the ranks,
+so the step has no gradient all-reduce of its own. Its collectives are
+captured in the step's graph, so on the card the mesh's groups must be NCCL
+(checked, and warmed by one collective, before the capture). Only global
+rank 0 writes checkpoints; every rank restores.
 """
 from __future__ import annotations
 
@@ -41,6 +49,7 @@ import time
 
 import torch
 
+from repro_torch.distributed.sharding import check_capturable, get_concrete_mesh, is_writer
 from repro_torch.graphs import CudaGraph
 from repro_torch.timing import StepTimer
 from repro_torch.train.checkpoint import (
@@ -111,6 +120,8 @@ class Trainer:
         on_card = tree_leaves(params)[0].device.type == "cuda"
         if on_card:
             if self._graph is None:
+                # the MoE's expert-parallel collectives go into the graph
+                check_capturable(get_concrete_mesh(), tree_leaves(params)[0].device)
                 with deterministic_algorithms():
                     self._graph = CudaGraph(self.train_step, params, opt_state, batch)
             new_params, new_opt, metrics = self._graph(params, opt_state, batch)
@@ -138,6 +149,8 @@ class Trainer:
             return None  # not in the main thread
 
     def _save(self, step, params, opt_state) -> None:
+        if not is_writer():   # every rank holds the same state
+            return
         save_checkpoint(self.ckpt_dir, step, params, opt_state)
         gc_checkpoints(self.ckpt_dir, self.keep_last)
 

@@ -19,7 +19,11 @@ the fused and per-phase kernels against their plain versions at the
 Table-2 shapes, a kernel spelling past the kernels' largest kernel raising,
 and the segregated dilated convolution; then, with tracing on, the
 engine's replays counting exactly their eager launches, and a two-replica
-supervisor's served outputs bitwise their unbatched calls.
+supervisor's served outputs bitwise their unbatched calls; last, the
+sharded paths on a one-rank NCCL host mesh (the generator, a sharded
+replica's graphs, data-parallel training steps, the MoE's expert-parallel
+path and its graphed decode step) against the unsharded ones, and a gloo
+mesh refusing a CUDA trainer.
 Every test is marked ``cuda`` and skips itself when no card is present.
 The file imports no JAX, so it runs on a machine that has only PyTorch:
 
@@ -1054,3 +1058,145 @@ def test_autotune_races_the_kernels_by_graph_replay(card, tmp_path, monkeypatch)
         assert planlib.plan_follows_fuse(plans[2], "auto")
     finally:
         autotune.clear_cache(memory_only=True)
+
+
+# ------------------------------------------------ the sharded paths, one card
+
+@pytest.fixture(scope="module")
+def host_mesh():
+    """``make_host_mesh()``: a 1x1 (data, model) mesh over a one-rank NCCL
+    group, made once for these tests and destroyed after them."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+
+    owned = not dist.is_initialized()
+    yield make_host_mesh()
+    if owned:
+        dist.destroy_process_group()
+
+
+def _sharded_apply(cfg):
+    def apply_fn(p, z, pl):
+        return gan.generator_apply(p, cfg, z, plan=pl)
+    return apply_fn
+
+
+@pytest.mark.parametrize("fuse", ["off", "force"])
+def test_sharded_generator_on_the_host_mesh_is_bitwise_unsharded(card, host_mesh, fuse):
+    """shard_plan_apply on the one-rank NCCL mesh (enter, the generator,
+    gather), per layer and through pairs: bitwise the unsharded call, with
+    the same kernel launches (NCCL's are not counted)."""
+    from repro_torch.distributed.sharding import shard_plan_apply
+
+    cfg = gan.reduced_config(gan.DCGAN, 8)
+    params = gan.generator_init(torch.Generator().manual_seed(0), cfg, device=card)
+    apply_fn = _sharded_apply(cfg)
+    for bucket in (1, 8):
+        plan = gan.generator_plan(cfg, bucket, fuse=fuse)
+        z = torch.randn((bucket, cfg.z_dim), device=card)
+        want, eager = _counted(apply_fn, params, z, plan)
+        got, sharded = _counted(shard_plan_apply, apply_fn, params, z, plan, mesh=host_mesh)
+        assert torch.equal(got, want) and sharded == eager
+
+
+def test_sharded_replica_graphs_on_the_host_mesh(card, host_mesh):
+    """Replica(shard=True, mesh=...): each bucket is one graph with the
+    collectives inside, bitwise its eager sharded call and the unsharded
+    replica's graph, counting the eager call's launches."""
+    from repro_torch.distributed.sharding import shard_plan_apply
+    from repro_torch.serve import Replica
+
+    cfg = gan.reduced_config(gan.DCGAN, 8)
+    params = gan.generator_init(torch.Generator().manual_seed(0), cfg, device=card)
+    sharded = Replica("dp", fuse="off", shard=True, mesh=host_mesh)
+    plain = Replica("plain", fuse="off")
+    for rep in (sharded, plain):
+        rep.register(cfg, params)
+        rep.warmup((1, 8))
+    for bucket in (1, 8):
+        z = torch.randn((bucket, cfg.z_dim), device=card)
+        plan = sharded.registry[cfg.name].plans[bucket]
+        want, eager = _counted(shard_plan_apply, _sharded_apply(cfg), params, z, plan,
+                               mesh=host_mesh)
+        fn = sharded._executable(cfg.name, bucket)
+        got, replayed = _counted(fn, params, z)
+        assert hasattr(fn, "graph") and replayed == eager
+        assert torch.equal(got, want)
+        assert torch.equal(plain._executable(cfg.name, bucket)(params, z), want)
+    assert sharded.recompiles == 2
+
+
+def test_data_parallel_trainer_on_the_host_mesh_is_bitwise_plain(deterministic, host_mesh):
+    """GanTrainer(data_parallel=True) under the host mesh: three graphed
+    steps (the region's collectives captured) bitwise the
+    data_parallel=False trainer's, with equal launches."""
+    from repro_torch.data import SyntheticImages
+    from repro_torch.distributed.sharding import use_mesh
+    from repro_torch.train.gan_trainer import GanTrainer, GanTrainerConfig
+
+    cfg = gan.reduced_config(gan.DCGAN, 8)
+    data = SyntheticImages(cfg.out_hw(cfg.layers[-1][0]), cfg.layers[-1][2], 4,
+                           device=deterministic)
+    with use_mesh(host_mesh):
+        dp = GanTrainer(cfg, GanTrainerConfig(global_batch=4), data, log_fn=lambda *a: None)
+    plain = GanTrainer(cfg, GanTrainerConfig(global_batch=4, data_parallel=False), data,
+                       log_fn=lambda *a: None)
+    s_dp = dp.init_state(torch.Generator().manual_seed(0))
+    s_pl = plain.init_state(torch.Generator().manual_seed(0))
+    for step in range(3):
+        reals, zs = dp._batches(step)
+        with use_mesh(host_mesh):
+            (s_dp, m_dp), c_dp = _counted(dp._step_fn, s_dp, reals, zs)
+        (s_pl, m_pl), c_pl = _counted(plain._step_fn, s_pl, reals, zs)
+        assert m_dp == m_pl and c_dp == c_pl and _equal_trees(s_dp, s_pl)
+    with pytest.raises(ValueError, match="mesh changed"):
+        dp._step_fn(s_dp, *dp._batches(3))   # captured under the mesh, called without
+
+
+def test_gloo_mesh_refuses_a_cuda_trainer(card, host_mesh):
+    """A CUDA graph captures NCCL collectives only: a CUDA trainer under a
+    mesh over a gloo group raises at construction, and nothing runs
+    eagerly instead."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.data import SyntheticImages
+    from repro_torch.distributed.sharding import use_mesh
+    from repro_torch.train.gan_trainer import GanTrainer, GanTrainerConfig
+
+    mesh = DeviceMesh.from_group(dist.new_group(backend="gloo"), "cuda",
+                                 mesh_dim_names=("data",))
+    cfg = gan.reduced_config(gan.DCGAN, 8)
+    data = SyntheticImages(cfg.out_hw(cfg.layers[-1][0]), cfg.layers[-1][2], 4, device=card)
+    with use_mesh(mesh), pytest.raises(ValueError, match="NCCL"):
+        GanTrainer(cfg, GanTrainerConfig(global_batch=4), data)
+
+
+def test_expert_parallel_moe_on_the_host_mesh(card, host_mesh):
+    """Reduced DBRX in fp32 (its FSDP gather on): the MoE's expert-parallel
+    path on the host mesh within 1e-4 * max|ref| + 1e-5 of the no-mesh
+    ``moe``, and ServeEngine's graphed decode step under the mesh bitwise
+    the eager step."""
+    from repro_torch.distributed.sharding import use_mesh
+    from repro_torch.models import layers as L
+    from repro_torch.serve import ServeEngine
+
+    cfg = dataclasses.replace(reduced(get_config("dbrx-132b")), dtype="float32", fsdp=True)
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=card).manual_seed(0), device=card)
+    p0 = tree_map(lambda t: t[0], params["layers"][0]["ffn"])
+    x = torch.randn((2, 16, cfg.d_model), device=card) * 0.5
+    want, _ = L.moe(p0, cfg, x)
+    with use_mesh(host_mesh):
+        assert L._moe_supported_by_shard_map(cfg, 2)
+        got, _ = L.moe(p0, cfg, x)
+        eng = ServeEngine(model, params, slots=4, max_len=32)
+        tok = torch.randint(0, cfg.vocab_size, (4, 1), device=card, dtype=torch.int32)
+        pos = torch.full((4,), 3, dtype=torch.int32, device=card)
+        graphed = eng._decode(params, eng.cache, {"tokens": tok, "pos": pos})[0].clone()
+        eager, _ = model.decode_step(params, eng.cache, {"tokens": tok, "pos": pos})
+    assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item() + 1e-5
+    assert torch.equal(graphed, eager)

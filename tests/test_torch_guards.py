@@ -34,7 +34,10 @@ EXAMPLES = sorted(f for f in os.listdir(os.path.join(ROOT, "examples"))
 
 def test_port_imports_without_jax_or_reference():
     """Every port module, chip_smoke.py and the port's examples import with
-    ``jax`` and ``ml_dtypes`` blocked and load no ``repro`` module."""
+    ``jax`` and ``ml_dtypes`` blocked and load no ``repro`` module (the
+    distribution and launch modules among them)."""
+    assert {"repro_torch.distributed.collectives", "repro_torch.distributed.sharding",
+            "repro_torch.launch.mesh", "repro_torch.launch.roofline"} <= set(MODULES)
     code = (
         "import importlib, importlib.util, sys\n"
         "sys.modules['jax'] = None\n"

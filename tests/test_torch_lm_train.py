@@ -447,12 +447,18 @@ def test_launch_train_runs_reduced_on_the_cpu(tmp_path, capsys):
                        "--device", "cpu"]) == []   # resumed at its end
 
 
-@pytest.mark.parametrize("mesh", ["single-pod", "multi-pod"])
-def test_launch_train_refuses_meshes(mesh):
+@pytest.mark.parametrize("mesh,ranks", [("single-pod", 256), ("multi-pod", 512)])
+def test_launch_train_refuses_meshes(mesh, ranks):
+    """The production meshes need a torchrun world of their size: on one
+    rank the launcher raises the ValueError that names it, before it
+    touches a process group."""
+    import torch.distributed as dist
+
     from repro_torch.launch import train
 
-    with pytest.raises(NotImplementedError, match="Distribution"):
+    with pytest.raises(ValueError, match=f"needs a torchrun world of {ranks} ranks"):
         train.main(["--arch", "qwen2-0.5b", "--reduced", "--mesh", mesh])
+    assert not dist.is_initialized()
 
 
 def _example(name):

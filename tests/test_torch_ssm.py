@@ -168,3 +168,34 @@ def test_mamba_chunked_equals_stepwise():
                                atol=1e-5)
     np.testing.assert_allclose(cache_full["ssm"].numpy(), c["ssm"].numpy(), rtol=1e-4,
                                atol=1e-5)
+
+
+@pytest.mark.parametrize("S", [1, 2])
+def test_short_prefill_then_decode_matches_the_reference_forward(S):
+    """A prefill shorter than ``d_conv - 1`` tokens, then one decode step, on
+    reduced Jamba (carried weights): the conv state is left-padded with the
+    zeros the causal conv saw, so the decode logits are the reference's
+    full forward of the same S + 1 tokens at the last position (2e-3, the
+    prefill-then-decode tolerance; the experts at capacity ``n_experts /
+    top_k``, since the forward routes B*(S+1) tokens and the step B). The
+    reference's own decode step raises after such a prefill."""
+    from repro.models.lm import build_model as jbuild_model
+    from repro_torch.models import layers as L
+    from repro_torch.models.lm import build_model
+    from repro_torch.weights import from_jax_lm_params
+
+    jcfg, cfg = (dataclasses.replace(c, moe=dataclasses.replace(
+        c.moe, capacity_factor=c.moe.n_experts / c.moe.top_k)) for c in _cfgs())
+    assert S < cfg.mamba.d_conv - 1
+    jm, m = jbuild_model(jcfg), build_model(cfg)
+    jp = jm.init(jax.random.key(0))
+    p = from_jax_lm_params(jax.tree_util.tree_map(np.asarray, jp), cfg, "cpu")
+    toks = np.random.default_rng(3).integers(0, cfg.vocab_size, (B, S + 1)).astype(np.int32)
+    want, _ = jm.apply(jp, {"tokens": jnp.asarray(toks)})
+    _, cache = m.prefill(p, {"tokens": torch.from_numpy(toks[:, :S])})
+    cache = [c if isinstance(c, dict) else L.KVCache(
+        *(torch.nn.functional.pad(t, (0, 0, 0, 0, 0, 1)) for t in c)) for c in cache]
+    got, _ = m.decode_step(p, cache, {"tokens": torch.from_numpy(toks[:, S:]),
+                                      "pos": torch.full((B,), S)})
+    np.testing.assert_allclose(_np32(got[:, 0]), np.asarray(want[:, S], np.float32),
+                               rtol=2e-3, atol=2e-3)
