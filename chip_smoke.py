@@ -302,13 +302,43 @@ Phases, in order; any failure raises and the script exits non-zero:
               256 ranks (phase 25 runs --mesh host through the one-rank
               group). NCCL's and gloo's kernels are no hand-written kernels:
               the launch counters do not count them.
-28. result -- each phase's seconds, a JSON line of per-kernel numbers, then
+28. placement -- (run third, right after the build, on an empty card:
+              the placed training's states and graphs do not fit in what the
+              later phases leave fragmented; the launch counts are set to 0
+              after it) the LM state placed over a mesh as DTensors.
+              (a) The decode kernel's log-sum-exp output against its plain
+              version at phase 14's shapes, fp32 and bf16, with a kv_len 0
+              row each (out 0, lse -inf), within 1e-4 * max|ref| + 1e-5, and
+              the lse variant timed at Llama-3-8B S 4096 beside its plain
+              version, SDPA and the bound. (b) The cross-rank decode combine
+              on one card: the kernel on the two halves of a 32768-row
+              Llama-3-8B cache, kv_len clipped to each (three rows leave the
+              second half empty), combined by their lse, within tolerance
+              of the whole cache's call. (c) Under make_host_mesh(), the
+              parameters placed (distribute_params): full-width Llama-3-8B
+              at 2 layers, fp32, in its serving mode: the prefill and 16
+              decode steps through the placed ServeEngine's graph within
+              tolerance of the unplaced prefill and engine, each graphed step
+              bitwise the placed eager step, decode launches counted; the
+              graphed step timed placed and unplaced. Full-depth Qwen2-0.5B
+              (bf16, seq 1024, batch 4) in its fsdp training mode: 3 graphed
+              Trainer steps bitwise the placed eager steps, each against the
+              unplaced step from the same state (metrics within 1e-3; each
+              parameter leaf within 2 lr + 2^-7 of its largest, the moments
+              within 2^-5 and 2^-4: bf16 sums in another order); the graphed
+              step timed both ways. (d)
+              python -m repro_torch.launch.dryrun --arch qwen2-0.5b --shape
+              train_4k --mesh single and --arch llama3-8b --shape decode_32k
+              as processes (no card; started at the phase's start, on the
+              host's cores) exit 0; logs and reports in chiprun_out/dryrun/.
+29. result -- each phase's seconds, a JSON line of per-kernel numbers, then
               the last line {"ok": true, "device": {...}}.
 
 Full results also go to chiprun_out/chip_smoke.json.
 """
 from __future__ import annotations
 
+import gc
 import json
 import os
 import subprocess
@@ -918,10 +948,11 @@ def _replay_counted(eng, reqs, arrivals, per_bucket, tag) -> dict:
         execute(name, batch, bucket)
 
     eng._execute = recording
+    gc.collect()   # earlier work's garbage (engines, graphs) freed before the replay
     _reset_counts()
     eng.replay(reqs, arrivals)
     launches = _read_counts()
-    eng._execute = execute
+    del eng._execute   # the class's method again, with no cycle through the instance
     want = {k: sum(per_bucket[b][k] for b in buckets) for k in launches}
     if launches != want:
         raise AssertionError(f"{tag}: the replays counted {launches}, their batches' "
@@ -2256,7 +2287,6 @@ def _attn_layers(model) -> int:
 
 def _init_lm(torch, model, seed) -> tuple:
     """Random parameters from ``seed`` on the card, and their counts."""
-    import gc
 
     from repro_torch.tree import tree_leaves
 
@@ -3060,12 +3090,16 @@ def _obs_window(torch, eng, cfg, rate, per_bucket, tag) -> dict:
         slept.append(time.perf_counter() - t0)
 
     eng._execute = recording
+    # earlier work's garbage (engines and their graphs, in reference cycles)
+    # freed now: a collection that frees graphs inside the window stalls one
+    # dispatch for ~200 ms, past the supervisor's 50 ms deadline
+    gc.collect()
     _reset_counts()
     t0 = time.perf_counter()
     eng.replay(reqs, arrivals, sleep=timed_sleep)
     wall_s = time.perf_counter() - t0
     launches = _read_counts()
-    eng._execute = execute
+    del eng._execute   # the class's method again, with no cycle through the instance
     want = {k: sum(per_bucket[b][k] for b in buckets) for k in launches}
     if launches != want or min(launches[n] for n in FORWARD) < 1:
         raise AssertionError(f"{tag}: the window counted {launches}, its batches' "
@@ -3731,7 +3765,6 @@ def _kernel_kinds(prof) -> dict:
 def phase_lm_train(torch) -> dict:
     """Full-width Qwen2-0.5B trained through the LM Trainer, each step one
     CUDA graph (checks, then timings)."""
-    import gc
     import shutil
     import tempfile
 
@@ -4278,7 +4311,6 @@ def _dist_entry() -> dict:
 
 def phase_distribution(torch) -> dict:
     """Phase 27: the sharded paths on the card (see the module docstring)."""
-    import gc
 
     import torch.distributed as dist
 
@@ -4411,6 +4443,466 @@ def _entry(name, launches, err, rows, times_of, bound_of) -> dict:
     }
 
 
+PLACE_ARCH, PLACE_LAYERS = "llama3-8b", 2   # full width, 2 layers, fp32
+PLACE_SLOTS, PLACE_PROMPT, PLACE_MAX_LEN, PLACE_DECODE = 8, 64, 1024, 16
+PLACE_TRAIN_SEQ, PLACE_TRAIN_BATCH = 1024, 4   # Qwen2-0.5B, full depth, bf16
+PLACE_TRAIN_STEPS = 3
+PLACE_LSE_KV = 32768   # the two-half combine: Llama-3-8B's decode_32k cache
+DRYRUN_CELLS = (("qwen2-0.5b", "train_4k"), ("llama3-8b", "decode_32k"))
+DRYRUN_TIMEOUT_S = 600
+
+
+def _dryrun_procs() -> list:
+    """The dry-run cells as processes (``python -m repro_torch.launch.dryrun``,
+    no card), started now and read at the end of phase 28; their logs in
+    chiprun_out/dryrun/."""
+    logs = os.path.join(ROOT, "chiprun_out", "dryrun")
+    os.makedirs(logs, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=SRC, CUDA_VISIBLE_DEVICES="")
+    procs = []
+    for arch, shape in DRYRUN_CELLS:
+        log_path = os.path.join(logs, f"{arch}_{shape}.log")
+        f = open(log_path, "w")
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+               "--shape", shape, "--mesh", "single", "--out", logs]
+        procs.append((arch, shape, cmd, subprocess.Popen(
+            cmd, cwd=ROOT, env=env, stdout=f, stderr=subprocess.STDOUT), f, log_path))
+    return procs
+
+
+def _dryrun_results(procs) -> list:
+    """Wait for the dry-run processes; each must exit 0 and write its
+    report (per-rank bytes and collectives, arithmetic over a fake 256-rank
+    world)."""
+    out = []
+    deadline = time.monotonic() + DRYRUN_TIMEOUT_S
+    try:
+        for arch, shape, cmd, p, f, log_path in procs:
+            try:
+                rc = p.wait(timeout=max(deadline - time.monotonic(), 1))
+            except subprocess.TimeoutExpired:
+                raise AssertionError(f"placement: {' '.join(cmd[1:])} did not finish in "
+                                     f"{DRYRUN_TIMEOUT_S} s")
+            f.close()
+            if rc != 0:
+                with open(log_path) as g:
+                    tail = g.read()[-2000:]
+                raise AssertionError(f"placement: {' '.join(cmd[1:])} exited {rc}:\n{tail}")
+            with open(os.path.join(os.path.dirname(log_path), f"{arch}_{shape}_256.json")) as g:
+                rep = json.load(g)
+            row = {"arch": arch, "shape": shape, "mode": rep["mode"],
+                   "trace_s": rep["trace_s"], "flops": rep["flops"],
+                   "memory": rep["memory"], "collectives": rep["collectives"]}
+            out.append(row)
+            log(f"[placement] dry run {arch} {shape} on a fake 16x16 world ({rep['mode']}, "
+                f"traced in {rep['trace_s']} s, no card): per rank "
+                f"{rep['memory']['argument_size_in_bytes']} argument bytes, "
+                f"{rep['flops']:.4g} FLOPs, {rep['collectives']['total']:.4g} collective "
+                f"wire bytes (arithmetic, not a measurement); exit 0")
+    finally:
+        for *_, p, f, _ in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            f.close()
+    return out
+
+
+def _lse_check(torch) -> dict:
+    """The decode kernel's log-sum-exp output against its plain version at
+    phase 14's shapes and with kv_len 0 rows (out 0, lse -inf), then the
+    lse variant timed at Llama-3-8B S 4096 beside its plain version and
+    SDPA, with the bound."""
+    import torch.nn.functional as F
+
+    launch, plain = kernels(("decode_attention",))["decode_attention"]
+    rows = []
+    for i, shape in enumerate(DECODE_CHECKS):
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, kv_len = _decode_inputs(torch, shape, dtype, seed=2800 + i)
+            kv_len[0] = 0   # a row with no valid key
+            (got, lse), (want, wlse) = (launch(q, k, v, kv_len, return_lse=True),
+                                        plain(q, k, v, kv_len, return_lse=True))
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            tol = TOL_REL * want.abs().max().item() + TOL_ABS
+            finite = torch.isfinite(wlse)
+            lerr = (lse[finite] - wlse[finite]).abs().max().item()
+            ltol = TOL_REL * wlse[finite].abs().max().item() + TOL_ABS
+            empty_ok = bool((lse[0] == -torch.inf).all() and (got[0] == 0).all()
+                            and torch.equal(torch.isfinite(lse), finite))
+            if not (err <= tol and lerr <= ltol and empty_ok):
+                raise AssertionError(f"placement: the decode kernel's lse output disagrees "
+                                     f"at {shape} {dtype}: out {err} > {tol}, lse {lerr} > "
+                                     f"{ltol}, or the kv_len 0 row is not (0, -inf)")
+            rows.append({"shape": shape, "dtype": str(dtype)[6:], "max_abs_err": err,
+                         "lse_max_abs_err": lerr, "tol": tol, "lse_tol": ltol})
+            del q, k, v, got, want, lse, wlse
+    log(f"[placement] decode kernel lse output at {len(DECODE_CHECKS)} shapes x 2 dtypes, "
+        f"a kv_len 0 row each: out worst {max(r['max_abs_err'] for r in rows):.3e}, lse "
+        f"worst {max(r['lse_max_abs_err'] for r in rows):.3e} (tol {TOL_REL} * max|ref| + "
+        f"{TOL_ABS}); kv_len 0 gives out 0, lse -inf")
+    shape = DECODE_TIMES[0]
+    b, s_len, kvh, g, hd = shape
+    q, k, v, _ = _decode_inputs(torch, shape, torch.bfloat16, seed=2900)
+    kv_len = torch.full((b,), s_len, dtype=torch.int32, device="cuda")
+
+    def library(qq, kk, vv, mask):
+        return F.scaled_dot_product_attention(qq, kk, vv, attn_mask=mask, enable_gqa=True)
+
+    lib_args = (q.reshape(b, kvh * g, 1, hd), k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3),
+                (torch.arange(s_len, device="cuda") < kv_len[:, None])[:, None, None])
+    # timed as phase 15 times them: without the deterministic algorithms
+    # phase 20 turned on (under them SDPA takes its slow math backend)
+    deterministic = (torch.are_deterministic_algorithms_enabled(),
+                     torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(False)
+    bound = _decode_bound(shape, [s_len] * b, 2)
+    try:
+        timed = {**_limits(bound["flops"], bound["bytes"] + 4 * b * kvh * g),   # + the lse
+                 "shape": shape,
+                 "device_us": _device_us(torch, launch, q, k, v, kv_len, return_lse=True),
+                 "plain_device_us": _device_us(torch, plain, q, k, v, kv_len, calls=5,
+                                               return_lse=True),
+                 "library_device_us": _device_us(torch, library, *lib_args),
+                 "no_lse_device_us": _device_us(torch, launch, q, k, v, kv_len)}
+    finally:
+        torch.use_deterministic_algorithms(deterministic[0], warn_only=deterministic[1])
+    for key in ("", "plain_", "library_"):
+        timed[f"{key}ms"] = timed[f"{key}device_us"] * 1e-3
+    log(f"[placement] decode kernel with lse at {shape} bf16 kv_len=S, device-only: "
+        f"{timed['device_us']:.2f} us (without lse {timed['no_lse_device_us']:.2f}), plain "
+        f"{timed['plain_device_us']:.2f} us, SDPA {timed['library_device_us']:.2f} us, "
+        f"bound {timed['bound_ms'] * 1e3:.2f} us ({timed['bound_by']})")
+    return {"rows": rows, "worst": max(r["max_abs_err"] for r in rows),
+            "lse_worst": max(r["lse_max_abs_err"] for r in rows), "times": timed}
+
+
+def _two_half_combine(torch) -> dict:
+    """The cross-rank decode combine on one card: the kernel on the two
+    halves of a Llama-3-8B cache at kv_len 32768 (bf16, 8 slots), kv_len
+    clipped to each half, combined by their log-sum-exp as the placed decode
+    combines the model ranks', against the whole cache's kernel call;
+    rows whose length ends in the first half leave the second with no
+    valid key."""
+    launch, _ = kernels(("decode_attention",))["decode_attention"]
+    b, kvh, g, hd = LM_SLOTS, 8, 4, 128
+    S, half = PLACE_LSE_KV, PLACE_LSE_KV // 2
+    gen = torch.Generator(device="cuda").manual_seed(2950)
+    q = torch.randn((b, kvh, g, hd), device="cuda", generator=gen).bfloat16()
+    k, v = (torch.randn((b, S, kvh, hd), device="cuda", generator=gen).bfloat16()
+            for _ in range(2))
+    kv_len = torch.tensor([S, S, 1, half, half + 1, 5000, 20000, 32000],
+                          dtype=torch.int32, device="cuda")
+    want = launch(q, k, v, kv_len)
+    outs, lses = [], []
+    for h in range(2):
+        clip = (kv_len - h * half).clamp(0, half).to(torch.int32)
+        o, lse = launch(q, k[:, h * half:(h + 1) * half].contiguous(),
+                        v[:, h * half:(h + 1) * half].contiguous(), clip, return_lse=True)
+        outs.append(o)
+        lses.append(lse)
+    lse = torch.stack(lses)
+    m = lse.amax(0)
+    w = torch.exp(lse - m)
+    got = (torch.stack(outs) * w[..., None]).sum(0) / w.sum(0)[..., None]
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    tol = TOL_REL * want.abs().max().item() + TOL_ABS
+    empty = int((lses[1] == -torch.inf).all(dim=(1, 2)).sum().item())
+    want_empty = int((kv_len <= half).sum().item())   # 1, 16384 and 5000
+    if not (err <= tol and empty == want_empty == 3):
+        raise AssertionError(f"placement: the two-half combine differs from the whole "
+                             f"cache by {err} (tol {tol}), or {empty} rows, not "
+                             f"{want_empty}, left the second half empty")
+    log(f"[placement] decode combine across two halves of a {S}-row Llama-3-8B cache "
+        f"(bf16, {b} slots, kv_len {kv_len.tolist()}): max abs err {err:.3e} against the "
+        f"whole cache (tol {tol:.3e}); {empty} rows with no valid key in the second half")
+    del q, k, v, outs, want, got
+    torch.cuda.empty_cache()
+    return {"kv_len": kv_len.tolist(), "max_abs_err": err, "tol": tol, "empty_rows": empty}
+
+
+def _placed_serve(torch, mesh, card) -> dict:
+    """Full-width Llama-3-8B (PLACE_LAYERS layers, fp32) placed on the host
+    mesh in its serving mode: the prefill's logits and PLACE_DECODE decode
+    steps through the placed engine's graph, within TOL of the unplaced
+    prefill and the unplaced engine's graphed steps on the same tokens and
+    cache contents; each placed graphed step bitwise the placed eager step.
+    The decode steps are timed both ways (CUDA events). The launch counts
+    cover the placed run only."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import sharding
+    from repro_torch.models.lm import build_model
+    from repro_torch.serve import ServeEngine
+    from repro_torch.serve.engine import _whole_logits
+    from repro_torch.timing import time_cuda
+
+    cfg = dataclasses.replace(get_config(PLACE_ARCH), n_layers=PLACE_LAYERS, dtype="float32")
+    model = build_model(cfg)
+    params, out = _init_lm(torch, model, seed=28)
+    mode = sharding.parallelism_for(cfg, "decode", PLACE_SLOTS, mesh)
+    sharding.set_parallelism(mode)
+    gen = torch.Generator(device="cuda").manual_seed(2801)
+    prompt = torch.randint(0, cfg.vocab_size, (PLACE_SLOTS, PLACE_PROMPT), device="cuda",
+                           generator=gen)
+    want, wcache = model.prefill(params, {"tokens": prompt})
+    plain = ServeEngine(model, params, slots=PLACE_SLOTS, max_len=PLACE_MAX_LEN)
+    for c, w in zip(plain.cache, wcache):
+        c.k[:, :, :PLACE_PROMPT] = w.k
+        c.v[:, :, :PLACE_PROMPT] = w.v
+    toks, plain_logits = [], []
+    tok = want[:, -1].argmax(-1, keepdim=True).int()
+    for i in range(PLACE_DECODE):   # the unplaced engine's graphed steps
+        pos = torch.full((PLACE_SLOTS,), PLACE_PROMPT + i, dtype=torch.int32, device="cuda")
+        lg = plain._decode(params, plain.cache, {"tokens": tok, "pos": pos})[0].clone()
+        toks.append(tok)
+        plain_logits.append(lg)
+        tok = lg[:, -1].argmax(-1, keepdim=True).int()
+    _reset_counts()   # the placed path, counted
+    placed = sharding.distribute_params(params, mesh, cfg.fsdp)
+    got, gcache = model.prefill(placed, {"tokens": prompt})
+    got = got.full_tensor()
+    eng = ServeEngine(model, placed, slots=PLACE_SLOTS, max_len=PLACE_MAX_LEN)
+    for c, w in zip(eng.cache, gcache):
+        c.k.to_local()[:, :, :PLACE_PROMPT] = w.k.full_tensor()
+        c.v.to_local()[:, :, :PLACE_PROMPT] = w.v.full_tensor()
+    eager = _whole_logits(model.decode_step)
+    errs = []
+    for i in range(PLACE_DECODE):
+        pos = torch.full((PLACE_SLOTS,), PLACE_PROMPT + i, dtype=torch.int32, device="cuda")
+        batch = {"tokens": toks[i], "pos": pos}
+        g = eng._decode(placed, eng.cache, batch)[0].clone()
+        e = eager(placed, eng.cache, batch)[0]   # rewrites the step's rows with the same bits
+        if not torch.equal(g, e):
+            raise AssertionError(f"placement: the placed graphed decode step {i} is not "
+                                 f"bitwise the placed eager step "
+                                 f"({(g - e).abs().max().item()})")
+        errs.append((g - plain_logits[i]).abs().max().item())
+        tol = TOL_REL * plain_logits[i].abs().max().item() + TOL_ABS
+        if not errs[-1] <= tol:
+            raise AssertionError(f"placement: placed decode step {i} differs from the "
+                                 f"unplaced one by {errs[-1]} (tol {tol})")
+    out["launches"] = _read_counts()
+    want_launches = PLACE_LAYERS * (2 * PLACE_DECODE + 1)   # graph + eager + capture warm-up
+    if out["launches"]["decode_attention"] != want_launches:
+        raise AssertionError(f"placement: {out['launches']['decode_attention']} decode "
+                             f"launches on the placed path, want {want_launches}")
+    perr = (got - want).abs().max().item()
+    ptol = TOL_REL * want.abs().max().item() + TOL_ABS
+    if not perr <= ptol:
+        raise AssertionError(f"placement: the placed prefill differs by {perr} (tol {ptol})")
+    pos = torch.full((PLACE_SLOTS,), PLACE_PROMPT, dtype=torch.int32, device="cuda")
+    batch = {"tokens": toks[0], "pos": pos}
+    times = {}
+    for name in ("unplaced", "placed", "placed", "unplaced"):   # in turns
+        e_, p_ = (plain, params) if name == "unplaced" else (eng, placed)
+        times.setdefault(name, []).append(time_cuda(
+            lambda t, e_=e_, p_=p_: e_._decode(p_, e_.cache, {"tokens": t, "pos": pos}),
+            toks[0], iters=20, warmup=2))
+    out.update({"mode": mode, "prefill_max_abs_err": perr, "prefill_tol": ptol,
+                "decode_max_abs_err": max(errs),
+                "graph_step_ms": {k: min(v) for k, v in times.items()},
+                "graph_step_ms_turns": times,
+                "eager_step_ms": time_cuda(lambda t: eager(placed, eng.cache, batch),
+                                           toks[0], iters=5, warmup=1),
+                "plain_eager_step_ms": time_cuda(
+                    lambda t: model.decode_step(params, plain.cache, batch), toks[0],
+                    iters=5, warmup=1)})
+    log(f"[placement] {cfg.name} full width, {PLACE_LAYERS} layers, fp32, placed on the "
+        f"host mesh ({mode}): prefill of {PLACE_SLOTS} x {PLACE_PROMPT} within "
+        f"{perr:.3e} (tol {ptol:.3e}) of the unplaced; {PLACE_DECODE} decode steps through "
+        f"the placed engine's graph, each bitwise the placed eager step, worst "
+        f"{max(errs):.3e} from the unplaced engine's; decode launches "
+        f"{out['launches']['decode_attention']}")
+    log(f"[placement] a graphed decode step (CUDA events, 20 replays, in turns): placed "
+        f"{out['graph_step_ms']['placed']:.4f} ms, unplaced "
+        f"{out['graph_step_ms']['unplaced']:.4f} ms; eager: placed "
+        f"{out['eager_step_ms']:.3f} ms, unplaced {out['plain_eager_step_ms']:.3f} ms; on "
+        f"{card}")
+    del eng, plain, params, placed, wcache, gcache
+    sharding.set_parallelism("tp")
+    return out
+
+
+def _placed_train(torch, mesh, card) -> dict:
+    """Full-depth Qwen2-0.5B (bf16, seq PLACE_TRAIN_SEQ, batch
+    PLACE_TRAIN_BATCH) placed on the host mesh in its training mode (fsdp):
+    PLACE_TRAIN_STEPS steps through the Trainer's graph, then the same steps
+    eagerly from the same seeded state, bitwise (each step's metrics, and
+    the state after the last).
+    Each graphed step is held against the unplaced step taken from the same
+    state (gathered whole): loss, ce and grad norm within 1e-3 relative;
+    each new parameter within 2 lr + 2^-7 of its leaf's largest (two bf16
+    ulps there): Adam's early steps move a weight by about lr whatever its
+    gradient's size, so a near-zero gradient summed in another order can
+    reverse one weight's step; the first moments within 2^-5 of each
+    leaf's largest and the second within 2^-4 (squares): a bf16 gradient
+    of a weight used in several places (the tied embedding: its gather and
+    the head's loss chunks) sums its bf16 terms in another order placed,
+    a few bf16 ulps (2^-8) of the largest term each. Steps are compared one
+    at a time because in bf16 a weight that rounds the other way moves
+    every later gradient. The graphed step is timed unplaced, then placed
+    (CUDA events; each graph alone on the card)."""
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.distributed import sharding
+    from repro_torch.models.lm import build_model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.timing import time_cuda
+    from repro_torch.train.train_step import TrainConfig, init_train_state, make_train_step
+    from repro_torch.train.trainer import Trainer
+    from repro_torch.tree import tree_leaves, tree_map
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config(LM_TRAIN_ARCH)
+    model = build_model(cfg)
+    tc = TrainConfig(optimizer=AdamWConfig(lr=1e-3), warmup_steps=2, total_steps=30)
+    data = SyntheticTokens(cfg.vocab_size, PLACE_TRAIN_SEQ, PLACE_TRAIN_BATCH)
+    quiet = lambda *a: None  # noqa: E731
+    gen = lambda: torch.Generator(device="cuda").manual_seed(0)  # noqa: E731
+
+    def whole(state):   # a placed state gathered, as plain tensors of its own (a
+        # one-rank gather may alias the graph's static state, which a step rewrites)
+        return tuple(tree_map(lambda t: (t.full_tensor() if hasattr(t, "full_tensor")
+                                         else t).clone(), x) for x in state)
+
+    def vals_of(m):
+        return dict(zip(m, torch.stack(list(m.values())).tolist()))
+
+    # the unplaced graphed step first, timed and released: a second graph's
+    # warm-up and pool would not fit beside the placed state's on a card
+    # the earlier phases left fragmented
+    batch_t = data.batch(PLACE_TRAIN_STEPS)
+    plain_tr = Trainer(model, make_train_step(model, tc), data, log_fn=quiet)
+    s = init_train_state(model, gen(), tc)
+    plain_tr._step_fn(*s, data.batch(0))
+    s = (plain_tr._graph.inputs[0], plain_tr._graph.inputs[1])
+    times = {"unplaced": time_cuda(lambda t: plain_tr._graph(*s, batch_t), batch_t["tokens"],
+                                   iters=3, warmup=1)}
+    del plain_tr, s
+    gc.collect()
+    torch.cuda.empty_cache()
+    _reset_counts()   # the placed path
+    with sharding.use_mesh(mesh):
+        # the graph first, captured on the allocator the phase emptied; the
+        # eager steps after it, from the same seeded state drawn again
+        g = init_train_state(model, gen(), tc, mesh=mesh, global_batch=PLACE_TRAIN_BATCH)
+        mode = sharding.get_parallelism()
+        tr = Trainer(model, make_train_step(model, tc), data, log_fn=quiet)
+        plain = Trainer(model, make_train_step(model, tc), data, log_fn=quiet)   # eager
+        worst, plain_metrics, graphed = {"p": 0.0, "m": 0.0, "v": 0.0}, [], []
+        for i in range(PLACE_TRAIN_STEPS):
+            before = whole(g)
+            p, o, vals = tr._step_fn(*g, data.batch(i))
+            g = (p, o)
+            graphed.append(vals)
+            with sharding.use_mesh(None):   # the unplaced step from the same state
+                up, uo, um = plain.step_eager(*before, data.batch(i))
+            want = vals_of(um)
+            plain_metrics.append(want)
+            for k in ("loss", "grad_norm", "ce"):
+                if not abs(vals[k] - want[k]) <= 1e-3 * abs(want[k]) + 1e-6:
+                    raise AssertionError(f"placement: placed step {i}'s {k} {vals[k]} is "
+                                         f"not within 1e-3 of the unplaced {want[k]}")
+            if not torch.equal(g[1]["count"], uo["count"]):
+                raise AssertionError("placement: the step counts differ")
+            pairs = [(a, b, "p") for a, b in zip(tree_leaves(g[0]), tree_leaves(up))]
+            for key in ("m", "v"):
+                pairs += [(a, b, key) for a, b in zip(tree_leaves(g[1][key]),
+                                                      tree_leaves(uo[key]))]
+            for a, b, kind in pairs:
+                a = a.full_tensor()   # read at once, before the next step rewrites it
+                err = max((x.float() - y.float()).abs().max().item()   # in row blocks
+                          for x, y in zip(a.split(8192), b.split(8192)))
+                scale = b.float().abs().max().item()
+                tol = {"p": 2 * vals["lr"] + 2 ** -7 * scale, "m": 2 ** -5 * scale + 1e-8,
+                       "v": 2 ** -4 * scale + 1e-12}[kind]
+                worst[kind] = max(worst[kind], err / tol)
+                if not err <= tol:
+                    raise AssertionError(f"placement: placed step {i}: a leaf "
+                                         f"{tuple(a.shape)} differs by {err} from the "
+                                         f"unplaced step's (tol {tol})")
+            del pairs, a, before, up, uo
+        e = init_train_state(model, gen(), tc, mesh=mesh, global_batch=PLACE_TRAIN_BATCH)
+        eager = []
+        for i in range(PLACE_TRAIN_STEPS):   # only the last state is kept
+            p, o, m = tr.step_eager(*e, data.batch(i))
+            e = (p, o)
+            eager.append(vals_of(m))
+            if eager[i] != graphed[i]:
+                raise AssertionError(f"placement: placed graphed train step {i} is not "
+                                     f"bitwise the placed eager step: {graphed[i]} vs "
+                                     f"{eager[i]}")
+        if not _bitwise(sharding.full_tree(list(g)), sharding.full_tree(list(e))):
+            raise AssertionError("placement: the placed graphed steps' state is not bitwise "
+                                 "the placed eager steps'")
+        out = {"mode": mode, "launches": _read_counts(), "metrics": plain_metrics,
+               "placed_metrics": eager, "worst_err_over_tol": worst}
+        del e
+        gc.collect()
+        torch.cuda.empty_cache()
+        times["placed"] = time_cuda(lambda t: tr._graph(*g, batch_t), batch_t["tokens"],
+                                    iters=3, warmup=1)
+    out["graph_step_ms"] = times
+    log(f"[placement] {cfg.name} full depth, bf16, seq {PLACE_TRAIN_SEQ}, batch "
+        f"{PLACE_TRAIN_BATCH}, placed on the host mesh ({mode}): {PLACE_TRAIN_STEPS} graphed "
+        f"steps bitwise the placed eager steps; each against the unplaced step from the "
+        f"same state: metrics within 1e-3, worst err / tol: params {worst['p']:.3f}, first "
+        f"moments {worst['m']:.3f}, second {worst['v']:.3f}; losses "
+        f"{[round(v['loss'], 4) for v in out['placed_metrics']]}")
+    log(f"[placement] a graphed train step (CUDA events, 3 replays; unplaced first, then "
+        f"placed, each graph alone on the card): placed "
+        f"{out['graph_step_ms']['placed']:.2f} ms, unplaced "
+        f"{out['graph_step_ms']['unplaced']:.2f} ms, on {card}")
+    del tr, plain, g
+    gc.collect()
+    torch.cuda.empty_cache()
+    sharding.set_parallelism("tp")
+    return out
+
+
+def phase_placement(torch) -> dict:
+    """Phase 28: the LM state placed (see the module docstring)."""
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+
+    procs = _dryrun_procs()   # on the host's cores, while the card works
+    try:
+        gc.collect()
+        torch.cuda.empty_cache()
+        out = {"nvidia_smi": _smi()}
+        card = out["nvidia_smi"]
+        out["lse"] = _lse_check(torch)
+        out["combine"] = _two_half_combine(torch)
+        owned = not dist.is_initialized()
+        mesh = make_host_mesh()
+        out["mesh"] = dict(zip(mesh.mesh_dim_names, mesh.shape))
+        log(f"[placement] host mesh {out['mesh']} over {dist.get_world_size()} "
+            f"{dist.get_backend()} rank; card {card}")
+        try:
+            out["serve"] = _placed_serve(torch, mesh, card)
+            gc.collect()
+            torch.cuda.empty_cache()
+            out["train"] = _placed_train(torch, mesh, card)
+            torch.cuda.synchronize()
+        finally:
+            gc.collect()
+            if owned:
+                dist.destroy_process_group()
+            torch.cuda.empty_cache()
+    finally:
+        out_dry = _dryrun_results(procs)
+    out["dryrun"] = out_dry
+    return out
+
+
 def main(argv) -> int:
     # cuBLAS is deterministic only with a fixed workspace, set before it starts
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
@@ -4452,6 +4944,10 @@ def main(argv) -> int:
 
     dev = run("1 device", phase_device, torch)
     build = run("2 build", phase_build)
+    # on the card as the build leaves it: the placed training's two states
+    # and graphs do not fit in what the later phases leave fragmented
+    placement = run("28 placement", phase_placement, torch)
+    _reset_counts()   # the later phases count from zero, as after the build
     worst = run("3 check", phase_check, torch)
     times = run("4 times", phase_times, torch)
     profiled = run("4 profile", phase_profile, torch)
@@ -4526,16 +5022,21 @@ def main(argv) -> int:
             })
         entries.append(entry)
     # launches: the LM serving runs (phase 16's and phase 26's graphed
-    # serving and greedy decodes); numbers: Llama-3-8B, S 4096, device-only
+    # serving and greedy decodes, phase 28's placed decode); numbers:
+    # Llama-3-8B, S 4096, device-only
     d4k = decode_times[0]
     source, replaces = SOURCES["decode_attention"]
     entries.append({"name": "decode_attention", "route": "cuda", "source": source,
                     "replaces": replaces,
                     "launches": (lm_serve["launches"]["decode_attention"]
-                                 + families["decode_launches"]),
+                                 + families["decode_launches"]
+                                 + placement["serve"]["launches"]["decode_attention"]),
                     "max_abs_err": decode_check["llama_4k"], "ms": d4k["ms"],
                     "plain_ms": d4k["plain_ms"], "bound_ms": d4k["bound_ms"],
-                    "bound_by": d4k["bound_by"], "library_ms": d4k["library_ms"]})
+                    "bound_by": d4k["bound_by"], "library_ms": d4k["library_ms"],
+                    "lse_ms": placement["lse"]["times"]["ms"],
+                    "lse_plain_ms": placement["lse"]["times"]["plain_ms"],
+                    "lse_max_abs_err": placement["lse"]["lse_worst"]})
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"device": dev, "fused_ptxas": build["fused_ptxas"],
@@ -4551,7 +5052,7 @@ def main(argv) -> int:
                    "train": train, "obs": obs_replicas, "autotune": tuned,
                    "graph_failure": graph_failure, "lm_train": lm_train,
                    "entry_points": entry, "lm_families": families,
-                   "distribution": distribution,
+                   "distribution": distribution, "placement": placement,
                    "phase_seconds": seconds,
                    "seconds": time.perf_counter() - t_start}, f, indent=1)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")

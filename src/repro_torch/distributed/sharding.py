@@ -20,17 +20,26 @@ place of the mesh axes. :func:`abstract_mesh` names axes and sizes with no
 devices, for the rules alone. :func:`use_mesh` makes a mesh of either kind
 ambient (a ``contextvars.ContextVar``).
 
-The reference is single-controller: every array is global, and GSPMD, which
-never changes a value, places what its ``shard_map`` regions do not split.
-The port runs the program on every rank with the global inputs and the
-whole parameters, and splits the work of those regions only:
+The reference is single-controller: every array is global, and GSPMD places
+it by ``in_shardings`` and the model's ``constrain`` hints. The port places
+its state the same way once asked to: :func:`distribute_params` turns every
+parameter into a ``DTensor`` with the placements :func:`named_shardings`
+computes (Megatron's column- and row-parallel splits over ``model``, and
+ZeRO-3 over ``data`` under ``fsdp``), :func:`opt_specs_from` and
+:func:`cache_specs` give the optimizer moments' and the KV caches' specs
+(the attention cache's sequence over ``model``), and :func:`place_tree`
+places a tree by a tree of specs. Under :func:`use_mesh` with
+``placed=True`` :func:`constrain` and :func:`shard_batch` enter a plain
+tensor into the mesh (replicated except where an entry names an axis), and
+redistribute a ``DTensor``, as the reference's hints do; DTensor's sharding
+propagation, the counterpart of GSPMD, places the rest.
+
+Unplaced, the port runs the program on every rank with the global inputs
+and the whole parameters, and splits the work of two regions only:
 :func:`shard_plan_apply` (the generator over the data-parallel ranks) and
-the MoE's expert-parallel path (``repro_torch.models.layers``). Each
-region is bracketed by the autograd Functions of
-:mod:`repro_torch.distributed.collectives`. :func:`param_specs` and
-:func:`named_shardings` record the reference's placements; the parameters
-themselves stay whole on every rank (the dense layers are not split over
-``model``, nor the parameters over ``data`` under ``fsdp``).
+the MoE's expert-parallel path (``repro_torch.models.layers``), each
+bracketed by the autograd Functions of
+:mod:`repro_torch.distributed.collectives`.
 
 All helpers degrade to no-ops with no mesh, so the same model code runs on
 one device and under a mesh.
@@ -45,7 +54,7 @@ import re
 import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
-from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor import DTensor, Replicate, Shard, distribute_tensor
 
 from repro_torch.distributed.collectives import enter, gather
 from repro_torch.tree import tree_map
@@ -61,6 +70,7 @@ DATA = "data"
 #             data-parallel axis; no tensor parallelism.
 _MODE = {"mode": "tp"}
 _MESH = contextvars.ContextVar("repro_torch_mesh", default=None)
+_PLACED = contextvars.ContextVar("repro_torch_placed", default=False)
 
 
 def set_parallelism(mode: str):
@@ -130,14 +140,37 @@ def get_concrete_mesh():
 
 
 @contextlib.contextmanager
-def use_mesh(mesh):
+def use_mesh(mesh, *, placed: bool = False):
     """Make ``mesh`` (a named ``DeviceMesh`` or an :class:`AbstractMesh`)
-    ambient for the block."""
+    ambient for the block. ``placed=True`` (a ``DeviceMesh`` whose state is
+    placed, :func:`distribute_params`) makes :func:`constrain` and
+    :func:`shard_batch` enter plain tensors into it."""
     token = _MESH.set(mesh)
+    ptoken = _PLACED.set(bool(placed) and isinstance(mesh, DeviceMesh))
     try:
         yield mesh
     finally:
+        _PLACED.reset(ptoken)
         _MESH.reset(token)
+
+
+def placed_mesh():
+    """The ambient ``DeviceMesh`` when it is placed (:func:`use_mesh` with
+    ``placed=True``), else ``None``."""
+    return get_concrete_mesh() if _PLACED.get() else None
+
+
+@contextlib.contextmanager
+def placement_of(tensor):
+    """The block under ``tensor``'s mesh, placed, when ``tensor`` is a
+    ``DTensor``; otherwise the ambient state unchanged. The model enters
+    it from its parameters, so a placed tree runs placed wherever it is
+    called from."""
+    if not isinstance(tensor, DTensor):
+        yield None
+        return
+    with use_mesh(tensor.device_mesh, placed=True) as mesh:
+        yield mesh
 
 
 def mesh_axis_sizes(mesh) -> dict:
@@ -152,22 +185,34 @@ def mesh_axis_sizes(mesh) -> dict:
 def mesh_group(mesh: DeviceMesh, dims: tuple):
     """The process group over the mesh dimensions ``dims`` (flattened, the
     first outermost, as the reference's tuple entries split), and this
-    rank's place in it."""
+    rank's place in it. Cached on the mesh object (meshes of one layout
+    compare equal across process groups, so not by value): slicing a mesh
+    runs tensor ops, which a trace on meta or fake tensors must not see."""
     dims = tuple(dims)
-    if len(dims) == 1:
-        group = mesh.get_group(dims[0])
-    else:
-        group = mesh[dims]._flatten().get_group()
-    return group, dist.get_rank(group)
+    cache = vars(mesh).setdefault("_repro_torch_groups", {})
+    if dims not in cache:
+        if len(dims) == 1:
+            group = mesh.get_group(dims[0])
+        else:
+            group = mesh[dims]._flatten().get_group()
+        cache[dims] = (group, dist.get_rank(group))
+    return cache[dims]
 
 
 def region_groups(mesh: DeviceMesh) -> list:
-    """The process groups the sharded regions use over ``mesh``: the
+    """The process groups the sharded regions and placed programs use over
+    ``mesh``: each dimension's own (DTensor's collectives), the
     data-parallel ranks', ``model``'s, and both together."""
     sizes = mesh_axis_sizes(mesh)
     dp = tuple(a for a in ("pod", "data") if a in sizes)
     tp = ("model",) if "model" in sizes else ()
-    return [mesh_group(mesh, dims)[0] for dims in (dp, tp, dp + tp) if dims]
+    dims = [(a,) for a in _names(mesh)] + [d for d in (dp, tp, dp + tp) if d]
+    out = []
+    for d in dict.fromkeys(dims):
+        g = mesh_group(mesh, d)[0]
+        if all(g is not h for h in out):
+            out.append(g)
+    return out
 
 
 def check_capturable(mesh, device) -> None:
@@ -187,6 +232,33 @@ def check_capturable(mesh, device) -> None:
     for g in groups:
         dist.all_reduce(torch.ones(1, device=device), group=g)
     torch.cuda.synchronize(device)
+
+
+def parallelism_for(cfg, kind: str, global_batch: int, mesh) -> str:
+    """The mode a step of ``kind`` (``train``, ``prefill`` or ``decode``)
+    runs in: the config's ``train_parallelism`` when training, its
+    ``parallelism`` when serving; ``fsdp`` falls back to ``tp`` when the
+    batch does not divide the mesh's ranks (ZeRO-3 over the whole mesh
+    needs a sequence a rank), as the reference's dry run chooses."""
+    mode = cfg.train_parallelism if kind == "train" else cfg.parallelism
+    if mode == "fsdp" and global_batch % math.prod(mesh_axis_sizes(mesh).values()):
+        mode = "tp"
+    return mode
+
+
+def is_placed(tree) -> bool:
+    """Whether ``tree``'s leaves are placed (``DTensor``s)."""
+    from repro_torch.tree import tree_leaves
+
+    leaves = tree_leaves(tree)
+    return bool(leaves) and isinstance(leaves[0], DTensor)
+
+
+def full_tree(tree):
+    """Every placed leaf of ``tree`` gathered whole (``full_tensor``, a
+    collective every rank calls); plain leaves as they are."""
+    return _map_spec_tree(
+        lambda t, _: t.full_tensor() if isinstance(t, DTensor) else t, tree, None)
 
 
 def is_writer() -> bool:
@@ -250,14 +322,64 @@ def placements(spec, mesh) -> tuple:
 
 
 def constrain(x, *entries):
-    """The reference's sharding constraint: ``x`` itself, since a hint
-    never changes a value. A ``DTensor`` is redistributed to the filtered
-    placements over its own mesh."""
+    """The reference's sharding constraint. A ``DTensor`` is redistributed
+    to the filtered placements over its own mesh; a plain tensor under a
+    placed mesh (:func:`placed_mesh`) enters it with those placements, each
+    rank keeping its slice of the whole tensor it holds; any other plain
+    tensor is ``x`` itself, since a hint never changes a value."""
     if not isinstance(x, DTensor):
-        return x
+        mesh = placed_mesh()
+        return x if mesh is None else enter_mesh(x, mesh, *entries)
     with use_mesh(x.device_mesh):
         spec = _filter(P(*entries), tuple(x.shape))
-    return x.redistribute(x.device_mesh, placements(spec, x.device_mesh))
+    want = placements(spec, x.device_mesh)
+    if tuple(x.placements) == want:
+        return x
+    return x.redistribute(x.device_mesh, want)
+
+
+def enter_mesh(x, mesh, *entries):
+    """The plain tensor ``x``, which every rank holds whole, as a
+    ``DTensor`` over ``mesh`` placed by ``entries`` (filtered; an empty
+    spec replicates): each rank keeps its own slice, with no collective."""
+    with use_mesh(mesh):
+        spec = _filter(P(*entries), tuple(x.shape)) if entries else None
+    return distribute_tensor(x, mesh, placements(spec, mesh), src_data_rank=None)
+
+
+def split_group(t, dim: int):
+    """The process group over the mesh dimensions that split dimension
+    ``dim`` of the placed ``t`` (the first outermost), and this rank's
+    place along them; ``(None, 0)`` where none does."""
+    mesh = t.device_mesh
+    names = tuple(mesh.mesh_dim_names[i] for i, p in enumerate(t.placements)
+                  if isinstance(p, Shard) and p.dim == dim)
+    return mesh_group(mesh, names) if names else (None, 0)
+
+
+def replicate(x, mesh):
+    """The plain tensor ``x`` (the same on every rank) as a ``DTensor``
+    replicated over ``mesh``: RoPE's tables, masks and the like."""
+    return DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim, run_check=False)
+
+
+def gather_param(w):
+    """A placed parameter as it is used: its ``data``-parallel dimensions
+    (``pod`` and ``data``; every dimension under ``fsdp`` mode, where
+    ``model`` is one too) gathered to ``Replicate``, its ``model`` split
+    kept. The FSDP gather is explicit here so that DTensor re-lays no
+    activation instead; its backward reduce-scatters the gradient back to
+    the parameter's shard. A plain tensor, or one with nothing to gather,
+    is returned as it is."""
+    if not isinstance(w, DTensor):
+        return w
+    every = _MODE["mode"] == "fsdp"
+    names = _names(w.device_mesh)
+    want = tuple(Replicate() if (every or name != MODEL) and not p.is_replicate() else p
+                 for name, p in zip(names, w.placements))
+    if want == tuple(w.placements):
+        return w
+    return w.redistribute(w.device_mesh, want)
 
 
 def shard_batch(x):
@@ -402,3 +524,156 @@ def named_shardings(params, mesh, fsdp: bool = False):
     with use_mesh(mesh):
         specs = param_specs(params, fsdp)
     return _map_paths(lambda _, spec: placements(spec, mesh), specs)
+
+
+# ---------------------------------------------------------------------------
+# Placement of the state: parameters, optimizer moments, caches, batches.
+# The specs follow the reference's launch/dryrun.py.
+# ---------------------------------------------------------------------------
+
+def _map_spec_tree(fn, tree, specs):
+    """``fn(leaf, spec)`` over a tree of dicts, lists and NamedTuples (the
+    KV caches) and its matching tree of specs (``None`` for every leaf
+    when ``specs`` is ``None``)."""
+    sub = (lambda k: None) if specs is None else (lambda k: specs[k])
+    if isinstance(tree, dict):
+        return {k: _map_spec_tree(fn, tree[k], sub(k)) for k in sorted(tree)}
+    if hasattr(tree, "_fields"):
+        return type(tree)(*(_map_spec_tree(fn, t, sub(i)) for i, t in enumerate(tree)))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_spec_tree(fn, t, sub(i)) for i, t in enumerate(tree))
+    return fn(tree, specs)
+
+
+def state_leaves(tree) -> list:
+    """The leaves of a state tree (dicts in sorted-key order, lists, and
+    the caches' NamedTuples), in the reference's leaf order."""
+    out = []
+    _map_spec_tree(lambda leaf, _: out.append(leaf), tree, None)
+    return out
+
+
+def place_tree(tree, mesh, specs):
+    """Every leaf of ``tree`` (which every rank holds whole) as a
+    ``DTensor`` over ``mesh`` placed by its spec in ``specs``: each rank
+    keeps its slice, with no collective."""
+    def one(leaf, spec):
+        return distribute_tensor(leaf, mesh, placements(spec, mesh), src_data_rank=None)
+
+    return _map_spec_tree(one, tree, specs)
+
+
+def distribute_params(tree, mesh, fsdp: bool = False):
+    """The parameter tree placed over ``mesh``: every leaf a ``DTensor``
+    with the placements :func:`named_shardings` gives (this rank keeps its
+    slice of the whole leaf it holds). The parallelism mode
+    (:func:`set_parallelism`) chooses the rules, as it does for
+    :func:`param_specs`."""
+    with use_mesh(mesh):
+        specs = param_specs(tree, fsdp)
+    return place_tree(tree, mesh, specs)
+
+
+def local_shapes(tree) -> list:
+    """The local shard shape of every leaf (a ``DTensor``'s ``to_local``,
+    a plain tensor's own), in leaf order."""
+    return [tuple((t.to_local() if isinstance(t, DTensor) else t).shape)
+            for t in state_leaves(tree)]
+
+
+def shard_shape(shape, spec, mesh) -> tuple:
+    """The local shape of a tensor of ``shape`` placed by ``spec`` over
+    ``mesh`` (either kind): each dimension divided by the sizes of the
+    axes its entry names."""
+    sizes = mesh_axis_sizes(mesh)
+    out = []
+    for i, n in enumerate(shape):
+        e = spec[i] if spec is not None and i < len(spec) else None
+        axes = e if isinstance(e, tuple) else ((e,) if e is not None else ())
+        out.append(n // math.prod(sizes.get(a, 1) for a in axes))
+    return tuple(out)
+
+
+def opt_specs_from(params_specs, opt_abstract):
+    """Optimizer-state specs: the moments inherit their parameter's spec;
+    an int8 second moment ``{q, scale}`` (blocked ``(..., nb, 256)``) keeps
+    the spec of the parameter's leading axes and leaves its two block axes
+    unsharded. Filtered by the ambient mesh, as the reference's are."""
+    def v_spec(leaf_spec, leaf):
+        if isinstance(leaf, dict):
+            base = tuple(leaf_spec) if leaf_spec is not None else ()
+            spec = P(*base[:-1], None, None) if base else P(None, None)
+            return {"q": _filter(spec, tuple(leaf["q"].shape)) or P(),
+                    "scale": _filter(spec, tuple(leaf["scale"].shape)) or P()}
+        return leaf_spec
+
+    def walk(ps, v):
+        if isinstance(v, dict) and set(v) == {"q", "scale"} and not isinstance(ps, dict):
+            return v_spec(ps, v)
+        if isinstance(ps, dict):
+            return {k: walk(ps[k], v[k]) for k in sorted(ps)}
+        if isinstance(ps, list):
+            return [walk(a, b) for a, b in zip(ps, v)]
+        return v_spec(ps, v)
+
+    return {"m": params_specs, "v": walk(params_specs, opt_abstract["v"]), "count": P()}
+
+
+def cache_specs(cfg, cache_abstract, shape):
+    """KV and state cache specs under the ambient mesh. Normal decode (a
+    batch of at least the data-parallel ranks): the batch over ``(pod,
+    data)`` and an attention cache's SEQUENCE over ``model`` (flash-decode
+    style: KV heads, 2 to 8, never divide a 16-way axis); a state cache's
+    largest trailing dimension over ``model``. ``long_500k`` (batch 1): the
+    attention cache's sequence over ``(data, model)``. ``shape`` needs only
+    ``global_batch``."""
+    long_ctx = shape.global_batch == 1
+    mesh = get_abstract_mesh()
+    axes = _names(mesh)
+    sizes = mesh_axis_sizes(mesh)
+    dp = tuple(a for a in ("pod", "data") if a in axes)
+    dp_n = math.prod(sizes[a] for a in dp)
+    model_n = sizes.get("model", 1)
+
+    def spec_for(leaf):
+        shp = tuple(leaf.shape)
+        nd = len(shp)
+        entries = [None] * nd
+        if nd >= 4 and cfg.n_kv_heads and shp[-2] == cfg.n_kv_heads:
+            if not long_ctx and shp[1] % dp_n == 0:
+                entries[1] = dp
+            seq_axes = (("data",) if long_ctx else ()) + ("model",)
+            seq_n = math.prod(sizes.get(a, 1) for a in seq_axes)
+            if shp[-3] % seq_n == 0:
+                entries[-3] = seq_axes
+        else:
+            if not long_ctx and nd >= 2 and shp[1] % dp_n == 0:
+                entries[1] = dp
+            big = max(range(2, nd), key=lambda i: shp[i]) if nd > 2 else None
+            if big is not None and shp[big] % model_n == 0:
+                entries[big] = "model"
+        return P(*entries)
+
+    return _map_spec_tree(lambda leaf, _: spec_for(leaf), cache_abstract, None)
+
+
+def dp_size(mesh) -> int:
+    """Ranks the batch is split over in the current mode (:func:`batch_axes`)."""
+    sizes = mesh_axis_sizes(mesh)
+    return math.prod(sizes.get(a, 1) for a in batch_axes())
+
+
+def batch_shardings(mesh, batch_specs) -> dict:
+    """A spec per batch entry: the batch dimension over the data-parallel
+    axes of the mode where the ranks divide it, else replicated (a batch of
+    one: long-context cells shard the cache instead)."""
+    axes = _names(mesh)
+    dp = tuple(a for a in batch_axes() if a in axes)
+    out = {}
+    for k, v in batch_specs.items():
+        shp = tuple(v.shape)
+        if shp and shp[0] > 1 and shp[0] % dp_size(mesh) == 0:
+            out[k] = P(dp, *([None] * (len(shp) - 1)))
+        else:
+            out[k] = P(*([None] * len(shp)))
+    return out

@@ -6,8 +6,11 @@
 //   s_t = (q[b,h,g] . k[b,t,h]) * hd^-0.5      dot product in fp32
 //   p_t = exp(s_t - m) over t < kv_len[b],      m = max_t s_t
 //   out[b,h,g] = (sum_t p_t v[b,t,h]) / max(sum_t p_t, 1e-30)
+//   lse[b,h,g] = m + log(sum_t p_t), or -inf where kv_len[b] is 0 (optional)
 // q (B, KV, G, hd), k and v (B, S, KV, hd) in fp32 or bf16, kv_len (B,) int32,
-// out (B, KV, G, hd) fp32. Scores, probabilities and sums are fp32 (the
+// out (B, KV, G, hd) fp32, lse (B, KV, G) fp32 when asked for (the weight
+// of this cache's part in a log-sum-exp combine across ranks that each hold
+// a slice of the sequence). Scores, probabilities and sums are fp32 (the
 // bf16 instance's P.V takes P as two bf16 parts, see below).
 //
 // What bounds it on the H100: bytes. Each K and V row up to kv_len is read
@@ -62,7 +65,7 @@
 //   past kv_len returns at once and writes nothing; with more than one split
 //   a second launch (combine_kernel) merges the ceil(kv_len / split_len)
 //   splits that hold a position, in split order (split 0 always runs, so a
-//   row with kv_len 0 gives zeros). No atomics anywhere.
+//   row with kv_len 0 gives zeros, and lse -inf). No atomics anywhere.
 // wgmma, TMA and a persistent grid are later work.
 
 #include <cuda_bf16.h>
@@ -178,7 +181,7 @@ __global__ void __launch_bounds__(THREADS, 1)
 split_kernel(const T* __restrict__ q, const T* __restrict__ k,
              const T* __restrict__ v, const int* __restrict__ kv_len,
              float* __restrict__ part_acc, float* __restrict__ part_ml,
-             float* __restrict__ out, const Args a) {
+             float* __restrict__ out, float* __restrict__ lse, const Args a) {
   constexpr bool BF16 = is_bf16<T>();
   constexpr int KSTEPS = HD / 16;          // bf16: 16-deep steps of a score
   constexpr int NT = HD / 8;               // bf16: 8-wide n-tiles of a V row
@@ -460,6 +463,7 @@ split_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     if (a.n_splits == 1) {
       out[head * G * hd + i] = sum / fmaxf(ls, 1e-30f);
+      if (lse != nullptr && i % hd == 0) lse[head * G + g] = ls > 0.f ? mx + logf(ls) : -INFINITY;
     } else {
       part_acc[(head * a.n_splits + split) * G * hd + i] = sum;
       if (i % hd == 0) {
@@ -479,7 +483,8 @@ split_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // independent loads, 4 in flight.
 __global__ void __launch_bounds__(THREADS)
 combine_kernel(const float* __restrict__ part_acc, const float* __restrict__ part_ml,
-               const int* __restrict__ kv_len, float* __restrict__ out, const Args a) {
+               const int* __restrict__ kv_len, float* __restrict__ out,
+               float* __restrict__ lse, const Args a) {
   __shared__ float ms[8], ls[8];   // MAX_G query rows
   const int head = blockIdx.x;
   const int b = head / a.KV;
@@ -512,6 +517,8 @@ combine_kernel(const float* __restrict__ part_acc, const float* __restrict__ par
   for (int s = 0; s < used; ++s)
     acc = fmaf(pa[static_cast<size_t>(s) * G * hd + i], expf(ml[(s * G + g) * 2] - m), acc);
   out[static_cast<size_t>(head) * G * hd + i] = acc / fmaxf(ls[g], 1e-30f);
+  if (lse != nullptr && i % hd == 0)
+    lse[static_cast<size_t>(head) * G + g] = ls[g] > 0.f ? m + logf(ls[g]) : -INFINITY;
 }
 
 // The shared memory decode_attention.decode_geometry gives a block.
@@ -521,7 +528,7 @@ int smem_bytes_of(const Args& a, int max_g) {
 
 template <typename T, int MAXG, int HD>
 cudaError_t launch_split(const void* q, const void* k, const void* v, const int* kv_len,
-                         float* part_acc, float* part_ml, float* out, int B,
+                         float* part_acc, float* part_ml, float* out, float* lse, int B,
                          const Args& a, int smem_bytes, cudaStream_t stream) {
   auto kernel = split_kernel<T, MAXG, HD>;
   const cudaError_t e = cudaFuncSetAttribute(
@@ -530,7 +537,7 @@ cudaError_t launch_split(const void* q, const void* k, const void* v, const int*
   const dim3 grid(a.n_splits, a.KV, B);
   kernel<<<grid, THREADS, smem_bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      kv_len, part_acc, part_ml, out, a);
+      kv_len, part_acc, part_ml, out, lse, a);
   return cudaGetLastError();
 }
 
@@ -538,21 +545,21 @@ cudaError_t launch_split(const void* q, const void* k, const void* v, const int*
 // mma's 16 rows), fp32 by max_g. decode_attention.decode_geometry gives
 // max_g = 8 for bf16.
 cudaError_t dispatch(bool bf16, int max_g, const void* q, const void* k, const void* v,
-                     const int* kv_len, float* pa, float* pm, float* o, int B,
+                     const int* kv_len, float* pa, float* pm, float* o, float* ls, int B,
                      const Args& a, int smem_bytes, cudaStream_t s) {
   if (bf16) {
     if (max_g != 8) return cudaErrorInvalidValue;
     if (a.hd <= 64)
-      return launch_split<__nv_bfloat16, 8, 64>(q, k, v, kv_len, pa, pm, o, B, a, smem_bytes, s);
+      return launch_split<__nv_bfloat16, 8, 64>(q, k, v, kv_len, pa, pm, o, ls, B, a, smem_bytes, s);
     if (a.hd <= 128)
-      return launch_split<__nv_bfloat16, 8, 128>(q, k, v, kv_len, pa, pm, o, B, a, smem_bytes, s);
-    return launch_split<__nv_bfloat16, 8, 256>(q, k, v, kv_len, pa, pm, o, B, a, smem_bytes, s);
+      return launch_split<__nv_bfloat16, 8, 128>(q, k, v, kv_len, pa, pm, o, ls, B, a, smem_bytes, s);
+    return launch_split<__nv_bfloat16, 8, 256>(q, k, v, kv_len, pa, pm, o, ls, B, a, smem_bytes, s);
   }
   switch (max_g) {
-    case 1: return launch_split<float, 1, 128>(q, k, v, kv_len, pa, pm, o, B, a, smem_bytes, s);
-    case 2: return launch_split<float, 2, 128>(q, k, v, kv_len, pa, pm, o, B, a, smem_bytes, s);
-    case 4: return launch_split<float, 4, 128>(q, k, v, kv_len, pa, pm, o, B, a, smem_bytes, s);
-    case 8: return launch_split<float, 8, 128>(q, k, v, kv_len, pa, pm, o, B, a, smem_bytes, s);
+    case 1: return launch_split<float, 1, 128>(q, k, v, kv_len, pa, pm, o, ls, B, a, smem_bytes, s);
+    case 2: return launch_split<float, 2, 128>(q, k, v, kv_len, pa, pm, o, ls, B, a, smem_bytes, s);
+    case 4: return launch_split<float, 4, 128>(q, k, v, kv_len, pa, pm, o, ls, B, a, smem_bytes, s);
+    case 8: return launch_split<float, 8, 128>(q, k, v, kv_len, pa, pm, o, ls, B, a, smem_bytes, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -563,11 +570,12 @@ extern "C" {
 
 // The first pass. part_acc (B, KV, n_splits, G, hd) and part_ml (B, KV,
 // n_splits, G, 2) are scratch, unused (may be null) when n_splits == 1, in
-// which case out is written directly. Returns the launch's CUDA error, or
-// cudaErrorInvalidValue when the geometry disagrees with this kernel.
+// which case out (and lse, unless null) is written directly. Returns the
+// launch's CUDA error, or cudaErrorInvalidValue when the geometry disagrees
+// with this kernel.
 int decode_attention_split(const void* q, const void* k, const void* v,
                            const void* kv_len, void* part_acc, void* part_ml,
-                           void* out, int B, int S, int KV, int G, int hd,
+                           void* out, void* lse, int B, int S, int KV, int G, int hd,
                            int tile, int split_len, int n_splits, int pitch,
                            int n_dv, float scale, int max_g, int bf16, int smem_bytes,
                            void* stream) {
@@ -580,20 +588,21 @@ int decode_attention_split(const void* q, const void* k, const void* v,
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(dispatch(bf16 != 0, max_g, q, k, v, static_cast<const int*>(kv_len),
                                    static_cast<float*>(part_acc), static_cast<float*>(part_ml),
-                                   static_cast<float*>(out), B, a, smem_bytes,
+                                   static_cast<float*>(out), static_cast<float*>(lse), B, a,
+                                   smem_bytes,
                                    static_cast<cudaStream_t>(stream)));
 }
 
-// The second pass, for n_splits > 1.
+// The second pass, for n_splits > 1; lse may be null.
 int decode_attention_combine(const void* part_acc, const void* part_ml,
-                             const void* kv_len, void* out, int B, int S, int KV,
+                             const void* kv_len, void* out, void* lse, int B, int S, int KV,
                              int G, int hd, int split_len, int n_splits,
                              void* stream) {
   const Args a{S, KV, G, hd, 0, split_len, n_splits, 0, 0, 0.f};
   const dim3 grid(B * KV, (G * hd + THREADS - 1) / THREADS);
   combine_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(part_acc), static_cast<const float*>(part_ml),
-      static_cast<const int*>(kv_len), static_cast<float*>(out), a);
+      static_cast<const int*>(kv_len), static_cast<float*>(out), static_cast<float*>(lse), a);
   return cudaGetLastError();
 }
 

@@ -7,9 +7,14 @@ kv_len[b]`` masked to ``NEG_INF`` (-1e30, a finite number, as in the
 reference), a softmax over ``t`` in fp32, and ``out = sum_t p_t v[b,t,h]``
 in fp32. ``q (B, KV, G, hd)``, ``k, v (B, S, KV, hd)`` share one dtype
 (fp32 or bf16); ``kv_len (B,)`` is int32; the output is ``(B, KV, G, hd)``
-fp32. Scores, probabilities and sums stay fp32 throughout, on the CPU and
-on the card alike (the reference LM's jnp oracle rounds them to bf16 in a
-bf16 model; its Pallas kernel, which this replaces, does not).
+fp32; with ``return_lse=True`` also ``lse (B, KV, G)`` fp32, the log of the
+softmax's denominator ``m + log(sum_t e^(s_t - m))`` over the valid
+positions (``-inf``, with ``out`` 0, for a row with ``kv_len`` 0): what a
+rank holding one slice of a sequence-sharded cache contributes to the
+log-sum-exp combine across the slices. Scores, probabilities and sums stay
+fp32 throughout, on the CPU and on the card alike (the reference LM's jnp
+oracle rounds them to bf16 in a bf16 model; its Pallas kernel, which this
+replaces, does not).
 
 :func:`decode_attention` launches the CUDA kernel
 (``csrc/decode_attention.cu``) for CUDA tensors and runs
@@ -18,9 +23,9 @@ to the other. It counts the first pass's launches in ``.launches`` and the
 second pass (the combine of more than one split) apart, in
 ``.reduce_launches``; a CUDA graph's replay adds the launches it captured
 (:mod:`repro_torch.graphs`). It does not synchronise to read ``kv_len``: a caller
-keeps it in ``[1, S]`` (the kernel clamps it to ``[0, S]`` to stay inside
+keeps it in ``[0, S]`` (the kernel clamps it to that range to stay inside
 the cache; a row with ``kv_len`` 0 gives zeros there, and the mean of ``v``
-in the plain version, as in the reference).
+in the plain version without ``return_lse``, as in the reference).
 
 The kernel walks each split of the cache in tiles of K and V staged
 together through a cp.async ring; each warp takes a quarter of every tile
@@ -138,26 +143,34 @@ def decode_geometry(s_len: int, hd: int, g: int, dtype: torch.dtype) -> DecodeGe
         chunks=row // 16, n_dv=n_dv, max_g=max_g, smem_bytes=smem)
 
 
-def decode_attention_ref(q, k, v, kv_len) -> torch.Tensor:
+def decode_attention_ref(q, k, v, kv_len, *, return_lse: bool = False):
     """The kernel's function in plain PyTorch, on fp32 upcasts: einsum,
-    mask, softmax and weighted sum."""
+    mask, softmax and weighted sum (and, with ``return_lse``, the
+    log-sum-exp of the masked scores; a row with ``kv_len`` 0 then gives
+    ``out`` 0 and ``lse`` ``-inf``, as the kernel does)."""
     hd, s_len = q.shape[-1], k.shape[1]
     s = torch.einsum("bkgh,btkh->bkgt", q.float(), k.float()) * hd ** -0.5
     pos = torch.arange(s_len, device=q.device)
-    mask = pos < kv_len.to(q.device)[:, None, None, None]
+    kv_len = kv_len.to(q.device)
+    mask = pos < kv_len[:, None, None, None]
     s = torch.where(mask, s, NEG_INF)
     p = torch.softmax(s, dim=-1)
-    return torch.einsum("bkgt,btkh->bkgh", p, v.float())
+    out = torch.einsum("bkgt,btkh->bkgh", p, v.float())
+    if not return_lse:
+        return out
+    empty = (kv_len <= 0)[:, None, None]
+    lse = torch.where(empty, -torch.inf, torch.logsumexp(s, dim=-1))
+    return torch.where(empty[..., None], 0.0, out), lse
 
 
 @functools.lru_cache(maxsize=None)
 def _lib():
     lib = _build.load("decode_attention")
     lib.decode_attention_split.argtypes = (
-        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 10 + [ctypes.c_float]
+        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 10 + [ctypes.c_float]
         + [ctypes.c_int] * 3 + [ctypes.c_void_p])
     lib.decode_attention_combine.argtypes = (
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
     for fn in (lib.decode_attention_split, lib.decode_attention_combine):
         fn.restype = ctypes.c_int
     return lib
@@ -178,14 +191,19 @@ def _check_shapes(q, k, v, kv_len) -> None:
                          f"{tuple(kv_len.shape)} disagree")
 
 
-def decode_attention(q, k, v, kv_len) -> torch.Tensor:
+def decode_attention(q, k, v, kv_len, *, return_lse: bool = False):
     """One decoded token's GQA attention over the cache, ``(B, KV, G, hd)``
-    fp32. A CUDA tensor launches the kernel (and, for a cache of more than
-    one split, the combine pass) or raises; a CPU tensor runs
-    :func:`decode_attention_ref`."""
+    fp32 (and ``lse (B, KV, G)`` fp32 with ``return_lse``). A CUDA tensor
+    launches the kernel (and, for a cache of more than one split, the
+    combine pass) or raises; a CPU tensor runs
+    :func:`decode_attention_ref`, and so does a meta tensor, which holds no
+    data (the dry run's shapes)."""
     _check_shapes(q, k, v, kv_len)
     tensors = (q, k, v, kv_len)
-    if all(t.device.type == "cpu" for t in tensors):
+    if all(t.device.type == "cpu" for t in tensors) or all(
+            t.device.type == "meta" for t in tensors):
+        if return_lse:
+            return decode_attention_ref(q, k, v, kv_len, return_lse=True)
         return decode_attention_ref(q, k, v, kv_len)
     dev = q.device
     if dev.type != "cuda" or any(t.device != dev for t in tensors):
@@ -205,6 +223,8 @@ def decode_attention(q, k, v, kv_len) -> torch.Tensor:
     s_len = k.shape[1]
     geo = decode_geometry(s_len, hd, g, q.dtype)
     out = torch.empty((b, kvh, g, hd), device=dev, dtype=torch.float32)
+    lse = (torch.empty((b, kvh, g), device=dev, dtype=torch.float32)
+           if return_lse else None)
     part_acc = part_ml = None
     if geo.n_splits > 1:
         part_acc = torch.empty((b, kvh, geo.n_splits, g, hd), device=dev,
@@ -216,18 +236,19 @@ def decode_attention(q, k, v, kv_len) -> torch.Tensor:
     with torch.cuda.device(dev):
         err = _lib().decode_attention_split(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(),
-            ptr(part_acc), ptr(part_ml), out.data_ptr(), *geo.split_ints(b, kvh),
+            ptr(part_acc), ptr(part_ml), out.data_ptr(), ptr(lse),
+            *geo.split_ints(b, kvh),
             hd ** -0.5, geo.max_g, _DTYPES[q.dtype], geo.smem_bytes, stream)
         _check(err, "decode_attention")
         decode_attention.launches += 1
         if geo.n_splits > 1:
             err = _lib().decode_attention_combine(
                 part_acc.data_ptr(), part_ml.data_ptr(), kv_len.data_ptr(),
-                out.data_ptr(), b, s_len, kvh, g, hd, geo.split_len,
+                out.data_ptr(), ptr(lse), b, s_len, kvh, g, hd, geo.split_len,
                 geo.n_splits, stream)
             _check(err, "decode_attention combine")
             decode_attention.reduce_launches += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 decode_attention.launches = 0

@@ -8,10 +8,15 @@ Both need a ``torchrun`` world of that many ranks, one card each:
       --arch dbrx-132b --mesh single-pod
 
 ``make_host_mesh`` is the 1x1 (data, model) mesh over one rank on one
-device. Functions, so importing this module touches no process group.
+device. :func:`fake_production_mesh` is the production mesh's shape over a
+``fake`` process group of 256 or 512 ranks in this one process, for the dry
+run (:mod:`repro_torch.launch.dryrun`) only: its collectives send nothing,
+and its tensors are meant to hold no data (meta or fake tensors). Functions, so
+importing this module touches no process group.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 import os
 import socket
@@ -69,3 +74,35 @@ def make_host_mesh(device=None):
         raise ValueError(f"the host mesh is one rank; this world has "
                          f"{dist.get_world_size()}")
     return init_device_mesh(dev.type, (1, 1), mesh_dim_names=("data", "model"))
+
+
+@contextlib.contextmanager
+def fake_production_mesh(*, multi_pod: bool = False):
+    """The production mesh's shape and axes, ``(16, 16)`` ``(data,
+    model)`` or ``(2, 16, 16)`` ``(pod, data, model)``, over a ``fake``
+    process group of 256 or 512 ranks that this process joins as rank 0,
+    for the block: a dry run of the placement and the collectives with no
+    card and no other process. The group is destroyed on the way out; a
+    process group that already exists raises ``ValueError``. The fake
+    backend lives in ``torch.testing._internal``: without it this raises
+    ``RuntimeError``. Never used by :mod:`repro_torch.launch.train`."""
+    try:
+        from torch.testing._internal.distributed.fake_pg import FakeStore
+    except ImportError as e:
+        raise RuntimeError("the dry run needs torch's fake process group "
+                           "(torch.testing._internal.distributed.fake_pg)") from e
+    if dist.is_initialized():
+        raise ValueError("the fake production mesh needs a process with no "
+                         "process group: run the dry run in a process of its own")
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    from repro_torch.distributed.sharding import region_groups
+
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=math.prod(shape))
+    try:
+        mesh = init_device_mesh("cpu", shape, mesh_dim_names=axes)
+        region_groups(mesh)   # every group a placed step uses, made before any trace
+        yield mesh
+    finally:
+        dist.destroy_process_group()

@@ -12,10 +12,11 @@ limit. This module is the one home of the peaks: ``chip_smoke.py`` and
     collective = coll_bytes_card  / LINK_BW
 
 The reference derives the report's numbers from a compiled XLA module (its
-cost analysis, memory analysis and the collectives in its HLO text). A
-PyTorch program has no such module, so the parse of HLO collectives is not
-ported; :func:`roofline_report` takes the same report dict, however its
-numbers were counted.
+cost analysis, memory analysis and the collectives in its HLO text). The
+port counts them from a traced call's dispatched ops
+(:mod:`repro_torch.launch.op_analysis`, per rank, in the dry run
+:mod:`repro_torch.launch.dryrun`); :func:`roofline_report` takes the same
+report dict, however its numbers were counted.
 """
 from __future__ import annotations
 

@@ -15,11 +15,14 @@ one-rank process group (NCCL on the card, gloo on the CPU;
 ``multi-pod`` are the production meshes, which need a ``torchrun`` world
 of 256 or 512 ranks (:func:`~repro_torch.launch.mesh.make_production_mesh`
 raises ``ValueError`` under any other), each rank on the card of its
-``LOCAL_RANK``. Under a mesh every rank builds the same global batch, a
-pure function of ``(seed, step)``, and holds the whole state; the MoE's
-expert-parallel path is the region that splits work
-(:mod:`repro_torch.distributed.sharding`). Global rank 0 writes the
-checkpoints.
+``LOCAL_RANK``. Every rank builds the same global batch, a pure function
+of ``(seed, step)``, and the state is placed over the mesh
+(``init_train_state(..., mesh=)``): Megatron TP over ``model`` and ZeRO-3
+over ``data`` as the config's ``train_parallelism`` and ``fsdp`` say, with
+the reference's fall-back from ``fsdp`` to ``tp`` when the batch does not
+divide the ranks (:func:`~repro_torch.distributed.sharding.
+parallelism_for`). Every rank gathers the state for a checkpoint and
+global rank 0 writes it.
 """
 from __future__ import annotations
 
@@ -55,7 +58,7 @@ def main(argv=None):
 
     from repro_torch.data import SyntheticTokens
     from repro_torch.device import resolve_device
-    from repro_torch.distributed.sharding import use_mesh
+    from repro_torch.distributed.sharding import get_parallelism, set_parallelism, use_mesh
     from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
     from repro_torch.models.lm import build_model
     from repro_torch.optim import AdamWConfig
@@ -63,6 +66,7 @@ def main(argv=None):
     from repro_torch.train.trainer import Trainer
 
     owned = not dist.is_initialized()   # a group made here is destroyed here
+    mode = get_parallelism()   # placing sets the mode; restored on the way out
     try:
         if args.mesh == "host":
             device = resolve_device(args.device)
@@ -85,7 +89,7 @@ def main(argv=None):
         with use_mesh(mesh):
             params, opt_state = init_train_state(
                 model, torch.Generator(device=device).manual_seed(0), train_cfg,
-                device=device)
+                device=device, mesh=mesh, global_batch=args.batch)
             trainer = Trainer(model, make_train_step(model, train_cfg), data,
                               ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every)
             params, opt_state, history = trainer.run(params, opt_state,
@@ -95,9 +99,11 @@ def main(argv=None):
                   f"over {len(history)} steps (skipped {trainer.skipped_steps}), "
                   f"median step {trainer.timer.median() * 1e3:.1f} ms on {device}, "
                   f"mesh {args.mesh} {dict(zip(mesh.mesh_dim_names, mesh.shape))} over "
-                  f"{dist.get_world_size()} {dist.get_backend()} rank(s)")
+                  f"{dist.get_world_size()} {dist.get_backend()} rank(s), placed in "
+                  f"{get_parallelism()} mode")
         return history
     finally:
+        set_parallelism(mode)
         if owned and dist.is_initialized():
             dist.destroy_process_group()
 

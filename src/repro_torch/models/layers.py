@@ -4,10 +4,19 @@ layers (RMSNorm, RoPE, GQA attention with a KV cache and cross-attention,
 SwiGLU MLP, capacity-based mixture-of-experts).
 
 Parameters are plain dicts of tensors with the reference's names and
-layouts (a dense weight is ``(d_in, d_out)``, applied as ``x @ w``). The
-reference's sharding hints (``constrain``) are dropped: a hint never
-changes a value, and the port's parameters and activations are whole
-tensors on every rank. The decode branch of :func:`attention` runs the hand-written
+layouts (a dense weight is ``(d_in, d_out)``, applied as ``x @ w``), or the
+same trees placed over a mesh as ``DTensor``s
+(:func:`repro_torch.distributed.sharding.distribute_params`). The
+reference's sharding hints (``constrain``) stand where it has them; they
+change nothing unplaced, and placed they keep Megatron's layout: heads and
+the MLP's hidden units over ``model``, each block's output replicated over
+``model`` again by one all-reduce after its row-parallel projection. A
+placed weight is used through :func:`~repro_torch.distributed.sharding.
+gather_param` (the explicit FSDP gather). The attention core and the
+decode branch run on each rank's local shards (``to_local``); the decode
+branch runs the kernel on this rank's slice of a sequence-sharded cache
+and combines the ranks' partial outputs over ``model`` by their
+log-sum-exp (:func:`_decode_placed`). The decode branch of :func:`attention` runs the hand-written
 flash-decode kernel (:mod:`repro_torch.kernels.decode_attention`) where
 the reference calls its jnp oracle ``_grouped_decode_attention``; the two
 compute the same function (the reference's tests hold its Pallas kernel,
@@ -30,6 +39,8 @@ import math
 from typing import NamedTuple
 
 import torch
+import torch.distributed._functional_collectives as funcol
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.core.transpose_conv import transpose_conv2d
 from repro_torch.distributed import sharding
@@ -112,9 +123,9 @@ def dense_init(generator, d_in, d_out, dtype, *, bias=False, std=None,
 
 
 def dense(p, x):
-    y = x @ p["w"]
+    y = x @ sharding.gather_param(p["w"])
     if "b" in p:
-        y = y + p["b"]
+        y = y + sharding.gather_param(p["b"])
     return y
 
 
@@ -125,7 +136,7 @@ def rmsnorm_init(d: int, *, device) -> dict:
 def rmsnorm(p, x, eps=1e-5):
     h = x.float()
     h = h * torch.rsqrt(torch.mean(h * h, dim=-1, keepdim=True) + eps)
-    return (h * p["scale"]).to(x.dtype)
+    return (h * sharding.gather_param(p["scale"])).to(x.dtype)
 
 
 def rope(x, positions, theta):
@@ -137,6 +148,8 @@ def rope(x, positions, theta):
     ang = positions[..., None].to(device=x.device, dtype=torch.float32) * freq
     cos = torch.cos(ang)[..., None, :]
     sin = torch.sin(ang)[..., None, :]
+    if isinstance(x, DTensor):   # the tables, replicated, meet a placed x
+        cos, sin = (sharding.replicate(t, x.device_mesh) for t in (cos, sin))
     x1, x2 = x[..., :half], x[..., half : 2 * half]
     rot = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     if 2 * half < hd:  # odd head_dim tail passes through
@@ -246,16 +259,22 @@ def attention(p, cfg, x, *, positions, causal=True, cache: KVCache | None = None
     B, S, _ = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     G = H // KV
-    q = dense(p["wq"], x).reshape(B, S, H, hd)
+    q = _heads(dense(p["wq"], x), H, hd)
     if kv_override is not None:
         k, v = kv_override
         return _prefill_attention(p, cfg, x, q, k, v, causal=causal,
                                   positions=positions), cache
-    k = dense(p["wk"], x).reshape(B, S, KV, hd)
-    v = dense(p["wv"], x).reshape(B, S, KV, hd)
+    k = _heads(dense(p["wk"], x), KV, hd)
+    v = _heads(dense(p["wv"], x), KV, hd)
     if cfg.rope_theta:
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
+    if cache is not None and isinstance(q, DTensor):
+        # decode, placed: keep GQA grouped, the heads whole on every model
+        # rank and the batch as it is (reference line 241)
+        q = sharding.constrain(q, sharding.BATCH, None, None, None)
+        o = _decode_placed(q, k, v, cache, cache_pos, cfg)
+        return dense(p["wo"], o.reshape(B, S, H * hd)), cache
     if cache is not None:
         _scatter_kv(cache.k, k, cache_pos)
         _scatter_kv(cache.v, v, cache_pos)
@@ -269,24 +288,146 @@ def attention(p, cfg, x, *, positions, causal=True, cache: KVCache | None = None
                               positions=positions), new_cache
 
 
+def _heads(y, n: int, hd: int):
+    """``y`` (B, S, n * hd) as (B, S, n, hd). A placed ``y`` whose last
+    dimension is split over more ranks than there are heads (8 KV heads
+    over a 16-way ``model``: half a head a rank) is gathered over those
+    ranks first, as the reference's partitioner must."""
+    B, S = y.shape[:2]
+    if isinstance(y, DTensor):
+        mesh = y.device_mesh
+        ways = [i for i, pl in enumerate(y.placements) if isinstance(pl, Shard) and pl.dim == 2]
+        if n % math.prod(mesh.size(i) for i in ways):
+            y = y.redistribute(mesh, tuple(Replicate() if i in ways else pl
+                                           for i, pl in enumerate(y.placements)))
+    return y.reshape(B, S, n, hd)
+
+
 def _prefill_attention(p, cfg, x, q, k, v, *, causal, positions):
     """Attention of every query over ``k``/``v`` (KV heads expanded to
     H): chunked where the reference chunks, direct otherwise; the output
-    projection applied."""
+    projection applied. Placed, the heads are constrained over ``model``
+    (reference lines 252-254 and 264) and the core runs on each rank's
+    local heads and batch rows (:func:`_local_core`)."""
     B, S, H, hd = q.shape
-    if k.shape[2] != H:  # expand KV -> H heads (no-op for MHA)
-        k = torch.repeat_interleave(k, H // k.shape[2], dim=2)
-        v = torch.repeat_interleave(v, H // v.shape[2], dim=2)
     Skv = k.shape[1]
-    if (S * Skv > cfg.attn_chunk ** 2 and S > 1
-            and S % min(cfg.attn_chunk, S) == 0
-            and Skv % min(cfg.attn_chunk, Skv) == 0):
-        o = _chunked_attention(q, k, v, causal=causal, q_positions=positions,
-                               chunk=cfg.attn_chunk)
+    chunked = (S * Skv > cfg.attn_chunk ** 2 and S > 1
+               and S % min(cfg.attn_chunk, S) == 0
+               and Skv % min(cfg.attn_chunk, Skv) == 0)
+
+    def core(q, k, v):
+        if k.shape[2] != q.shape[2]:  # expand KV -> H heads (no-op for MHA)
+            k = torch.repeat_interleave(k, q.shape[2] // k.shape[2], dim=2)
+            v = torch.repeat_interleave(v, q.shape[2] // v.shape[2], dim=2)
+        if chunked:
+            return _chunked_attention(q, k, v, causal=causal, q_positions=positions,
+                                      chunk=cfg.attn_chunk)
+        return _direct_attention(q, k, v, causal=causal, q_positions=positions)
+
+    if isinstance(q, DTensor):
+        q = sharding.constrain(q, sharding.BATCH, None, sharding.MODEL, None)
+        o = _local_core(core, q, k, v)
+        o = sharding.constrain(o.to(x.dtype), sharding.BATCH, None, sharding.MODEL, None)
     else:
-        o = _direct_attention(q, k, v, causal=causal, q_positions=positions)
-    o = o.to(x.dtype).reshape(B, S, H * hd)
+        o = core(q, k, v).to(x.dtype)
+    o = o.reshape(B, S, H * hd)
     return dense(p["wo"], o)
+
+
+def _kv_placements(q, kv_heads: int) -> tuple:
+    """Placements for K or V beside a placed ``q`` (B, S, H, hd): the batch
+    as ``q``'s, and the heads split as ``q``'s where the KV heads divide the
+    mesh dimension, else whole."""
+    mesh = q.device_mesh
+    out = []
+    for i, pl in enumerate(q.placements):
+        if isinstance(pl, Shard) and pl.dim == 2 and kv_heads % mesh.size(i):
+            out.append(Replicate())
+        else:
+            out.append(pl)
+    return tuple(out)
+
+
+def _head_range(q) -> tuple:
+    """``(first, count)`` of this rank's query heads of a placed ``q``."""
+    H = q.shape[2]
+    n, first = H, 0
+    for i, pl in enumerate(q.placements):
+        if isinstance(pl, Shard) and pl.dim == 2:
+            n //= q.device_mesh.size(i)
+            first = first + q.device_mesh.get_local_rank(i) * n
+    return first, n
+
+
+def _local_core(core, q, k, v):
+    """``core(q, k, v)`` on this rank's local shards of a placed ``q``
+    (B, S, H, hd) and ``k``, ``v`` (B, Skv, KV, hd): K and V are laid out
+    beside ``q`` (:func:`_kv_placements`), and where they stay whole over a
+    dimension that splits ``q``'s heads, expanded to H heads and cut to
+    this rank's. The output comes back placed as ``q``."""
+    KV = k.shape[2]
+    want = _kv_placements(q, KV)
+    k = k.redistribute(k.device_mesh, want) if tuple(k.placements) != want else k
+    v = v.redistribute(v.device_mesh, want) if tuple(v.placements) != want else v
+    ql, kl, vl = q.to_local(), k.to_local(), v.to_local()
+    if kl.shape[2] == KV and ql.shape[2] != q.shape[2]:   # whole KV, split heads
+        first, n = _head_range(q)
+        G = q.shape[2] // KV
+        kl = torch.repeat_interleave(kl, G, dim=2)[:, :, first:first + n]
+        vl = torch.repeat_interleave(vl, G, dim=2)[:, :, first:first + n]
+    o = core(ql, kl, vl)
+    return DTensor.from_local(o, q.device_mesh, q.placements, run_check=False)
+
+
+def _decode_placed(q, k, v, cache: KVCache, cache_pos, cfg):
+    """The decode branch over a placed cache (B, S, KV, hd) whose sequence
+    may be split over ``model`` (:func:`~repro_torch.distributed.sharding.
+    cache_specs`), as the reference's partitioner splits it.
+
+    Each rank holds ``q``, ``k`` and ``v`` with every head, for its batch
+    rows, and the cache slice ``[s0, s0 + S_l)``. It writes this step's K/V
+    only where ``cache_pos`` falls in its slice (a ``where`` on the row the
+    position maps to, clamped into the slice, so no rank reads back or
+    syncs), runs the decode kernel on its slice with ``kv_len`` clipped to
+    it and the log-sum-exp asked for, and the ranks' partial outputs are
+    combined over ``model``: ``m = max_r lse_r``, ``o = sum_r e^(lse_r - m)
+    o_r / sum_r e^(lse_r - m)``. A rank whose slice holds no valid key has
+    ``lse = -inf`` and weight 0, and calls every collective all the same.
+    Returns ``(B, 1, H, hd)`` in ``q``'s dtype, placed as ``q``."""
+    mesh = q.device_mesh
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    G = H // KV
+    k = k.redistribute(mesh, q.placements) if tuple(k.placements) != tuple(q.placements) else k
+    v = v.redistribute(mesh, q.placements) if tuple(v.placements) != tuple(q.placements) else v
+    ck, cv = cache.k.to_local(), cache.v.to_local()
+    ql, kl, vl = q.to_local(), k.to_local(), v.to_local()
+    Bl, S_l = ck.shape[0], ck.shape[1]
+    if ql.shape[0] != Bl:
+        raise ValueError(f"the cache holds {Bl} batch rows a rank, the step {ql.shape[0]}")
+    # this rank's batch rows of cache_pos, and its sequence slice's start
+    _, row0 = sharding.split_group(cache.k, 0)
+    seq_group, s0 = sharding.split_group(cache.k, 1)
+    pos = torch.as_tensor(cache_pos, device=ck.device).long()[row0 * Bl:(row0 + 1) * Bl]
+    s0 *= S_l
+    rel = pos - s0
+    inside = ((rel >= 0) & (rel < S_l))[:, None, None]
+    idx = rel.clamp(0, S_l - 1)
+    b = torch.arange(Bl, device=ck.device)
+    ck[b, idx] = torch.where(inside, kl[:, 0].to(ck.dtype), ck[b, idx])
+    cv[b, idx] = torch.where(inside, vl[:, 0].to(cv.dtype), cv[b, idx])
+    kv_len = (pos + 1 - s0).clamp(0, S_l).to(torch.int32)
+    o, lse = decode_attention(ql.reshape(Bl, KV, G, hd).contiguous(), ck, cv, kv_len,
+                              return_lse=True)
+    if seq_group is not None:
+        m = funcol.all_reduce(lse, "max", seq_group)
+        m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+        w = torch.exp(lse - m)
+        both = funcol.all_reduce(torch.cat([o * w[..., None], w[..., None]], dim=-1),
+                                 "sum", seq_group)
+        o = both[..., :hd] / both[..., hd:].clamp(min=1e-30)
+    o = o.to(q.dtype).reshape(Bl, 1, H, hd)
+    return DTensor.from_local(o, mesh, q.placements, run_check=False)
 
 
 def init_kv_cache(cfg, batch: int, seq_len: int, *, device) -> KVCache:
@@ -309,6 +450,7 @@ def mlp_init(generator, cfg, d_ff=None, *, device) -> dict:
 
 def mlp(p, x):
     h = torch.nn.functional.silu(dense(p["w_gate"], x)) * dense(p["w_up"], x)
+    h = sharding.constrain(h, sharding.BATCH, None, sharding.MODEL)
     return dense(p["w_down"], h)
 
 
@@ -470,6 +612,68 @@ def _moe_shard_map(p, cfg, x):
     return out.reshape(B, S, d), _aux_loss(top_e, probs, E)
 
 
+def _moe_placed(p, cfg, x):
+    """The MoE over placed parameters and a placed ``x`` (B, S, d), on the
+    local shards: DTensor has no sharding strategy for ``searchsorted``, so
+    the layer takes ``to_local`` at its boundary and keeps the
+    expert-parallel path's collectives (:mod:`repro_torch.distributed.
+    collectives`).
+
+    This rank's tokens are ``x``'s local rows; the router runs on them
+    (its weight gathered whole) as on every rank of ``model``; the experts
+    this rank holds (its ``model`` slice, gathered over ``data`` under
+    ``fsdp`` by ``gather_shards``) run the dispatch of
+    :func:`_dispatch_compute_combine` with the capacity of the local token
+    count, and ``reduce`` sums the partial outputs over ``model``. The
+    region's inputs enter over ``model`` (the experts' partial gradients)
+    and the router and expert weights over the batch's ranks (each rank's
+    tokens' partial gradients). The balance loss is the reference's over
+    every token: the expert counts and summed probabilities reduced over
+    the batch's ranks. Returns ``(out placed as x, aux)``, ``aux`` a plain
+    scalar, the same on every rank."""
+    B, S, d = x.shape
+    E, k, cf = cfg.moe.n_experts, cfg.moe.top_k, cfg.moe.capacity_factor
+    x2d = x.reshape(B * S, d)
+    xl = x2d.to_local()
+    Tl = xl.shape[0]
+    tok_group, _ = sharding.split_group(x2d, 0)
+    model_group, m = sharding.split_group(p["experts"]["w_gate"], 0)
+    rw = sharding.gather_param(p["router"]["w"]).to_local()
+    if tok_group is not None:
+        rw = enter(rw, tok_group)
+    top_p, top_e, probs = _router({"router": {"w": rw}}, cfg, xl)
+    if model_group is not None:
+        xe, tpe = enter(xl, model_group), enter(top_p, model_group)
+    else:
+        xe, tpe = xl, top_p
+    wl = {}
+    for name, dim in (("w_gate", 1), ("w_up", 1), ("w_down", 2)):
+        data_group, _ = sharding.split_group(p["experts"][name], dim)   # fsdp
+        w = p["experts"][name].to_local()
+        if data_group is not None:   # the FSDP gather of this rank's expert slice
+            w = gather_shards(w, data_group, dim)
+        elif tok_group is not None:
+            w = enter(w, tok_group)
+        wl[name] = w
+    E_local = wl["w_gate"].shape[0]
+    C = max(int(cf * k * Tl / E), 1)    # capacity per (global) expert
+    out = _dispatch_compute_combine(xe, tpe, top_e, wl, E_local, k, C, e0=m * E_local)
+    if model_group is not None:
+        out = reduce(out, model_group)
+    out = DTensor.from_local(out, x2d.device_mesh, x2d.placements, run_check=False)
+    if "shared" in p:
+        shared = sharding.constrain(mlp(p["shared"], x), sharding.BATCH, None, None)
+        out = out + shared.reshape(B * S, d)
+    # the balance loss over every token
+    counts, psum = _expert_counts(top_e, E), probs.sum(0)
+    if tok_group is not None:
+        counts = funcol.all_reduce(counts, "sum", tok_group)
+        psum = reduce(psum, tok_group)
+    n_tok = B * S
+    aux = E * torch.sum(counts.float() / (n_tok * k) * (psum / n_tok))
+    return out.reshape(B, S, d), aux
+
+
 def _moe_supported_by_shard_map(cfg, batch) -> bool:
     """Whether the expert-parallel path runs: an ambient ``DeviceMesh``
     with a ``model`` dimension that divides the experts, and data-parallel
@@ -495,6 +699,8 @@ def moe(p, cfg, x):
     * k * Tl / E), 1)``: tokens beyond an expert's capacity in their group
     are dropped (Switch semantics). ``aux`` is the Switch balance loss
     ``E * sum(frac_tokens * frac_probs)``."""
+    if isinstance(x, DTensor):
+        return _moe_placed(p, cfg, x)
     if _moe_supported_by_shard_map(cfg, x.shape[0]):
         return _moe_shard_map(p, cfg, x)
     B, S, d = x.shape

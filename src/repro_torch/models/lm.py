@@ -26,15 +26,29 @@ the backward recomputes one period's activations at a time; with a period
 of several layers each layer also runs under its own checkpoint inside it.
 :func:`build_model` returns :class:`~repro_torch.models.encdec.EncDecLM`
 for an encoder-decoder config.
+
+**Placed.** A parameter tree placed over a mesh
+(:func:`~repro_torch.distributed.sharding.distribute_params`) runs placed:
+every mode enters its parameters' mesh (``sharding.placement_of``), the
+tokens enter it split over the batch axes, the embedding is a
+vocab-parallel gather whose partial sums are reduced at once, each layer's
+input and output are constrained as the reference's (batch split, replicated
+over ``model``), the logits come out ``(BATCH, None, MODEL)``, and the loss
+is a vocab-parallel cross-entropy that never gathers a chunk's logits. The
+dense and MoE families are placed; the recurrent mixers are not yet.
 """
 from __future__ import annotations
 
 import functools
 
 import torch
+import torch.distributed._functional_collectives as funcol
+from torch.distributed.tensor import DTensor, Replicate, Shard
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed import sharding
+from repro_torch.distributed.collectives import enter, reduce
 from repro_torch.models import layers as L
 from repro_torch.models import ssm, xlstm
 from repro_torch.tree import tree_map
@@ -76,6 +90,15 @@ def _stacked(one, n: int):
     if isinstance(one, L.KVCache):
         return L.KVCache(*(rep(t) for t in one))
     return {k: rep(t) for k, t in one.items()}
+
+
+def _layer_leaf(t, rep: int):
+    """Period ``rep`` of a stacked parameter; a placed one whose stacked
+    axis is split is gathered first."""
+    if isinstance(t, DTensor) and any(isinstance(p, Shard) and p.dim == 0
+                                      for p in t.placements):
+        t = sharding.gather_param(t)
+    return t[rep]
 
 
 def _period_slice(c, rep: int):
@@ -144,11 +167,23 @@ class LM:
 
     # ------------------------------------------------------------- caches
 
-    def init_cache(self, batch_size: int, seq_len: int, device=None) -> list:
+    def init_cache(self, batch_size: int, seq_len: int, device=None, *, mesh=None) -> list:
         """Serving cache: a list (per period position) of mixer states
         stacked over periods (a KVCache of ``seq_len`` rows for attention, a
         dict of recurrent state tensors otherwise), zeros, on ``device``
-        (``None`` means the CUDA card)."""
+        (``None`` means the CUDA card). ``mesh=`` (a ``DeviceMesh``) places
+        each by :func:`~repro_torch.distributed.sharding.cache_specs`: the
+        slots over the data-parallel axes, an attention cache's sequence
+        over ``model``."""
+        caches = self._init_cache(batch_size, seq_len, device)
+        if mesh is None:
+            return caches
+        shape = type("CacheShape", (), {"global_batch": batch_size})
+        with sharding.use_mesh(mesh):
+            specs = sharding.cache_specs(self.cfg, caches, shape)
+        return sharding.place_tree(caches, mesh, specs)
+
+    def _init_cache(self, batch_size: int, seq_len: int, device) -> list:
         cfg = self.cfg
         dev = resolve_device(device)
         caches = []
@@ -168,16 +203,20 @@ class LM:
         return params["embed"]["w"].device
 
     def _embed(self, params, batch, dev):
-        h = params["embed"]["w"][torch.as_tensor(batch["tokens"], device=dev).long()]
+        tokens = torch.as_tensor(batch["tokens"], device=dev).long()
+        w = params["embed"]["w"]
+        h = w[tokens] if not isinstance(w, DTensor) else _embed_placed(w, tokens)
         if self.cfg.n_patches and "patch_embeds" in batch:
             patches = torch.as_tensor(batch["patch_embeds"], device=dev)
+            patches = sharding.shard_batch(patches)
             h = torch.cat([patches.to(h.dtype), h], dim=1)
         return h
 
     def _layer(self, pp, kind, ffn_kind, h, *, positions, mode, cache, cache_pos):
         """One layer: ``(h, new_cache, aux)``."""
         cfg = self.cfg
-        hn = L.rmsnorm(pp["mixer_norm"], h)
+        h = sharding.constrain(h, sharding.BATCH, None, None)
+        hn = sharding.constrain(L.rmsnorm(pp["mixer_norm"], h), sharding.BATCH, None, None)
         prefill = mode == "prefill"
         decode_cache = cache if mode == "decode" else None
         if kind == "attn":
@@ -193,15 +232,16 @@ class LM:
         else:
             out, new_cache = xlstm.slstm(pp["mixer"], cfg, hn, cache=decode_cache,
                                          want_cache=prefill)
-        h = h + out
+        # placed: the row-parallel projection's partial sums, all-reduced
+        h = h + sharding.constrain(out, sharding.BATCH, None, None)
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
         if ffn_kind != "none":
-            hn = L.rmsnorm(pp["ffn_norm"], h)
+            hn = sharding.constrain(L.rmsnorm(pp["ffn_norm"], h), sharding.BATCH, None, None)
             if ffn_kind == "dense":
-                h = h + L.mlp(pp["ffn"], hn)
+                y = L.mlp(pp["ffn"], hn)
             else:
                 y, aux = L.moe(pp["ffn"], cfg, hn)
-                h = h + y
+            h = h + sharding.constrain(y, sharding.BATCH, None, None)
         return h, new_cache, aux
 
     def _stack(self, params, h, *, positions, mode, caches=None, cache_pos=None):
@@ -228,7 +268,7 @@ class LM:
         def period_body(h, aux, rep):
             out = []
             for pos in range(cfg.period):
-                pp = tree_map(lambda t: t[rep], params["layers"][pos])
+                pp = tree_map(lambda t: _layer_leaf(t, rep), params["layers"][pos])
                 c_in = _period_slice(caches[pos], rep) if caches is not None else None
                 h, c, a = layer(pp, pos, h, c_in)
                 aux = aux + a
@@ -255,7 +295,8 @@ class LM:
         w = params["embed"]["w"] if cfg.tie_embeddings else params["lm_head"]["w"]
         # the reference's fp32 head: a bf16 head is cast each call (no
         # cached fp32 copy), as the reference does
-        return h.float() @ w.float().T
+        logits = h.float() @ sharding.gather_param(w).float().T
+        return sharding.constrain(logits, sharding.BATCH, None, sharding.MODEL)
 
     def apply(self, params, batch, *, mode="train"):
         """Forward over ``batch["tokens"] (B, S)`` (after the VLM's
@@ -263,6 +304,10 @@ class LM:
         for ``mode="train"``, ``(last logits (B, 1, V), caches)`` for
         ``mode="prefill"``. ``aux`` is the MoE layers' summed balance loss
         (zero without MoE)."""
+        with sharding.placement_of(params["embed"]["w"]):
+            return self._apply(params, batch, mode)
+
+    def _apply(self, params, batch, mode):
         dev = self._device(params)
         h = self._embed(params, batch, dev)
         positions = torch.arange(h.shape[1], device=dev)
@@ -280,7 +325,13 @@ class LM:
         it), each computing fp32 logits, a logsumexp and the target's
         log-likelihood under a checkpoint, so only one chunk's ``(B, chunk,
         V)`` logits exist at a time, forward or backward. The chunks' sums
-        add in order. The loss adds ``0.01 * aux / n_layers``."""
+        add in order. The loss adds ``0.01 * aux / n_layers``. Placed, each
+        chunk is a vocab-parallel cross-entropy (:func:`_vocab_parallel_ce`)
+        and the loss a plain scalar, the same on every rank."""
+        with sharding.placement_of(params["embed"]["w"]):
+            return self._loss(params, batch)
+
+    def _loss(self, params, batch):
         cfg = self.cfg
         dev = self._device(params)
         targets = torch.as_tensor(batch["targets"], device=dev).long()
@@ -289,8 +340,13 @@ class LM:
         h, aux, _ = self._stack(params, h, positions=positions, mode="train")
         h = L.rmsnorm(params["final_norm"], h)
         w = params["embed"]["w"] if cfg.tie_embeddings else params["lm_head"]["w"]
+        if isinstance(w, DTensor):
+            targets = sharding.shard_batch(targets)
+            w = sharding.gather_param(w)
 
         def chunk_ce(h_c, t_c, w_):
+            if isinstance(w_, DTensor):
+                return _vocab_parallel_ce(h_c, t_c, w_)
             logits = h_c.float() @ w_.float().T
             lse = torch.logsumexp(logits, dim=-1)
             # gather refuses a negative index, which the mask zeroes anyway
@@ -321,13 +377,95 @@ class LM:
         """batch: tokens (B,1), pos (B,). Returns ``(logits (B, 1, V),
         cache)``; the cache is written in place (the reference returns a
         new one) and returned."""
+        with sharding.placement_of(params["embed"]["w"]):
+            return self._decode_step(params, cache, batch)
+
+    def _decode_step(self, params, cache, batch):
         dev = self._device(params)
         pos = torch.as_tensor(batch["pos"], device=dev).long()
-        h = params["embed"]["w"][torch.as_tensor(batch["tokens"], device=dev).long()]
+        h = self._embed(params, {"tokens": batch["tokens"]}, dev)
         h, _, cache = self._stack(params, h, positions=pos[:, None], mode="decode",
                                   caches=cache, cache_pos=pos)
         h = L.rmsnorm(params["final_norm"], h)
         return self._logits(params, h), cache
+
+
+def _embed_placed(w, tokens):
+    """The embedding gather of a placed table ``w`` (V, d) on each rank's
+    local shards: the tokens enter the mesh split over the batch axes and
+    each rank indexes its table shard with its own tokens, as the unplaced
+    path indexes the whole table (DTensor's own gathers are not used: its
+    masked gather cannot take its gradient back from the reduced rows).
+    Under ``fsdp`` the table is gathered first
+    (:func:`~repro_torch.distributed.sharding.gather_param`). A table split
+    over the vocabulary (``model``) is Megatron's vocab-parallel gather:
+    each rank reads the rows of the tokens its slice holds (zeros for the
+    others) and ``reduce`` sums the partial rows over the vocabulary's
+    ranks at once. The table enters over the batch's ranks, whose tokens'
+    gradients it sums."""
+    tok = sharding.shard_batch(tokens)
+    w = sharding.gather_param(w)
+    tl, wl = tok.to_local(), w.to_local()
+    batch_group, _ = sharding.split_group(tok, 0)
+    if batch_group is not None:
+        wl = enter(wl, batch_group)
+    vocab_group, vr = sharding.split_group(w, 0)
+    if vocab_group is None:
+        rows = wl[tl]
+    else:
+        V_l = wl.shape[0]
+        rel = tl - vr * V_l
+        inside = ((rel >= 0) & (rel < V_l))[..., None]
+        rows = torch.where(inside, wl[rel.clamp(0, V_l - 1)],
+                           torch.zeros((), dtype=wl.dtype, device=wl.device))
+        rows = reduce(rows, vocab_group)
+    return DTensor.from_local(rows, w.device_mesh, tok.placements, run_check=False)
+
+
+def _vocab_parallel_ce(h_c, t_c, w):
+    """One chunk's ``(sum of -log p(target) over unmasked targets, count)``
+    with the logits split over the vocabulary, as Megatron's cross-entropy:
+    each rank holds ``logits[..., v0:v0 + V_l]`` of its batch rows, takes
+    its local max (reduced by max over the vocabulary's ranks; no gradient
+    flows through a max that only shifts), its sum of ``exp`` and the
+    target's logit where this rank's slice holds the target (both summed
+    over the vocabulary's ranks by ``reduce``: all-reduce forward, identity
+    backward). The chunk's ``(B, chunk, V)`` logits are never gathered.
+    The sums over batch rows are reduced over the batch's ranks. Plain
+    scalars, the same on every rank."""
+    logits = sharding.constrain(h_c.float() @ w.float().T,
+                                sharding.BATCH, None, sharding.MODEL)
+    ll, tl = logits.to_local(), _local_rows_like(t_c, logits)
+    vocab_group, vr = sharding.split_group(logits, 2)
+    V_l = ll.shape[-1]
+    m = ll.detach().amax(-1)
+    if vocab_group is not None:
+        m = funcol.all_reduce(m, "max", vocab_group)
+    se = torch.exp(ll - m[..., None]).sum(-1)
+    rel = tl - vr * V_l
+    inside = (rel >= 0) & (rel < V_l)
+    picked = ll.gather(-1, rel.clamp(0, V_l - 1)[..., None])[..., 0]
+    picked = torch.where(inside, picked, torch.zeros_like(picked))
+    if vocab_group is not None:
+        se, picked = reduce(se, vocab_group), reduce(picked, vocab_group)
+    ll_t = picked - (m + torch.log(se))
+    mask = (tl >= 0).float()
+    tot, cnt = -(ll_t * mask).sum(), mask.sum()
+    batch_group, _ = sharding.split_group(logits, 0)
+    if batch_group is not None:
+        tot, cnt = reduce(tot, batch_group), reduce(cnt, batch_group)
+    return tot, cnt
+
+
+def _local_rows_like(t, ref):
+    """This rank's local block of the placed ``t`` (B, c), laid out over
+    the batch as ``ref``'s dimension 0 and replicated elsewhere."""
+    mesh = ref.device_mesh
+    want = tuple(p if isinstance(p, Shard) and p.dim == 0 else Replicate()
+                 for p in ref.placements)
+    if tuple(t.placements) != want:
+        t = t.redistribute(mesh, want)
+    return t.to_local()
 
 
 @functools.lru_cache(maxsize=64)

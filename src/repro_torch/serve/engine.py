@@ -24,6 +24,14 @@ tokens and positions into the graph's static inputs and replays; the cache
 is written in place and the logits are the graph's static ``(B, 1, V)``
 buffer, which the next step overwrites (the sampler copies what it reads
 to the host first). On the CPU the step runs eagerly.
+
+Over placed parameters (``DTensor``s,
+:func:`~repro_torch.distributed.sharding.distribute_params`) the engine's
+caches are placed by :func:`~repro_torch.distributed.sharding.cache_specs`
+(``LM.init_cache(..., mesh=)``): the slots over the data-parallel axes
+where they divide, an attention cache's sequence over ``model``. The step
+returns the whole logits on every rank (gathered inside the step, and so
+inside its graph).
 """
 from __future__ import annotations
 
@@ -34,6 +42,7 @@ from typing import Callable
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.device import resolve_device
 from repro_torch.distributed.sharding import check_capturable, get_concrete_mesh
@@ -49,6 +58,22 @@ class Request:
     rid: int = -1
     output: list = dataclasses.field(default_factory=list)
     done: bool = False
+
+
+def _placed_mesh(params):
+    """The mesh of placed parameters, or ``None``."""
+    leaf = params["embed"]["w"] if isinstance(params, dict) and "embed" in params else None
+    return leaf.device_mesh if isinstance(leaf, DTensor) else None
+
+
+def _whole_logits(decode_step):
+    """``decode_step`` returning its logits whole (a placed step's are
+    gathered from their shards; a plain step's come back as they are)."""
+    def step(params, cache, batch):
+        logits, cache = decode_step(params, cache, batch)
+        return (logits.full_tensor() if isinstance(logits, DTensor) else logits), cache
+
+    return step
 
 
 class ServeEngine:
@@ -74,9 +99,15 @@ class ServeEngine:
         self.queue: deque[Request] = deque()
         self.active: list[Request | None] = [None] * slots
         self.pos = np.zeros(slots, np.int32)       # next position per slot
-        self.cache = model.init_cache(slots, max_len, device=self.device)
-        self._decode = (self._graphed_decode() if self.device.type == "cuda"
-                        else model.decode_step)
+        self.mesh = _placed_mesh(params)
+        self.cache = (model.init_cache(slots, max_len, device=self.device)
+                      if self.mesh is None else
+                      model.init_cache(slots, max_len, device=self.device, mesh=self.mesh))
+        if self.device.type == "cuda":
+            self._decode = self._graphed_decode()
+        else:
+            self._decode = (model.decode_step if self.mesh is None
+                            else _whole_logits(model.decode_step))
         self._next_tok = np.zeros((slots, 1), np.int32)
         self._pending_prompt: dict[int, list] = {}
         self.steps = 0
@@ -89,12 +120,13 @@ class ServeEngine:
         first token overwrites (and ``kv_len`` masks until then). Under a
         mesh the MoE's expert-parallel collectives go into the graph
         (:func:`~repro_torch.distributed.sharding.check_capturable`)."""
-        check_capturable(get_concrete_mesh(), self.device)
-        params, cache, model = self.params, self.cache, self.model
+        check_capturable(self.mesh or get_concrete_mesh(), self.device)
+        params, cache = self.params, self.cache
+        step = (self.model.decode_step if self.mesh is None
+                else _whole_logits(self.model.decode_step))
         tokens = torch.zeros((self.B, 1), dtype=torch.int32, device=self.device)
         graph = CudaGraph(
-            lambda tok, pos: model.decode_step(params, cache,
-                                               {"tokens": tok, "pos": pos})[0],
+            lambda tok, pos: step(params, cache, {"tokens": tok, "pos": pos})[0],
             tokens, tokens[:, 0])
 
         def decode(p, c, batch):

@@ -14,7 +14,11 @@ bits under the key's ``::bf16`` tag (the reference does the same through
 Restore skips a corrupt, truncated or unreadable ``step_*.npz`` and falls
 back to the newest one that loads; ``*.tmp`` residue is never a step and
 :func:`gc_checkpoints` sweeps it. Restored leaves are CPU tensors;
-:func:`place_like` puts them on the live state's devices and dtypes.
+:func:`place_like` puts them on the live state's devices and dtypes, and
+places them again where the live leaf is placed (a ``DTensor``). A placed
+state is saved whole: every rank gathers it
+(:func:`repro_torch.distributed.sharding.full_tree`) and global rank 0
+writes it, in the same file format.
 """
 from __future__ import annotations
 
@@ -24,6 +28,7 @@ import tempfile
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 _SEP = "|"
 _BF16_TAG = "::bf16"
@@ -49,6 +54,9 @@ def _flatten(tree, prefix: str = "") -> dict:
         return out
     key = prefix.rstrip(_SEP)
     if isinstance(tree, torch.Tensor):
+        if isinstance(tree, DTensor):
+            raise ValueError("a placed leaf is saved whole: gather the tree first "
+                             "(repro_torch.distributed.sharding.full_tree) on every rank")
         t = tree.detach().cpu()
         if t.dtype == torch.bfloat16:   # npz can't store bf16 natively
             out[key + _BF16_TAG] = t.view(torch.int16).numpy().view(np.uint16)
@@ -150,13 +158,18 @@ def restore_checkpoint(ckpt_dir, step=None, *, log_fn=None):
 
 
 def place_like(restored, live):
-    """Each restored leaf on its live leaf's device, in its dtype."""
+    """Each restored leaf on its live leaf's device, in its dtype; where
+    the live leaf is placed, placed as it (each rank keeps its slice of the
+    whole leaf it restored)."""
     if isinstance(live, dict):
         return {k: place_like(restored[k], v) for k, v in live.items()}
     if isinstance(live, list):
         if len(restored) != len(live):
             raise ValueError(f"restored list of {len(restored)} items, live {len(live)}")
         return [place_like(r, v) for r, v in zip(restored, live)]
+    if isinstance(live, DTensor):
+        return distribute_tensor(restored.to(device=live.device, dtype=live.dtype),
+                                 live.device_mesh, live.placements, src_data_rank=None)
     return restored.to(device=live.device, dtype=live.dtype)
 
 

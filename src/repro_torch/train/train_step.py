@@ -10,6 +10,13 @@
 The step reads nothing back to the host and writes into none of its
 inputs, so :class:`repro_torch.train.trainer.Trainer` captures it whole as
 one CUDA graph and can keep the old state when a step is not finite.
+
+``init_train_state(..., mesh=)`` places the state over a ``DeviceMesh``
+(:func:`~repro_torch.distributed.sharding.distribute_params`, the moments
+by ``opt_specs_from``) in the mode the reference's dry run chooses
+(:func:`~repro_torch.distributed.sharding.parallelism_for`), and the step
+of a placed state runs placed in that mode: Megatron TP over ``model``
+(and ZeRO-3 over ``data`` under ``cfg.fsdp``), or ZeRO-3 over every rank.
 """
 from __future__ import annotations
 
@@ -17,7 +24,9 @@ import dataclasses
 from dataclasses import dataclass
 
 import torch
+from torch.distributed.tensor import DTensor
 
+from repro_torch.distributed import sharding
 from repro_torch.optim import (
     AdamWConfig,
     adamw_init,
@@ -37,19 +46,45 @@ class TrainConfig:
     compress_grads: bool = False  # int8 gradient compression (cross-pod DP)
 
 
-def init_train_state(model, generator, train_cfg: TrainConfig, device=None):
+def init_train_state(model, generator, train_cfg: TrainConfig, device=None, *,
+                     mesh=None, global_batch=None):
     """``(params, opt_state)``: ``model.init(generator, device)`` (``None``
-    means the CUDA card) and zero AdamW moments beside them."""
+    means the CUDA card) and zero AdamW moments beside them. With ``mesh=``
+    (a ``DeviceMesh``) the parallelism mode is set for a training batch of
+    ``global_batch`` (:func:`~repro_torch.distributed.sharding.
+    parallelism_for`) and the state placed over the mesh: every rank draws
+    the whole parameters from the same generator and keeps its shards."""
     params = model.init(generator, device=device)
+    if mesh is None:
+        return params, adamw_init(params, train_cfg.optimizer)
+    return place_train_state(model, params, train_cfg, mesh, global_batch)
+
+
+def place_train_state(model, params, train_cfg: TrainConfig, mesh, global_batch=None):
+    """``params`` (whole on every rank) placed over ``mesh`` with zero
+    moments beside them, in the mode :func:`~repro_torch.distributed.
+    sharding.parallelism_for` gives a training batch of ``global_batch``
+    (set as the current mode)."""
+    cfg = model.cfg
+    sharding.set_parallelism(sharding.parallelism_for(cfg, "train", global_batch, mesh)
+                             if global_batch else cfg.train_parallelism)
+    params = sharding.distribute_params(params, mesh, cfg.fsdp)
     return params, adamw_init(params, train_cfg.optimizer)
 
 
-def abstract_train_state(model, train_cfg: TrainConfig):
-    """The train state as meta tensors: shapes and dtypes, no storage."""
-    return init_train_state(model, None, train_cfg, device="meta")
+def abstract_train_state(model, train_cfg: TrainConfig, *, mesh=None, global_batch=None):
+    """The train state as meta tensors: shapes and dtypes, no storage (with
+    ``mesh=``, placed as :func:`init_train_state` places it: each rank's
+    shards as meta tensors)."""
+    if mesh is None:
+        return init_train_state(model, None, train_cfg, device="meta")
+    return place_train_state(model, model.abstract_params(), train_cfg, mesh, global_batch)
 
 
 def _qdq(g: torch.Tensor) -> torch.Tensor:
+    if isinstance(g, DTensor):   # each rank's shard, as the update runs
+        return DTensor.from_local(_qdq(g.to_local()), g.device_mesh, g.placements,
+                                  run_check=False)
     q, s = compress_int8(g)
     return decompress_int8(q, s, tuple(g.shape)).to(g.dtype)
 

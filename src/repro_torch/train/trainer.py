@@ -33,12 +33,15 @@ first call (:mod:`repro_torch.launch.train` sets it); without it the first
 step raises.
 
 **Under a mesh** (:func:`~repro_torch.distributed.sharding.use_mesh`)
-every rank runs the same step on the same global batch and holds the whole
-state; the MoE's expert-parallel region sums its gradients over the ranks,
-so the step has no gradient all-reduce of its own. Its collectives are
-captured in the step's graph, so on the card the mesh's groups must be NCCL
-(checked, and warmed by one collective, before the capture). Only global
-rank 0 writes checkpoints; every rank restores.
+every rank runs the same step on the same global batch. Unplaced, each holds
+the whole state; the MoE's expert-parallel region sums its gradients over
+the ranks, so the step has no gradient all-reduce of its own. A placed state
+(``init_train_state(..., mesh=)``) is split over the ranks and its step runs
+placed. The step's collectives are captured in its graph, so on the card
+the mesh's groups must be NCCL (checked, and each warmed by one collective,
+before the capture). Every rank gathers a placed state for a checkpoint and
+only global rank 0 writes it; every rank restores, and a placed state is
+placed again.
 """
 from __future__ import annotations
 
@@ -48,8 +51,15 @@ import signal
 import time
 
 import torch
+from torch.distributed.tensor import DTensor
 
-from repro_torch.distributed.sharding import check_capturable, get_concrete_mesh, is_writer
+from repro_torch.distributed.sharding import (
+    check_capturable,
+    full_tree,
+    get_concrete_mesh,
+    is_placed,
+    is_writer,
+)
 from repro_torch.graphs import CudaGraph
 from repro_torch.timing import StepTimer
 from repro_torch.train.checkpoint import (
@@ -79,6 +89,17 @@ def deterministic_algorithms():
     finally:
         torch.use_deterministic_algorithms(prev[0], warn_only=prev[1])
         deterministic.fill_uninitialized_memory = prev[2]
+
+
+def _mesh_of(params):
+    """The mesh of a placed state, else the ambient ``DeviceMesh``."""
+    leaf = tree_leaves(params)[0]
+    return leaf.device_mesh if isinstance(leaf, DTensor) else get_concrete_mesh()
+
+
+def _locals(tree) -> list:
+    """The leaves of ``tree``, a placed one as its local shard."""
+    return [t.to_local() if isinstance(t, DTensor) else t for t in tree_leaves(tree)]
 
 
 class Trainer:
@@ -120,8 +141,8 @@ class Trainer:
         on_card = tree_leaves(params)[0].device.type == "cuda"
         if on_card:
             if self._graph is None:
-                # the MoE's expert-parallel collectives go into the graph
-                check_capturable(get_concrete_mesh(), tree_leaves(params)[0].device)
+                # the mesh's collectives go into the graph
+                check_capturable(_mesh_of(params), tree_leaves(params)[0].device)
                 with deterministic_algorithms():
                     self._graph = CudaGraph(self.train_step, params, opt_state, batch)
             new_params, new_opt, metrics = self._graph(params, opt_state, batch)
@@ -132,8 +153,7 @@ class Trainer:
         if not math.isfinite(vals["loss"]):   # the old state, whole
             return params, opt_state, vals
         if on_card:   # commit the graph's new state
-            torch._foreach_copy_(tree_leaves([params, opt_state]),
-                                 tree_leaves([new_params, new_opt]))
+            torch._foreach_copy_(_locals([params, opt_state]), _locals([new_params, new_opt]))
             return params, opt_state, vals
         return new_params, new_opt, vals
 
@@ -149,7 +169,9 @@ class Trainer:
             return None  # not in the main thread
 
     def _save(self, step, params, opt_state) -> None:
-        if not is_writer():   # every rank holds the same state
+        if is_placed(params):   # gathered whole on every rank (a collective)
+            params, opt_state = full_tree(params), full_tree(opt_state)
+        if not is_writer():   # every rank holds the same whole state
             return
         save_checkpoint(self.ckpt_dir, step, params, opt_state)
         gc_checkpoints(self.ckpt_dir, self.keep_last)

@@ -37,7 +37,9 @@ def test_port_imports_without_jax_or_reference():
     ``jax`` and ``ml_dtypes`` blocked and load no ``repro`` module (the
     distribution and launch modules among them)."""
     assert {"repro_torch.distributed.collectives", "repro_torch.distributed.sharding",
-            "repro_torch.launch.mesh", "repro_torch.launch.roofline"} <= set(MODULES)
+            "repro_torch.launch.mesh", "repro_torch.launch.roofline",
+            "repro_torch.launch.dryrun", "repro_torch.launch.op_analysis",
+            "repro_torch.launch.attribution"} <= set(MODULES)
     code = (
         "import importlib, importlib.util, sys\n"
         "sys.modules['jax'] = None\n"
@@ -110,7 +112,8 @@ def test_module_list_covers_the_slice():
                  "serve.supervisor", "serve.fault_injection",
                  "train.fault_injection", "kernels.autotune",
                  "optim.schedule", "train.train_step", "train.trainer", "launch",
-                 "launch.train", "models.ssm", "models.xlstm", "models.encdec",
+                 "launch.train", "launch.dryrun", "launch.op_analysis",
+                 "launch.attribution", "models.ssm", "models.xlstm", "models.encdec",
                  "configs.dbrx_132b", "configs.jamba_1_5_large_398b",
                  "configs.kimi_k2_1t_a32b", "configs.xlstm_125m",
                  "configs.whisper_large_v3", "configs.llava_next_mistral_7b"):
@@ -209,6 +212,34 @@ def test_entry_points_default_to_the_card(entry):
     else:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             fn()
+
+
+def test_the_dry_run_runs_on_no_device(monkeypatch):
+    """The dry run is exempt from "on the card unless asked": it places
+    and traces meta tensors on a fake world in this process, so it runs on
+    no device at all: it names the meta device where it builds a tensor and
+    never asks for the default one (the card)."""
+    import torch.distributed as dist
+
+    from repro_torch import device as device_mod
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.launch import dryrun
+    from repro_torch.models import lm
+
+    resolve = device_mod.resolve_device
+
+    def refuse(device=None):
+        if device is None:
+            raise AssertionError("the dry run asked for the default device")
+        return resolve(device)
+
+    monkeypatch.setattr(device_mod, "resolve_device", refuse)
+    monkeypatch.setattr(lm, "resolve_device", refuse)
+    shape = ShapeSpec("decode_small", 128, 16, "decode")
+    rep = dryrun.dryrun_cell("llama3-8b", shape.name, multi_pod=False, verbose=False,
+                             cfg=reduced(get_config("llama3-8b")), shape=shape)
+    assert rep["chips"] == 256 and rep["flops"] > 0
+    assert not dist.is_initialized()
 
 
 def test_timing_refuses_cpu_tensors():
