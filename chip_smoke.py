@@ -326,11 +326,23 @@ Phases, in order; any failure raises and the script exits non-zero:
               unplaced step from the same state (metrics within 1e-3; each
               parameter leaf within 2 lr + 2^-7 of its largest, the moments
               within 2^-5 and 2^-4: bf16 sums in another order); the graphed
-              step timed both ways. (d)
-              python -m repro_torch.launch.dryrun --arch qwen2-0.5b --shape
-              train_4k --mesh single and --arch llama3-8b --shape decode_32k
-              as processes (no card; started at the phase's start, on the
-              host's cores) exit 0; logs and reports in chiprun_out/dryrun/.
+              step timed both ways; full-width xLSTM-125M (bf16, seq 256,
+              batch 4) in its training mode (tp) alike. (d) Run before (c):
+              Jamba (one period, 8 experts), xLSTM-125M and Whisper-large-v3
+              (phase 26's cuts, bf16) placed on the host mesh beside the same
+              parameters unplaced: the placed prefill's logits and cache
+              bitwise the unplaced ones; 8 greedy decode steps through the
+              placed engine's graph, each bitwise the unplaced engine's
+              graphed step and the placed eager step from the same state
+              (recurrent states restored between the two), with equal
+              decode launches; 5 requests through both engines' 4 slots
+              (one slot recycled), the same tokens; the graphed step timed
+              placed and unplaced. (e) python -m repro_torch.launch.dryrun
+              as processes, one a cell of DRYRUN_CELLS (Qwen2-0.5B train_4k,
+              Llama-3-8B decode_32k, Jamba long_500k, xLSTM-125M and
+              Whisper-large-v3 decode_32k, --mesh single; no card; started
+              at the phase's start, on the host's cores), exit 0; logs and
+              reports in chiprun_out/dryrun/.
 29. result -- each phase's seconds, a JSON line of per-kernel numbers, then
               the last line {"ok": true, "device": {...}}.
 
@@ -338,6 +350,7 @@ Full results also go to chiprun_out/chip_smoke.json.
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import os
@@ -1471,6 +1484,24 @@ def _read_counts() -> dict:
     counts.update({name: fn.reduce_launches for name, fn in reducers.items()})
     counts["epilogue_grad_folded"] = wrappers["epilogue_grad"].folded_launches
     return counts
+
+
+@contextlib.contextmanager
+def _counts_held():
+    """The launch counts as they stand before the block, put back after it:
+    launches made to compare the path with are not the path's."""
+    wrappers, reducers = _counters()
+    held = ([(fn, fn.launches) for fn in wrappers.values()],
+            [(fn, fn.reduce_launches) for fn in reducers.values()],
+            wrappers["epilogue_grad"].folded_launches)
+    try:
+        yield
+    finally:
+        for fn, n in held[0]:
+            fn.launches = n
+        for fn, n in held[1]:
+            fn.reduce_launches = n
+        wrappers["epilogue_grad"].folded_launches = held[2]
 
 
 def _bitwise(a, b) -> bool:
@@ -4447,8 +4478,19 @@ PLACE_ARCH, PLACE_LAYERS = "llama3-8b", 2   # full width, 2 layers, fp32
 PLACE_SLOTS, PLACE_PROMPT, PLACE_MAX_LEN, PLACE_DECODE = 8, 64, 1024, 16
 PLACE_TRAIN_SEQ, PLACE_TRAIN_BATCH = 1024, 4   # Qwen2-0.5B, full depth, bf16
 PLACE_TRAIN_STEPS = 3
+PLACE_XLSTM_TRAIN = ("xlstm-125m", 256, 4)   # arch, seq, batch: the sLSTM loops over seq
 PLACE_LSE_KV = 32768   # the two-half combine: Llama-3-8B's decode_32k cache
-DRYRUN_CELLS = (("qwen2-0.5b", "train_4k"), ("llama3-8b", "decode_32k"))
+# the families served placed beside themselves unplaced, at phase 26's cuts
+PLACE_FAMILIES = [
+    ("jamba-1.5-large-398b", {"n_layers": 8, "n_experts": 8},
+     "one period (8 of 72 layers), experts 16 -> 8, as phase 26"),
+    ("xlstm-125m", {}, "none (12 layers)"),
+    ("whisper-large-v3", {}, "none (32 + 32 layers, 1500 frames)"),
+]
+PLACE_FAM_SLOTS, PLACE_FAM_PROMPT, PLACE_FAM_DECODE, PLACE_FAM_MAX_LEN = 4, 64, 8, 128
+DRYRUN_CELLS = (("qwen2-0.5b", "train_4k"), ("llama3-8b", "decode_32k"),
+                ("jamba-1.5-large-398b", "long_500k"), ("xlstm-125m", "decode_32k"),
+                ("whisper-large-v3", "decode_32k"))
 DRYRUN_TIMEOUT_S = 600
 
 
@@ -4727,9 +4769,11 @@ def _placed_serve(torch, mesh, card) -> dict:
     return out
 
 
-def _placed_train(torch, mesh, card) -> dict:
-    """Full-depth Qwen2-0.5B (bf16, seq PLACE_TRAIN_SEQ, batch
-    PLACE_TRAIN_BATCH) placed on the host mesh in its training mode (fsdp):
+def _placed_train(torch, mesh, card, arch=LM_TRAIN_ARCH, seq=PLACE_TRAIN_SEQ,
+                  batch=PLACE_TRAIN_BATCH) -> dict:
+    """Full-depth ``arch`` (bf16, ``seq``, ``batch``: Qwen2-0.5B at seq
+    PLACE_TRAIN_SEQ, batch PLACE_TRAIN_BATCH, by default) placed on the host
+    mesh in its training mode (Qwen's fsdp, xLSTM's tp):
     PLACE_TRAIN_STEPS steps through the Trainer's graph, then the same steps
     eagerly from the same seeded state, bitwise (each step's metrics, and
     the state after the last).
@@ -4759,10 +4803,10 @@ def _placed_train(torch, mesh, card) -> dict:
 
     gc.collect()
     torch.cuda.empty_cache()
-    cfg = get_config(LM_TRAIN_ARCH)
+    cfg = get_config(arch)
     model = build_model(cfg)
     tc = TrainConfig(optimizer=AdamWConfig(lr=1e-3), warmup_steps=2, total_steps=30)
-    data = SyntheticTokens(cfg.vocab_size, PLACE_TRAIN_SEQ, PLACE_TRAIN_BATCH)
+    data = SyntheticTokens(cfg.vocab_size, seq, batch)
     quiet = lambda *a: None  # noqa: E731
     gen = lambda: torch.Generator(device="cuda").manual_seed(0)  # noqa: E731
 
@@ -4791,7 +4835,7 @@ def _placed_train(torch, mesh, card) -> dict:
     with sharding.use_mesh(mesh):
         # the graph first, captured on the allocator the phase emptied; the
         # eager steps after it, from the same seeded state drawn again
-        g = init_train_state(model, gen(), tc, mesh=mesh, global_batch=PLACE_TRAIN_BATCH)
+        g = init_train_state(model, gen(), tc, mesh=mesh, global_batch=batch)
         mode = sharding.get_parallelism()
         tr = Trainer(model, make_train_step(model, tc), data, log_fn=quiet)
         plain = Trainer(model, make_train_step(model, tc), data, log_fn=quiet)   # eager
@@ -4828,7 +4872,7 @@ def _placed_train(torch, mesh, card) -> dict:
                                          f"{tuple(a.shape)} differs by {err} from the "
                                          f"unplaced step's (tol {tol})")
             del pairs, a, before, up, uo
-        e = init_train_state(model, gen(), tc, mesh=mesh, global_batch=PLACE_TRAIN_BATCH)
+        e = init_train_state(model, gen(), tc, mesh=mesh, global_batch=batch)
         eager = []
         for i in range(PLACE_TRAIN_STEPS):   # only the last state is kept
             p, o, m = tr.step_eager(*e, data.batch(i))
@@ -4849,8 +4893,8 @@ def _placed_train(torch, mesh, card) -> dict:
         times["placed"] = time_cuda(lambda t: tr._graph(*g, batch_t), batch_t["tokens"],
                                     iters=3, warmup=1)
     out["graph_step_ms"] = times
-    log(f"[placement] {cfg.name} full depth, bf16, seq {PLACE_TRAIN_SEQ}, batch "
-        f"{PLACE_TRAIN_BATCH}, placed on the host mesh ({mode}): {PLACE_TRAIN_STEPS} graphed "
+    log(f"[placement] {cfg.name} full depth, bf16, seq {seq}, batch "
+        f"{batch}, placed on the host mesh ({mode}): {PLACE_TRAIN_STEPS} graphed "
         f"steps bitwise the placed eager steps; each against the unplaced step from the "
         f"same state: metrics within 1e-3, worst err / tol: params {worst['p']:.3f}, first "
         f"moments {worst['m']:.3f}, second {worst['v']:.3f}; losses "
@@ -4860,6 +4904,146 @@ def _placed_train(torch, mesh, card) -> dict:
         f"{out['graph_step_ms']['placed']:.2f} ms, unplaced "
         f"{out['graph_step_ms']['unplaced']:.2f} ms, on {card}")
     del tr, plain, g
+    gc.collect()
+    torch.cuda.empty_cache()
+    sharding.set_parallelism("tp")
+    return out
+
+
+def _fill_cache(cache, prefill) -> None:
+    """``cache``'s leaves (placed or not; on one rank a placed leaf's local
+    tensor is the whole) from a prefill's, in place: a leaf of the same
+    shape copied, an attention cache in its first rows."""
+    from repro_torch.distributed import sharding
+
+    local = lambda t: t.to_local() if hasattr(t, "to_local") else t  # noqa: E731
+    for full, part in zip(sharding.state_leaves(cache), sharding.state_leaves(prefill)):
+        full, part = local(full), local(part)
+        if full.shape == part.shape:
+            full.copy_(part)
+        else:
+            full[:, :, :part.shape[2]].copy_(part)
+
+
+def _placed_family(torch, mesh, card, arch, cut, why) -> dict:
+    """``arch`` at phase 26's cut (bf16, random weights from a seed) served
+    placed on the host mesh beside the same parameters unplaced: the placed
+    prefill's logits and cache bitwise the unplaced ones; PLACE_FAM_DECODE
+    greedy steps through the placed engine's graph over a cache holding the
+    prefill, each bitwise the unplaced engine's graphed step on the same
+    tokens and the placed eager step from the same state (the recurrent
+    states put back between the two, since a step advances them), with
+    equal decode launches; PLACE_FAM_SLOTS + 1 requests through both
+    engines' slots (the last in a recycled slot, its state zeroed at
+    admission), the same tokens. The graphed step is timed in turns and
+    profiled both ways. The launch counts cover the placed run."""
+    import numpy as np
+
+    from repro_torch.distributed import sharding
+    from repro_torch.models.lm import build_model
+    from repro_torch.serve import Request, ServeEngine
+    from repro_torch.serve.engine import _whole_logits
+    from repro_torch.timing import time_cuda
+
+    tag = f"placement {arch}"
+    model = build_model(_family_cfg(arch, **cut))
+    cfg = model.cfg
+    B, P, N = PLACE_FAM_SLOTS, PLACE_FAM_PROMPT, PLACE_FAM_DECODE
+    mode = sharding.parallelism_for(cfg, "decode", B, mesh)
+    sharding.set_parallelism(mode)
+    params, out = _init_lm(torch, model, seed=28)
+    gen = torch.Generator(device="cuda").manual_seed(2802)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, P), device="cuda", generator=gen)}
+    if cfg.encoder_layers:
+        batch["frames"] = torch.randn((B, cfg.n_frames, cfg.d_model), device="cuda",
+                                      generator=gen).to(torch.bfloat16)
+    want, wcache = model.prefill(params, batch)
+    placed = sharding.distribute_params(params, mesh, cfg.fsdp)
+    _reset_counts()   # the placed path, counted
+    got, gcache = model.prefill(placed, batch)
+    if not (torch.equal(got.full_tensor(), want) and _bitwise(
+            [t.full_tensor() for t in sharding.state_leaves(gcache)],
+            sharding.state_leaves(wcache))):
+        raise AssertionError(f"{tag}: the placed prefill's logits or cache are not bitwise "
+                             f"the unplaced prefill's")
+    with _counts_held():   # its graph's warm-up is not the placed path's
+        plain = ServeEngine(model, params, slots=B, max_len=PLACE_FAM_MAX_LEN)
+    eng = ServeEngine(model, placed, slots=B, max_len=PLACE_FAM_MAX_LEN)
+    _fill_cache(plain.cache, wcache)
+    _fill_cache(eng.cache, gcache)
+    del wcache, gcache
+    eager = _whole_logits(model.decode_step)
+    states = [t.to_local() for e in (eng.cache if isinstance(eng.cache, list) else ())
+              if isinstance(e, dict) for t in e.values()]
+    tok = want[:, -1].argmax(-1, keepdim=True).int()
+    launches = []
+    for i in range(N):
+        step = {"tokens": tok, "pos": torch.full((B,), P + i, dtype=torch.int32, device="cuda")}
+        with _counts_held():   # the unplaced engine's step is not the placed path
+            lp = plain._decode(params, plain.cache, step)[0].clone()
+        before = [t.clone() for t in states]
+        c0 = _read_counts()["decode_attention"]
+        lg = eng._decode(placed, eng.cache, step)[0].clone()
+        c1 = _read_counts()["decode_attention"]
+        after = [t.clone() for t in states]
+        for t, b in zip(states, before):
+            t.copy_(b)
+        le = eager(placed, eng.cache, step)[0]
+        c2 = _read_counts()["decode_attention"]
+        launches.append((c1 - c0, c2 - c1))
+        if not (torch.equal(lg, lp) and torch.equal(lg, le) and _bitwise(states, after)
+                and c1 - c0 == c2 - c1 == _attn_layers(model)):
+            raise AssertionError(
+                f"{tag}: placed graphed decode step {i} is not bitwise the unplaced graphed "
+                f"step ({(lg - lp).abs().max().item()}) and the placed eager step "
+                f"({(lg - le).abs().max().item()}), or its launches {launches[-1]} are not "
+                f"{_attn_layers(model)} each")
+        if not bool(torch.isfinite(lg).all()):
+            raise AssertionError(f"{tag}: non-finite decode logits")
+        tok = lg[:, -1].argmax(-1, keepdim=True).int()
+    rng = np.random.default_rng(28)
+    specs = [(int(rng.integers(8, 33)), int(rng.integers(8, 17))) for _ in range(B + 1)]
+    served = {}
+    for name, e_ in (("unplaced", plain), ("placed", eng)):
+        reqs = [Request(prompt=rng.integers(0, cfg.vocab_size, n).tolist(), max_new_tokens=k)
+                for n, k in specs] if name == "unplaced" else [
+            Request(prompt=r.prompt, max_new_tokens=r.max_new_tokens) for r in served["unplaced"]]
+        with (_counts_held() if name == "unplaced" else contextlib.nullcontext()):
+            e_.run(reqs)
+        if not all(r.done and len(r.output) == r.max_new_tokens for r in reqs):
+            raise AssertionError(f"{tag}: a request was not served to its length")
+        served[name] = reqs
+    if [r.output for r in served["placed"]] != [r.output for r in served["unplaced"]]:
+        raise AssertionError(f"{tag}: the placed engine served other tokens than the unplaced "
+                             f"one through a recycled slot")
+    out["launches"] = _read_counts()
+    step = {"tokens": tok, "pos": torch.full((B,), P + N, dtype=torch.int32, device="cuda")}
+    times = {}
+    for name in ("unplaced", "placed", "placed", "unplaced"):   # in turns
+        e_, p_ = (plain, params) if name == "unplaced" else (eng, placed)
+        times.setdefault(name, []).append(time_cuda(
+            lambda t, e_=e_, p_=p_: e_._decode(p_, e_.cache, step), tok, iters=20, warmup=2))
+    for name in ("placed", "unplaced"):   # where the placed step's time goes
+        e_, p_ = (plain, params) if name == "unplaced" else (eng, placed)
+        out[f"{name}_graph_profile"] = _profile_step(
+            torch, lambda t, e_=e_, p_=p_: e_._decode(p_, e_.cache, step), tok)
+    out.update({"cut": why, "mode": mode, "slots": B, "prompt": P, "decode_steps": N,
+                "step_launches": launches, "requests": len(specs),
+                "tokens": [r.output for r in served["placed"]],
+                "graph_step_ms": {k: min(v) for k, v in times.items()},
+                "graph_step_ms_turns": times})
+    log(f"[placement] {cfg.name} bf16 ({why}; {out['params']} params), placed on the host "
+        f"mesh ({mode}): prefill of {B} x {P} tokens bitwise the unplaced (logits and "
+        f"cache); {N} decode steps through the placed engine's graph, each bitwise the "
+        f"unplaced engine's graphed step and the placed eager step, decode launches "
+        f"{launches[0][0]} a step both ways; {len(specs)} requests through {B} slots (one "
+        f"recycled) served the unplaced engine's tokens")
+    log(f"[placement] {cfg.name}: a graphed decode step at {B} slots, pos {P + N} (CUDA "
+        f"events, 20 replays, in turns): placed {out['graph_step_ms']['placed']:.4f} ms, "
+        f"unplaced {out['graph_step_ms']['unplaced']:.4f} ms; on {card}")
+    for name in ("placed", "unplaced"):
+        _log_profile(f"{tag} {name} graph", out[f"{name}_graph_profile"])
+    del eng, plain, placed, params, served, e_, p_
     gc.collect()
     torch.cuda.empty_cache()
     sharding.set_parallelism("tp")
@@ -4887,10 +5071,22 @@ def phase_placement(torch) -> dict:
         log(f"[placement] host mesh {out['mesh']} over {dist.get_world_size()} "
             f"{dist.get_backend()} rank; card {card}")
         try:
+            # the families first: placed Jamba (~62 GiB at its peak, its
+            # one-rank gathers copies beside the weights) needs the card as
+            # the build leaves it
+            out["families"] = {}
+            for arch, cut, why in PLACE_FAMILIES:
+                out["families"][arch] = _placed_family(torch, mesh, card, arch, cut, why)
+            gc.collect()
+            torch.cuda.empty_cache()
             out["serve"] = _placed_serve(torch, mesh, card)
             gc.collect()
             torch.cuda.empty_cache()
             out["train"] = _placed_train(torch, mesh, card)
+            gc.collect()
+            torch.cuda.empty_cache()
+            arch, seq, batch = PLACE_XLSTM_TRAIN
+            out["train_xlstm"] = _placed_train(torch, mesh, card, arch, seq, batch)
             torch.cuda.synchronize()
         finally:
             gc.collect()
@@ -5022,7 +5218,7 @@ def main(argv) -> int:
             })
         entries.append(entry)
     # launches: the LM serving runs (phase 16's and phase 26's graphed
-    # serving and greedy decodes, phase 28's placed decode); numbers:
+    # serving and greedy decodes, phase 28's placed decodes); numbers:
     # Llama-3-8B, S 4096, device-only
     d4k = decode_times[0]
     source, replaces = SOURCES["decode_attention"]
@@ -5030,7 +5226,9 @@ def main(argv) -> int:
                     "replaces": replaces,
                     "launches": (lm_serve["launches"]["decode_attention"]
                                  + families["decode_launches"]
-                                 + placement["serve"]["launches"]["decode_attention"]),
+                                 + placement["serve"]["launches"]["decode_attention"]
+                                 + sum(f["launches"]["decode_attention"]
+                                       for f in placement["families"].values())),
                     "max_abs_err": decode_check["llama_4k"], "ms": d4k["ms"],
                     "plain_ms": d4k["plain_ms"], "bound_ms": d4k["bound_ms"],
                     "bound_by": d4k["bound_by"], "library_ms": d4k["library_ms"],

@@ -29,6 +29,12 @@ an expert slice over ``data``). What follows it differs by rank, so its
 backward is the transpose of the reference's ``all_gather``: the sum over
 the ranks, of which this rank keeps its slice.
 
+``regroup`` moves the columns of a column-parallel product whose weight
+holds ``n`` concatenated blocks (Mamba's ``x | z``, mLSTM's ``q | k | v``):
+a contiguous split gives each rank whole blocks or parts of them, and one
+``all_to_all_single`` hands each rank its own channels of every block, in
+block order. Its backward is the inverse exchange.
+
 gloo takes CUDA tensors in all-reduce and broadcast but not in all-gather;
 there the all-gather is one broadcast a rank into the full buffer, an exact
 copy. (An all-reduce over a zero-filled buffer would turn ``-0.0`` into
@@ -112,6 +118,58 @@ class _GatherShards(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return _slice(all_reduce(g, ctx.group), ctx.group, ctx.dim), None, None
+
+
+def _regroup_plan(n: int, m: int, r: int) -> tuple:
+    """The exchange of :func:`regroup` on rank ``r`` of ``m``: sub-chunk
+    ``a`` of the ``n`` this rank holds is global sub-chunk ``q = r n + a``
+    of the ``n m`` (each ``1/m`` of a block), bound for rank ``q mod m``
+    as a piece of block ``q // m``. Returns ``(send order, sub-chunks
+    sent to each rank, sub-chunks received from each rank)``; what a rank
+    receives, in source order, is its pieces in block order."""
+    dest = [(r * n + a) % m for a in range(n)]
+    order = sorted(range(n), key=lambda a: dest[a])
+    sent = [dest.count(t) for t in range(m)]
+    got = [sum((j * m + r) // n == s for j in range(n)) for s in range(m)]
+    return order, sent, got
+
+
+def _exchange(chunks: torch.Tensor, group, out_splits: list, in_splits: list):
+    chunks = chunks.contiguous()
+    out = torch.empty_like(chunks)
+    dist.all_to_all_single(out, chunks, out_splits, in_splits, group=group)
+    return out
+
+
+class _Regroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, y, group, n):
+        m, r = dist.get_world_size(group), dist.get_rank(group)
+        order, sent, got = _regroup_plan(n, m, r)
+        ctx.group, ctx.plan, ctx.shape = group, (order, sent, got), y.shape
+        lead, w = y.shape[:-1], y.shape[-1]
+        chunks = y.reshape(-1, n, w // n).transpose(0, 1)[order]     # (n, R, s)
+        out = _exchange(chunks, group, got, sent)                    # block order
+        return out.transpose(0, 1).reshape(*lead, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        order, sent, got = ctx.plan
+        n, w = len(order), g.shape[-1]
+        back = _exchange(g.reshape(-1, n, w // n).transpose(0, 1), ctx.group, sent, got)
+        inv = [order.index(a) for a in range(n)]
+        return back[inv].transpose(0, 1).reshape(ctx.shape), None, None
+
+
+def regroup(y: torch.Tensor, group, n: int) -> torch.Tensor:
+    """This rank's channels of each of the ``n`` column blocks of a
+    product ``y`` (..., W) whose weight's columns (``n`` blocks of ``c``)
+    are split contiguously over ``group``: ``(..., W)``, the ``n`` pieces
+    of ``c / size`` columns in block order. ``c`` must divide by the
+    group's size. With ``n == 1`` (or one rank) nothing moves."""
+    if n == 1 or dist.get_world_size(group) == 1:
+        return y
+    return _Regroup.apply(y, group, n)
 
 
 def enter(x: torch.Tensor, group) -> torch.Tensor:

@@ -182,21 +182,28 @@ def mesh_axis_sizes(mesh) -> dict:
     return dict(mesh.shape)
 
 
+_GROUPS: dict = {}   # (mesh, dims) -> (world, group, rank)
+
+
 def mesh_group(mesh: DeviceMesh, dims: tuple):
     """The process group over the mesh dimensions ``dims`` (flattened, the
     first outermost, as the reference's tuple entries split), and this
-    rank's place in it. Cached on the mesh object (meshes of one layout
-    compare equal across process groups, so not by value): slicing a mesh
-    runs tensor ops, which a trace on meta or fake tensors must not see."""
+    rank's place in it. Cached by the mesh's layout for the current world:
+    meshes of one layout compare equal, and DTensor hands back an op's
+    cached output spec, whose mesh may be an earlier world's object of the
+    same layout. Slicing a mesh runs tensor ops, which a trace on meta or
+    fake tensors must not see: :func:`region_groups` makes the groups
+    first."""
     dims = tuple(dims)
-    cache = vars(mesh).setdefault("_repro_torch_groups", {})
-    if dims not in cache:
+    world = dist.group.WORLD
+    hit = _GROUPS.get((mesh, dims))
+    if hit is None or hit[0] is not world:
         if len(dims) == 1:
             group = mesh.get_group(dims[0])
         else:
             group = mesh[dims]._flatten().get_group()
-        cache[dims] = (group, dist.get_rank(group))
-    return cache[dims]
+        hit = _GROUPS[(mesh, dims)] = (world, group, dist.get_rank(group))
+    return hit[1], hit[2]
 
 
 def region_groups(mesh: DeviceMesh) -> list:
@@ -355,6 +362,22 @@ def split_group(t, dim: int):
     names = tuple(mesh.mesh_dim_names[i] for i, p in enumerate(t.placements)
                   if isinstance(p, Shard) and p.dim == dim)
     return mesh_group(mesh, names) if names else (None, 0)
+
+
+def relayout(t, want) -> tuple:
+    """``(t placed by want, moved)``: the ``DTensor`` ``t`` redistributed to
+    the placements ``want``, ``moved`` whether data crossed ranks. Where
+    ``want`` differs only on mesh dimensions of one rank the local tensor
+    is the same and is relabelled as it is (a view, no collective), so an
+    in-place write to it still lands in ``t``."""
+    want = tuple(want)
+    if tuple(t.placements) == want:
+        return t, False
+    mesh = t.device_mesh
+    if all(mesh.size(i) == 1 for i, (a, b) in enumerate(zip(t.placements, want)) if a != b):
+        return DTensor.from_local(t.to_local(), mesh, want, run_check=False,
+                                  shape=t.shape, stride=t.stride()), False
+    return t.redistribute(mesh, want), True
 
 
 def replicate(x, mesh):
@@ -556,8 +579,12 @@ def state_leaves(tree) -> list:
 def place_tree(tree, mesh, specs):
     """Every leaf of ``tree`` (which every rank holds whole) as a
     ``DTensor`` over ``mesh`` placed by its spec in ``specs``: each rank
-    keeps its slice, with no collective."""
+    keeps its slice, with no collective. On a mesh of one rank the slice
+    is the leaf itself, wrapped without a copy (its storage shared)."""
     def one(leaf, spec):
+        if mesh.size() == 1:
+            return DTensor.from_local(leaf.detach(), mesh, placements(spec, mesh),
+                                      run_check=False).requires_grad_(leaf.requires_grad)
         return distribute_tensor(leaf, mesh, placements(spec, mesh), src_data_rank=None)
 
     return _map_spec_tree(one, tree, specs)

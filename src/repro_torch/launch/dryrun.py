@@ -21,9 +21,10 @@ The state's specs are the reference's: the parameters by
 :func:`opt_specs_from`, the caches by :func:`cache_specs` and the batch by
 :func:`batch_shardings` (this module re-exports the port's copies). The
 step runs in the mode the reference's dry run picks
-(:func:`~repro_torch.distributed.sharding.parallelism_for`). Families whose
-mixers are not placed yet (Jamba's Mamba, xLSTM, Whisper's encoder) are
-reported skipped, with the reason.
+(:func:`~repro_torch.distributed.sharding.parallelism_for`). Every family
+is placed; a cell that :func:`~repro_torch.configs.runnable` refuses
+(``long_500k`` of a full-attention arch) is reported skipped, with the
+reason.
 
 Usage (no card needed; the output directory is listed in ``.gitignore``)::
 
@@ -64,14 +65,6 @@ from repro_torch.train.train_step import (
 )
 
 DEFAULT_OUT = "build/dryrun"
-UNPLACED_REASON = ("its mixers (Mamba, xLSTM, the Whisper encoder) are not placed yet: "
-                   "ROADMAP, 'Placement of the Mamba, xLSTM and Whisper families'")
-
-
-def placed_family(cfg) -> bool:
-    """Whether the port places this config's family (dense and MoE
-    decoders, the VLM among them)."""
-    return not (cfg.attn_every or cfg.xlstm or cfg.encoder_layers)
 
 
 def moment_dtype(arch: str, cfg) -> str:
@@ -180,8 +173,6 @@ def dryrun_cell(arch: str, shape_name: str, *, multi_pod: bool, verbose=True,
     ok, reason = runnable(cfg, shape)
     if not ok:
         return {"arch": arch, "shape": shape.name, "skipped": reason}
-    if not placed_family(cfg):
-        return {"arch": arch, "shape": shape.name, "skipped": UNPLACED_REASON}
     counter, meta = compile_cell(arch, shape.name, multi_pod=multi_pod, cfg=cfg, shape=shape)
     walk = counter.report()
     report = {

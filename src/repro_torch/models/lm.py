@@ -34,8 +34,11 @@ tokens enter it split over the batch axes, the embedding is a
 vocab-parallel gather whose partial sums are reduced at once, each layer's
 input and output are constrained as the reference's (batch split, replicated
 over ``model``), the logits come out ``(BATCH, None, MODEL)``, and the loss
-is a vocab-parallel cross-entropy that never gathers a chunk's logits. The
-dense and MoE families are placed; the recurrent mixers are not yet.
+is a vocab-parallel cross-entropy that never gathers a chunk's logits.
+The recurrent mixers (Mamba, mLSTM, sLSTM) run on each rank's shards
+(:mod:`repro_torch.models.mixer_split`); a prefill returns their states
+placed by :func:`~repro_torch.distributed.sharding.cache_specs`, and a
+decode step writes them in place in that layout.
 """
 from __future__ import annotations
 
@@ -200,7 +203,11 @@ class LM:
     # ------------------------------------------------------------ forward
 
     def _device(self, params) -> torch.device:
-        return params["embed"]["w"].device
+        return self.embed_weight(params).device
+
+    def embed_weight(self, params):
+        """The token embedding table (its placement is the model's)."""
+        return params["embed"]["w"]
 
     def _embed(self, params, batch, dev):
         tokens = torch.as_tensor(batch["tokens"], device=dev).long()
@@ -304,7 +311,7 @@ class LM:
         for ``mode="train"``, ``(last logits (B, 1, V), caches)`` for
         ``mode="prefill"``. ``aux`` is the MoE layers' summed balance loss
         (zero without MoE)."""
-        with sharding.placement_of(params["embed"]["w"]):
+        with sharding.placement_of(self.embed_weight(params)):
             return self._apply(params, batch, mode)
 
     def _apply(self, params, batch, mode):
@@ -328,7 +335,7 @@ class LM:
         add in order. The loss adds ``0.01 * aux / n_layers``. Placed, each
         chunk is a vocab-parallel cross-entropy (:func:`_vocab_parallel_ce`)
         and the loss a plain scalar, the same on every rank."""
-        with sharding.placement_of(params["embed"]["w"]):
+        with sharding.placement_of(self.embed_weight(params)):
             return self._loss(params, batch)
 
     def _loss(self, params, batch):
@@ -377,7 +384,7 @@ class LM:
         """batch: tokens (B,1), pos (B,). Returns ``(logits (B, 1, V),
         cache)``; the cache is written in place (the reference returns a
         new one) and returned."""
-        with sharding.placement_of(params["embed"]["w"]):
+        with sharding.placement_of(self.embed_weight(params)):
             return self._decode_step(params, cache, batch)
 
     def _decode_step(self, params, cache, batch):
@@ -395,31 +402,36 @@ def _embed_placed(w, tokens):
     local shards: the tokens enter the mesh split over the batch axes and
     each rank indexes its table shard with its own tokens, as the unplaced
     path indexes the whole table (DTensor's own gathers are not used: its
-    masked gather cannot take its gradient back from the reduced rows).
-    Under ``fsdp`` the table is gathered first
-    (:func:`~repro_torch.distributed.sharding.gather_param`). A table split
-    over the vocabulary (``model``) is Megatron's vocab-parallel gather:
-    each rank reads the rows of the tokens its slice holds (zeros for the
-    others) and ``reduce`` sums the partial rows over the vocabulary's
-    ranks at once. The table enters over the batch's ranks, whose tokens'
-    gradients it sums."""
+    masked gather cannot take its gradient back from the reduced rows);
+    :func:`lookup_placed` does the lookup."""
     tok = sharding.shard_batch(tokens)
-    w = sharding.gather_param(w)
-    tl, wl = tok.to_local(), w.to_local()
     batch_group, _ = sharding.split_group(tok, 0)
+    rows = lookup_placed(w, tok.to_local(), batch_group)
+    return DTensor.from_local(rows, w.device_mesh, tok.placements, run_check=False)
+
+
+def lookup_placed(w, idx, batch_group):
+    """Rows ``idx`` (a plain index tensor, this rank's) of the placed table
+    ``w`` (V, d), plain. Under ``fsdp`` the table is gathered first
+    (:func:`~repro_torch.distributed.sharding.gather_param`). A table split
+    over its rows (``model``) is Megatron's vocab-parallel gather: each rank
+    reads the rows its slice holds (zeros for the others) and ``reduce``
+    sums the partial rows over the table's ranks at once. The table enters
+    over ``batch_group``, the ranks whose rows of the batch differ, whose
+    partial gradients it sums."""
+    w = sharding.gather_param(w)
+    wl = w.to_local()
     if batch_group is not None:
         wl = enter(wl, batch_group)
     vocab_group, vr = sharding.split_group(w, 0)
     if vocab_group is None:
-        rows = wl[tl]
-    else:
-        V_l = wl.shape[0]
-        rel = tl - vr * V_l
-        inside = ((rel >= 0) & (rel < V_l))[..., None]
-        rows = torch.where(inside, wl[rel.clamp(0, V_l - 1)],
-                           torch.zeros((), dtype=wl.dtype, device=wl.device))
-        rows = reduce(rows, vocab_group)
-    return DTensor.from_local(rows, w.device_mesh, tok.placements, run_check=False)
+        return wl[idx]
+    V_l = wl.shape[0]
+    rel = idx - vr * V_l
+    inside = ((rel >= 0) & (rel < V_l))[..., None]
+    rows = torch.where(inside, wl[rel.clamp(0, V_l - 1)],
+                       torch.zeros((), dtype=wl.dtype, device=wl.device))
+    return reduce(rows, vocab_group)
 
 
 def _vocab_parallel_ce(h_c, t_c, w):

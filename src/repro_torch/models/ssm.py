@@ -16,6 +16,13 @@ old, so a CUDA graph captured over the cache stays valid.
 A prefill shorter than ``d_conv - 1`` tokens keeps its conv state
 left-padded with zeros, the inputs the causal conv saw before the prompt;
 the reference keeps fewer rows there, and its next decode step raises.
+
+Placed (a ``DTensor`` input), the mixer runs on each rank's shards with the
+inner dimension ``di`` over ``model``
+(:func:`repro_torch.models.mixer_split.run_placed`): ``w_in``'s product
+regrouped into this rank's ``x`` and ``z`` channels, the depthwise conv and
+the scan local per channel, ``w_bcdt``'s partial sums all-reduced before
+the softplus and the ``B``/``C`` split, and ``w_out`` row-parallel.
 """
 from __future__ import annotations
 
@@ -25,7 +32,10 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from torch.distributed.tensor import DTensor
+
 from repro_torch.models.layers import _dtype, _normal
+from repro_torch.models.mixer_split import WHOLE, run_placed
 
 
 def _uniform(generator, shape, lo: float, hi: float, device):
@@ -73,11 +83,11 @@ def _causal_conv(x, w, b):
     return (out + b.float()).to(x.dtype)
 
 
-def _ssm_proj(p, xc):
+def _ssm_proj(p, xc, tp):
     """Shared projections: xc (B,L,di) -> (dt, Bc, Cc), fp32."""
     m = p["mamba"]
     ds = m["a_log"].shape[1]
-    bcdt = xc @ m["w_bcdt"]
+    bcdt = tp.rows(xc @ m["w_bcdt"])
     Bc = bcdt[..., :ds].float()
     Cc = bcdt[..., ds : 2 * ds].float()
     dt = F.softplus((bcdt[..., 2 * ds :] @ m["dt_w"]).float() + m["dt_bias"])
@@ -87,16 +97,26 @@ def _ssm_proj(p, xc):
 def mamba(p, cfg, x, *, cache=None, want_cache=False):
     """x: (B,S,d). Returns (out, new_cache). cache != None -> decode (S ==
     1; ``cache`` written in place and returned); want_cache -> prefill
-    (returns the final conv/ssm states)."""
+    (returns the final conv/ssm states). A placed ``x`` runs placed (see
+    the module docstring)."""
+    if isinstance(x, DTensor):
+        return run_placed(_mamba, "mamba", p, cfg, x, cache=cache, want_cache=want_cache,
+                          out="w_out", state_dims={"conv": 2, "ssm": 1})
+    return _mamba(p, cfg, x, cache, want_cache, WHOLE)
+
+
+def _mamba(p, cfg, x, cache, want_cache, tp):
+    """The mixer on plain tensors, split as ``tp`` says
+    (:class:`~repro_torch.models.mixer_split.Split`)."""
     m = p["mamba"]
     di = m["conv_w"].shape[1]
     k_conv = m["conv_w"].shape[0]
-    xz = x @ m["w_in"]
+    xz = tp.columns(x @ m["w_in"], "w_in", 2)
     xin, z = xz[..., :di], xz[..., di:]
 
     if cache is None:
         xc = F.silu(_causal_conv(xin, m["conv_w"], m["conv_b"]))
-        y, h_last = _chunked_scan(p, cfg, xc)
+        y, h_last = _chunked_scan(p, cfg, xc, tp)
         # the conv state is the last k_conv - 1 inputs, left-padded with the
         # zeros the causal conv saw before a prompt shorter than that
         # (the reference keeps S rows and its next decode step raises)
@@ -108,7 +128,7 @@ def mamba(p, cfg, x, *, cache=None, want_cache=False):
         conv_buf = torch.cat([cache["conv"], xin], dim=1)        # (B,k,di)
         xc = F.silu(torch.einsum("bkd,kd->bd", conv_buf.float(), m["conv_w"].float())
                     + m["conv_b"])[:, None, :].to(x.dtype)
-        dt, Bc, Cc = _ssm_proj(p, xc)
+        dt, Bc, Cc = _ssm_proj(p, xc, tp)
         A = -torch.exp(m["a_log"])
         dA = torch.exp(dt[:, 0, :, None] * A)                    # (B,di,ds)
         dBx = dt[:, 0, :, None] * xc[:, 0, :, None].float() * Bc[:, 0, None, :]
@@ -120,7 +140,7 @@ def mamba(p, cfg, x, *, cache=None, want_cache=False):
         new_cache = cache
 
     y = (y * F.silu(z.float())).to(x.dtype)
-    return y @ m["w_out"], new_cache
+    return tp.out(y, m["w_out"]), new_cache
 
 
 def _doubling_scan(a, b):
@@ -136,10 +156,10 @@ def _doubling_scan(a, b):
     return a, b
 
 
-def _chunk_step(p, A, h0, xk):
+def _chunk_step(p, A, h0, xk, tp):
     """One chunk of the selective scan from state ``h0``: ``(h_last, y)``."""
     m = p["mamba"]
-    dt, Bc, Cc = _ssm_proj(p, xk)                                # (B,L,*)
+    dt, Bc, Cc = _ssm_proj(p, xk, tp)                                # (B,L,*)
     dA = torch.exp(dt[..., None] * A)                            # (B,L,di,ds)
     dBx = dt[..., None] * xk[..., None].float() * Bc[:, :, None, :]
     a_cum, b_cum = _doubling_scan(dA, dBx)
@@ -148,7 +168,7 @@ def _chunk_step(p, A, h0, xk):
     return h[:, -1], y + m["d"] * xk.float()
 
 
-def _chunked_scan(p, cfg, xc):
+def _chunked_scan(p, cfg, xc, tp=WHOLE):
     """Chunked selective scan. xc: (B,S,di) post-conv. Returns ``((B,S,di)
     fp32, final state)``. Under autograd each chunk runs under a
     checkpoint, as the reference's ``jax.checkpoint`` body: only the
@@ -166,10 +186,10 @@ def _chunked_scan(p, cfg, xc):
     for c0 in range(0, S, L):
         xk = xc[:, c0 : c0 + L]
         if torch.is_grad_enabled():
-            h, y = checkpoint(_chunk_step, p, A, h, xk, use_reentrant=False,
+            h, y = checkpoint(_chunk_step, p, A, h, xk, tp, use_reentrant=False,
                               preserve_rng_state=False)
         else:
-            h, y = _chunk_step(p, A, h, xk)
+            h, y = _chunk_step(p, A, h, xk, tp)
         ys.append(y)
     return torch.cat(ys, dim=1), h
 

@@ -11,6 +11,14 @@ stabilised by the paper's running log-space maximum ``m``.
 
 A decode step writes its state in place (the reference returns a new one),
 so a CUDA graph captured over the cache stays valid.
+
+Placed (a ``DTensor`` input), both blocks run on each rank's shards
+(:func:`repro_torch.models.mixer_split.run_placed`) with their heads over
+``model`` where ``n_heads`` divides it, whole on every rank otherwise:
+mLSTM's ``w_qkv`` and ``w_if`` products regrouped into this rank's heads
+(gathered whole where the heads stay whole), sLSTM's ``w_in`` read
+head-major, so its contiguous split is whole heads, and ``w_rec`` this
+rank's heads; ``w_out`` and ``w_down`` row-parallel.
 """
 from __future__ import annotations
 
@@ -18,7 +26,10 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from torch.distributed.tensor import DTensor
+
 from repro_torch.models.layers import _dtype, _normal
+from repro_torch.models.mixer_split import WHOLE, run_placed
 
 NEG = -1e30
 
@@ -40,15 +51,26 @@ def mlstm_init(generator, cfg, *, device) -> dict:
 def mlstm(p, cfg, x, *, cache=None, want_cache=False):
     """x: (B,S,d) -> (out, new_cache). cache != None -> decode (S == 1;
     the state written in place and returned); want_cache -> prefill
-    (returns the final (C, n, m) state)."""
+    (returns the final (C, n, m) state). A placed ``x`` runs placed (see
+    the module docstring)."""
+    if isinstance(x, DTensor):
+        return run_placed(_mlstm, "mlstm", p, cfg, x, cache=cache, want_cache=want_cache,
+                          out="w_out", state_dims={"C": 1, "n": 1, "m": 1},
+                          n_heads=cfg.n_heads)
+    return _mlstm(p, cfg, x, cache, want_cache, WHOLE)
+
+
+def _mlstm(p, cfg, x, cache, want_cache, tp):
+    """The block on plain tensors, its heads split as ``tp`` says
+    (:class:`~repro_torch.models.mixer_split.Split`)."""
     m = p["mlstm"]
-    B, S, d = x.shape
-    nh = cfg.n_heads
-    hd = d // nh
-    qkv = x @ m["w_qkv"]
+    B, S, _ = x.shape
+    hd = cfg.d_model // cfg.n_heads
+    qkv = tp.columns(x @ m["w_qkv"], "w_qkv", 3)
+    nh = qkv.shape[-1] // (3 * hd)            # this rank's heads
     q, k, v = (a.reshape(B, S, nh, hd).float() for a in torch.chunk(qkv, 3, dim=-1))
     k = k * hd ** -0.5
-    gates = x.float() @ m["w_if"]
+    gates = tp.columns(x.float() @ m["w_if"], "w_if", 2)
     ig = gates[..., :nh]                       # (B,S,nh) log input gate
     fg = F.logsigmoid(gates[..., nh:])         # (B,S,nh) log forget gate
 
@@ -67,13 +89,13 @@ def mlstm(p, cfg, x, *, cache=None, want_cache=False):
         num = torch.einsum("bhd,bhde->bhe", q0, C_new)
         den = torch.maximum(torch.abs(torch.einsum("bhd,bhd->bh", q0, n_new)),
                             torch.exp(-m_new))[..., None]
-        y = (num / den)[:, None].reshape(B, 1, d)
+        y = (num / den)[:, None].reshape(B, 1, nh * hd)
         C.copy_(C_new)
         n.copy_(n_new)
         mstate.copy_(m_new)
         new_cache = cache
 
-    return y.to(x.dtype) @ m["w_out"], new_cache
+    return tp.out(y.to(x.dtype), m["w_out"]), new_cache
 
 
 def _mlstm_chunk(C, n, m0, qc, kc, vc, ic, fc):
@@ -178,12 +200,23 @@ def _slstm_step(w_rec, nh, hd, carry, zx):
 
 def slstm(p, cfg, x, *, cache=None, want_cache=False):
     """x: (B,S,d) -> (out, new_cache). Sequential over S. With ``cache``
-    the state is read from it and written back in place."""
+    the state is read from it and written back in place. A placed ``x``
+    runs placed (see the module docstring)."""
+    if isinstance(x, DTensor):
+        return run_placed(_slstm, "slstm", p, cfg, x, cache=cache, want_cache=want_cache,
+                          out="w_down", state_dims=dict.fromkeys("cnhm", 1),
+                          n_heads=cfg.n_heads)
+    return _slstm(p, cfg, x, cache, want_cache, WHOLE)
+
+
+def _slstm(p, cfg, x, cache, want_cache, tp):
+    """The block on plain tensors, its heads split as ``tp`` says
+    (:class:`~repro_torch.models.mixer_split.Split`)."""
     s = p["slstm"]
-    B, S, d = x.shape
-    nh = cfg.n_heads
-    hd = d // nh
-    zx = (x @ s["w_in"]).float()                            # (B,S,4d)
+    B, S, _ = x.shape
+    hd = cfg.d_model // cfg.n_heads
+    zx = tp.columns(x @ s["w_in"], "w_in", 1).float()       # (B,S,4 nh hd)
+    nh = zx.shape[-1] // (4 * hd)                           # this rank's heads
     names = ("c", "n", "h", "m")
     if cache is None:
         carry = tuple(torch.zeros((B, nh, hd), dtype=torch.float32, device=x.device)
@@ -194,14 +227,14 @@ def slstm(p, cfg, x, *, cache=None, want_cache=False):
     for t in range(S):
         carry, h = _slstm_step(s["w_rec"], nh, hd, carry, zx[:, t])
         hs.append(h)
-    y = torch.stack(hs, dim=1).reshape(B, S, d).to(x.dtype)
+    y = torch.stack(hs, dim=1).reshape(B, S, nh * hd).to(x.dtype)
     if cache is not None:
         for k, t in zip(names, carry):
             cache[k].copy_(t)
         new_cache = cache
     else:
         new_cache = dict(zip(names, carry)) if want_cache else None
-    return y @ s["w_down"], new_cache
+    return tp.out(y, s["w_down"]), new_cache
 
 
 def init_xlstm_cache(cfg, kind: str, batch: int, *, device) -> dict:

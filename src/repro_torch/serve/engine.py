@@ -28,10 +28,12 @@ to the host first). On the CPU the step runs eagerly.
 Over placed parameters (``DTensor``s,
 :func:`~repro_torch.distributed.sharding.distribute_params`) the engine's
 caches are placed by :func:`~repro_torch.distributed.sharding.cache_specs`
-(``LM.init_cache(..., mesh=)``): the slots over the data-parallel axes
-where they divide, an attention cache's sequence over ``model``. The step
-returns the whole logits on every rank (gathered inside the step, and so
-inside its graph).
+(``model.init_cache(..., mesh=)``): the slots over the data-parallel axes
+where they divide, an attention cache's sequence over ``model``, a
+recurrent state's largest trailing dimension over ``model``. Admission
+zeroes a slot's state rows on the rank that holds them. The step returns
+the whole logits on every rank (gathered inside the step, and so inside
+its graph).
 """
 from __future__ import annotations
 
@@ -45,7 +47,7 @@ import torch
 from torch.distributed.tensor import DTensor
 
 from repro_torch.device import resolve_device
-from repro_torch.distributed.sharding import check_capturable, get_concrete_mesh
+from repro_torch.distributed.sharding import check_capturable, get_concrete_mesh, split_group
 from repro_torch.graphs import CudaGraph, require_captured
 
 
@@ -60,10 +62,24 @@ class Request:
     done: bool = False
 
 
-def _placed_mesh(params):
+def _placed_mesh(model, params):
     """The mesh of placed parameters, or ``None``."""
-    leaf = params["embed"]["w"] if isinstance(params, dict) and "embed" in params else None
+    leaf = model.embed_weight(params)
     return leaf.device_mesh if isinstance(leaf, DTensor) else None
+
+
+def _zero_slot(t, slot: int) -> None:
+    """Zero row ``slot`` of dimension 1 of ``t`` (``(n_periods, B, ...)``)
+    in place. Placed, only the rank whose local rows hold the slot writes,
+    to its own row: no collective and no read back to the host."""
+    if not isinstance(t, DTensor):
+        t[:, slot].zero_()
+        return
+    local = t.to_local()
+    _, r = split_group(t, 1)
+    b = local.shape[1]
+    if slot // b == r:
+        local[:, slot % b].zero_()
 
 
 def _whole_logits(decode_step):
@@ -99,7 +115,7 @@ class ServeEngine:
         self.queue: deque[Request] = deque()
         self.active: list[Request | None] = [None] * slots
         self.pos = np.zeros(slots, np.int32)       # next position per slot
-        self.mesh = _placed_mesh(params)
+        self.mesh = _placed_mesh(model, params)
         self.cache = (model.init_cache(slots, max_len, device=self.device)
                       if self.mesh is None else
                       model.init_cache(slots, max_len, device=self.device, mesh=self.mesh))
@@ -161,12 +177,13 @@ class ServeEngine:
     def _reset_state(self, slot: int) -> None:
         """Zero ``slot``'s rows of every recurrent state of the cache (dict
         entries, stacked over periods: ``(n_periods, B, ...)``) in place, so
-        a decode graph captured over the cache still reads them. KV caches
-        are left as they are: ``kv_len`` masks their stale rows."""
+        a decode graph captured over the cache still reads them; on a placed
+        cache, on the rank that holds the slot (:func:`_zero_slot`). KV
+        caches are left as they are: ``kv_len`` masks their stale rows."""
         for entry in self.cache if isinstance(self.cache, list) else ():
             if isinstance(entry, dict):
                 for t in entry.values():
-                    t[:, slot].zero_()
+                    _zero_slot(t, slot)
 
     # -------------------------------------------------------------- step
 

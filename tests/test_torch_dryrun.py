@@ -10,9 +10,10 @@ flag changes nothing in this one, and the variable is restored.
 The cells: Qwen2-0.5B ``train_4k`` at the full config (its per-rank
 argument bytes, parameters and moments against the reference's spec
 arithmetic, and against its recorded cell), a full-config decode cell,
-the local shard shape of every parameter, moment and cache leaf of the
-seven placed families' full configs on both production meshes against the
-reference's ``param_specs``, ``opt_specs_from`` and ``cache_specs``,
+the local shard shape of every parameter, moment and cache leaf of every
+arch's full config on both production meshes against the reference's
+``param_specs``, ``opt_specs_from`` and ``cache_specs``, the recurrent and
+encoder-decoder families' full-config decode cells,
 reduced configs across both meshes, the op counter's FLOPs and bytes, and
 the attribution of a collective.
 """
@@ -48,7 +49,8 @@ from repro_torch.launch.mesh import fake_production_mesh  # noqa: E402
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 PLACED = ["llama3-8b", "qwen2-0.5b", "yi-9b", "codeqwen1.5-7b", "llava-next-mistral-7b",
-          "dbrx-132b", "kimi-k2-1t-a32b"]
+          "dbrx-132b", "kimi-k2-1t-a32b", "jamba-1.5-large-398b", "xlstm-125m",
+          "whisper-large-v3"]
 MESHES = {False: ((16, 16), ("data", "model")), True: ((2, 16, 16), ("pod", "data", "model"))}
 REPORT_KEYS = {"arch", "shape", "mesh", "chips", "flops", "bytes_accessed", "collectives",
                "memory", "roofline"}
@@ -151,10 +153,17 @@ def test_llama_decode_cell_places_the_cache_by_sequence():
     assert rep["collectives"]["all-reduce"] > 0 and rep["flops"] > 0
 
 
-def test_unplaced_families_are_reported_skipped():
-    for arch in ("jamba-1.5-large-398b", "xlstm-125m", "whisper-large-v3"):
-        rep = dryrun.dryrun_cell(arch, "decode_32k", multi_pod=False, verbose=False)
-        assert "Placement of the Mamba, xLSTM and Whisper families" in rep["skipped"]
+@pytest.mark.parametrize("arch", ["jamba-1.5-large-398b", "xlstm-125m", "whisper-large-v3"])
+def test_recurrent_and_encoder_decoder_families_are_traced(arch):
+    """Jamba's, xLSTM's and Whisper's full-config decode cells are traced
+    placed (their mixers and the encoder-decoder run on the mesh), their
+    cache bytes a rank the reference's ``cache_specs`` arithmetic; a
+    full-attention arch's ``long_500k`` is still skipped."""
+    rep = dryrun.dryrun_cell(arch, "decode_32k", multi_pod=False, verbose=False)
+    assert "skipped" not in rep and REPORT_KEYS <= set(rep) and rep["mode"] == "tp"
+    _, _, cache = _ref_specs(arch, SHAPES["decode_32k"], False, "tp")
+    assert rep["memory"]["cache_size_in_bytes"] == _ref_bytes(cache, False)
+    assert rep["flops"] > 0 and rep["collectives"]["all-reduce"] > 0
     rep = dryrun.dryrun_cell("llama3-8b", "long_500k", multi_pod=False, verbose=False)
     assert "sub-quadratic" in rep["skipped"]
 
