@@ -30,6 +30,13 @@ The engine records only while tracing is enabled
 (:func:`repro_torch.obs.trace.enabled`), so the disabled path stays one
 flag check. The store is bounded: completed timelines beyond ``capacity``
 are dropped oldest first (the counts survive in ``ServeMetrics``).
+
+The edges a batch shares (``pack``, ``dispatch``, ``slice``, ``reply``)
+are recorded once a batch (:meth:`TimelineStore.batch`): one record with
+the batch's request ids and any per-request values, which each request's
+timeline holds by reference and expands into its own event when read. A
+timeline reads out the same events, in the same order, as if each edge had
+been recorded request by request.
 """
 from __future__ import annotations
 
@@ -42,15 +49,51 @@ LIFECYCLE_EVENTS = (
 TERMINAL_EVENTS = frozenset(("reply", "expire", "reject", "fail"))
 
 
+class _BatchEdge:
+    """One lifecycle edge shared by a batch's requests: ``per`` maps an
+    attribute to its values in ``rids`` order, ``attrs`` are common."""
+
+    __slots__ = ("name", "t", "rids", "per", "attrs", "_at")
+
+    def __init__(self, name: str, t: float, rids, per: dict, attrs: dict):
+        self.name = name
+        self.t = t
+        self.rids = rids
+        self.per = per
+        self.attrs = attrs
+        self._at = None
+
+    def expand(self, rid) -> dict:
+        ev = {"event": self.name, "t": self.t}
+        if self.per:
+            if self._at is None:
+                self._at = {r: i for i, r in enumerate(self.rids)}
+            i = self._at[rid]
+            for k, v in self.per.items():
+                ev[k] = v[i]
+        ev.update(self.attrs)
+        return ev
+
+
 class RequestTimeline:
     """One request's ordered event list (see module docstring)."""
 
-    __slots__ = ("rid", "model", "events")
+    __slots__ = ("rid", "model", "_entries")
 
     def __init__(self, rid, model=None):
         self.rid = rid
         self.model = model
-        self.events: list[dict] = []
+        # own events (dicts) and the batch edges it shares, in order
+        self._entries: list = []
+
+    @property
+    def events(self) -> list[dict]:
+        return [e if isinstance(e, dict) else e.expand(self.rid)
+                for e in self._entries]
+
+    def _names(self):
+        return (e["event"] if isinstance(e, dict) else e.name
+                for e in self._entries)
 
     def add(self, name: str, t: float, **attrs) -> dict:
         if name not in LIFECYCLE_EVENTS:
@@ -58,17 +101,17 @@ class RequestTimeline:
                 f"unknown timeline event {name!r}; valid: {LIFECYCLE_EVENTS}"
             )
         ev = {"event": name, "t": float(t), **attrs}
-        self.events.append(ev)
+        self._entries.append(ev)
         return ev
 
     def has(self, name: str) -> bool:
-        return any(e["event"] == name for e in self.events)
+        return any(n == name for n in self._names())
 
     @property
     def terminal_event(self) -> str | None:
-        for e in reversed(self.events):
-            if e["event"] in TERMINAL_EVENTS:
-                return e["event"]
+        for n in reversed(list(self._names())):
+            if n in TERMINAL_EVENTS:
+                return n
         return None
 
     @property
@@ -86,10 +129,11 @@ class RequestTimeline:
         ``{"queue_s": admit->first pack, "dispatch_s": pack->dispatch,
         "execute_s": dispatch->slice, "total_s": admit->terminal}`` —
         missing stages are omitted."""
+        events = self.events
         first = {}
-        for e in self.events:
+        for e in events:
             first.setdefault(e["event"], e["t"])
-        last_t = self.events[-1]["t"] if self.events else None
+        last_t = events[-1]["t"] if events else None
         out = {}
         if "admit" in first and "pack" in first:
             out["queue_s"] = first["pack"] - first["admit"]
@@ -139,6 +183,30 @@ class TimelineStore:
             self._active.pop(rid, None)
             self._done.append(tl)
         return tl
+
+    def batch(self, rids, name: str, t: float, *, model=None, per=None,
+              **attrs) -> None:
+        """One edge of every request in ``rids`` at ``t``, recorded once
+        (see the module docstring): ``per`` maps an attribute to its values
+        in ``rids`` order, ``attrs`` are the batch's. Each request's
+        timeline reads it as :meth:`event` would have recorded it."""
+        if name not in LIFECYCLE_EVENTS:
+            raise ValueError(
+                f"unknown timeline event {name!r}; valid: {LIFECYCLE_EVENTS}"
+            )
+        edge = _BatchEdge(name, float(t), rids, per or {}, attrs)
+        active = self._active
+        terminal = name in TERMINAL_EVENTS
+        for rid in rids:
+            tl = active.get(rid)
+            if tl is None:
+                tl = active[rid] = RequestTimeline(rid, model)
+            elif model is not None and tl.model is None:
+                tl.model = model
+            tl._entries.append(edge)
+            if terminal:
+                del active[rid]
+                self._done.append(tl)
 
     def get(self, rid) -> RequestTimeline | None:
         tl = self._active.get(rid)

@@ -23,9 +23,15 @@ synchronise of its own.
 Timestamps are monotonic-clock seconds (``time.monotonic`` by default;
 injectable for fake-clock tests), the clock the serving engine schedules
 with, so spans, request timelines and dispatch deadlines compare directly.
+
+:class:`GcSpans` records each pass of Python's collector as a ``host.gc``
+span while tracing is on; the serving replay and the training loop install
+it for their own duration only.
 """
 from __future__ import annotations
 
+import gc
+import itertools
 import threading
 import time
 from collections import deque
@@ -112,6 +118,46 @@ class _Span:
         return False
 
 
+class _SpanLog:
+    """The tracer's finished spans, oldest first, bounded at ``maxlen``.
+
+    Each is kept as one flat tuple of plain values (the args' keys and
+    values in turn after the five fields), which Python's collector stops
+    tracking at its next pass, and read out as the span's dict (``name``,
+    ``ts``, ``dur``, ``depth``, ``tid``, ``args``). Kept as dicts, a long
+    trace's records stay tracked until a full pass, and each full pass
+    walks them all: with spans on a whole serving window at 3,200 req/s on
+    an H100, passes of 43-196 ms that backed the loop up."""
+
+    __slots__ = ("_items",)
+
+    def __init__(self, maxlen: int):
+        self._items: deque = deque(maxlen=maxlen)
+
+    def append(self, name: str, ts: float, dur: float, depth: int, tid: int,
+               args: dict) -> None:
+        self._items.append((name, ts, dur, depth, tid,
+                            *itertools.chain.from_iterable(args.items())))
+
+    @staticmethod
+    def _read(item) -> dict:
+        return {"name": item[0], "ts": item[1], "dur": item[2],
+                "depth": item[3], "tid": item[4],
+                "args": dict(zip(item[5::2], item[6::2]))}
+
+    def __len__(self) -> int:
+        return len(self._items)
+
+    def __iter__(self):
+        return map(self._read, self._items)
+
+    def __getitem__(self, i: int) -> dict:
+        return self._read(self._items[i])
+
+    def names(self):
+        return (item[0] for item in self._items)
+
+
 class Tracer:
     """The span/counter/gauge/observation registry (see module docstring).
 
@@ -135,7 +181,7 @@ class Tracer:
         self.reset()
 
     def reset(self) -> None:
-        self.spans: deque = deque(maxlen=self.max_events)
+        self.spans = _SpanLog(self.max_events)
         self.instants: deque = deque(maxlen=self.max_events)
         self.counters: dict[str, float] = {}
         self.gauges: dict[str, float] = {}
@@ -155,17 +201,23 @@ class Tracer:
         return _Span(self, name, attrs)
 
     def _record_span(self, sp: _Span, t1: float) -> None:
-        rec = {
-            "name": sp.name,
-            "ts": sp.t0,
-            "dur": t1 - sp.t0,
-            "depth": sp.depth,
-            "tid": threading.get_ident(),
-            "args": sp.args,
-        }
-        self.spans.append(rec)
-        for sink in self._sinks:
-            sink("span", rec)
+        self._append_span(sp.name, sp.t0, t1, sp.depth, sp.args)
+
+    def _append_span(self, name: str, t0: float, t1: float, depth: int,
+                     args: dict) -> None:
+        tid = threading.get_ident()
+        self.spans.append(name, t0, t1 - t0, depth, tid, args)
+        if self._sinks:
+            rec = {"name": name, "ts": t0, "dur": t1 - t0, "depth": depth,
+                   "tid": tid, "args": args}
+            for sink in self._sinks:
+                sink("span", rec)
+
+    def record(self, name: str, t0: float, t1: float, **attrs) -> None:
+        """A finished span from ``t0`` to ``t1`` (this tracer's clock),
+        nested under the spans open now: an interval whose start was read
+        where no ``with`` block could hold it (a collector pass)."""
+        self._append_span(name, t0, t1, len(self._stack()), attrs)
 
     # --------------------------------------------- counters/gauges/series
 
@@ -211,8 +263,8 @@ class Tracer:
 
     def span_names(self) -> dict[str, int]:
         out: dict[str, int] = {}
-        for s in self.spans:
-            out[s["name"]] = out.get(s["name"], 0) + 1
+        for name in self.spans.names():
+            out[name] = out.get(name, 0) + 1
         return out
 
     def span_walls(self, name: str) -> list[float]:
@@ -259,6 +311,50 @@ def enable() -> None:
 def disable() -> None:
     global _ENABLED
     _ENABLED = False
+
+
+class GcSpans:
+    """A ``gc.callbacks`` hook that records each pass of Python's collector
+    as a ``host.gc`` span (``generation``, ``collected``) into the
+    process-global tracer, while tracing is on. :meth:`install` is
+    idempotent and :meth:`remove` undoes it: a loop installs the hook at
+    its first traced pass and removes it when it returns, so no collection
+    outside that loop (another package's test, say) records a span.
+    Installed while tracing, it records a zero-length ``host.gc.hook``
+    span, so that a trace with no ``host.gc`` tells "no pass" from "no
+    hook"."""
+
+    __slots__ = ("installed", "_t0", "_hook")
+
+    def __init__(self):
+        self.installed = False
+        self._t0 = None
+        self._hook = self._callback   # one bound method, for remove()
+
+    def install(self) -> None:
+        if not self.installed:
+            gc.callbacks.append(self._hook)
+            self.installed = True
+            if _ENABLED:
+                t = _TRACER.clock()
+                _TRACER.record("host.gc.hook", t, t)
+
+    def remove(self) -> None:
+        if self.installed:
+            gc.callbacks.remove(self._hook)
+            self.installed = False
+
+    def _callback(self, phase: str, info: dict) -> None:
+        if not _ENABLED:
+            self._t0 = None
+            return
+        if phase == "start":
+            self._t0 = _TRACER.clock()
+        elif self._t0 is not None:
+            _TRACER.record("host.gc", self._t0, _TRACER.clock(),
+                           generation=info["generation"],
+                           collected=info["collected"])
+            self._t0 = None
 
 
 # ------------------------------------------------------- hot-path helpers

@@ -40,8 +40,14 @@ is enabled the engine records each request's lifecycle in
 and the host copy of its output, the one sync a batch has) and
 ``serve.slice``, with the counters ``serve.admitted``,
 ``serve.completed``, ``serve.rejected``, ``serve.expired`` and
-``serve.malformed`` and the observation ``serve.batch_wall_s``. With
-tracing off each seam is one flag check. The
+``serve.malformed`` and the observation ``serve.batch_wall_s``. The port
+adds the spans :data:`PORT_SPANS`, so that every instant of a
+:meth:`GanEngine.replay` lies under a span: ``serve.admit`` (a loop pass's
+submits), ``serve.step`` (a :meth:`GanEngine.step`), ``serve.wait`` (the
+idle sleep), the children ``serve.launch``, ``serve.sync`` and
+``serve.copy_out`` of this engine's ``serve.dispatch``, and ``host.gc``
+(a collector pass during the replay; ``host.gc.hook`` marks the hook).
+With tracing off each seam is one flag check. The
 :class:`~repro_torch.serve.supervisor.ReplicaSupervisor` subclasses this
 engine and routes the packed batches across replicas.
 """
@@ -73,6 +79,11 @@ from repro_torch.obs.timeline import TimelineStore
 from repro_torch.serve.batching import BucketPolicy, QueueFull
 from repro_torch.serve.metrics import ServeMetrics
 
+# the spans the port records beyond the reference's (module docstring)
+PORT_SPANS = frozenset(("serve.admit", "serve.step", "serve.wait",
+                        "serve.launch", "serve.sync", "serve.copy_out",
+                        "host.gc", "host.gc.hook"))
+
 
 @dataclasses.dataclass
 class GenRequest:
@@ -87,7 +98,9 @@ class GenRequest:
     :class:`~repro_torch.serve.supervisor.ReplicaSupervisor`). ``t_done``
     is stamped at every terminal resolution. ``retries`` counts dispatch
     attempts beyond the first; ``replica`` records which replica (or
-    ``"inline"``) served the request, when a supervisor did.
+    ``"inline"``) served the request, when a supervisor did. ``t_due`` is
+    when the request was due (:meth:`GanEngine.replay` stamps its arrival
+    on the engine's clock); it stays None where unknown.
     """
 
     model: str
@@ -104,6 +117,7 @@ class GenRequest:
     failed: bool = False
     retries: int = 0
     replica: str | None = None
+    t_due: float | None = None
 
     @property
     def n(self) -> int:
@@ -343,7 +357,8 @@ class GanEngine:
             raise ValueError(
                 f"deadline_s must be positive, got {req.deadline_s}"
             )
-        if self.queued_samples + n > self.policy.max_queue:
+        queued = self.queued_samples
+        if queued + n > self.policy.max_queue:
             req.rejected = True
             req.t_submit = req.t_done = self.clock()
             self.metrics.record_reject(req.model)
@@ -352,7 +367,7 @@ class GanEngine:
                          req.t_done, model=req.model, n=n)
                 obs.counter("serve.rejected")
             raise QueueFull(
-                f"queue holds {self.queued_samples} samples, request of {n} "
+                f"queue holds {queued} samples, request of {n} "
                 f"exceeds max_queue={self.policy.max_queue}"
             )
         req.rid = next(self._rid)
@@ -363,7 +378,7 @@ class GanEngine:
             self._tl(req.rid, "admit", req.t_submit, model=req.model, n=n,
                      deadline_s=req.deadline_s)
             self._tl(req.rid, "queue", req.t_submit, depth=len(slot.queue),
-                     queued_samples=self.queued_samples)
+                     queued_samples=queued + n)
             obs.counter("serve.admitted")
         return req.rid
 
@@ -425,7 +440,9 @@ class GanEngine:
         """The requests' latents, padded with zero rows up to the bucket:
         ``(z, n_real)`` with ``z`` a host array of ``bucket`` rows."""
         tracing = obs.enabled()
-        with (obs.span("serve.pack", bucket=bucket, reqs=len(reqs))
+        if tracing:
+            rids = tuple(r.rid for r in reqs)
+        with (obs.span("serve.pack", bucket=bucket, reqs=len(reqs), rids=rids)
               if tracing else obs.NOOP_SPAN):
             z = np.concatenate(
                 [np.asarray(r.z, dtype=np.float32) for r in reqs], axis=0
@@ -437,10 +454,9 @@ class GanEngine:
                     axis=0,
                 )
         if tracing:
-            t = self.clock()
-            for r in reqs:
-                self._tl(r.rid, "pack", t, model=r.model, bucket=bucket,
-                         n_real=n_real)
+            self.timeline.batch(rids, "pack", self.clock(),
+                                model=reqs[0].model, bucket=bucket,
+                                n_real=n_real)
         return z, n_real
 
     def _finalize(self, name: str, reqs: list, out: torch.Tensor,
@@ -448,11 +464,11 @@ class GanEngine:
                   replica: str | None = None) -> None:
         """Record the batch and hand each request its contiguous rows; pad
         rows never reach a client."""
-        now = self.clock()
-        self.metrics.record_batch(n_real, bucket, now - t0, now, model=name)
         tracing = obs.enabled()
         with (obs.span("serve.slice", model=name, reqs=len(reqs))
               if tracing else obs.NOOP_SPAN):
+            now = self.clock()
+            self.metrics.record_batch(n_real, bucket, now - t0, now, model=name)
             row = 0
             for r in reqs:
                 r.output = out[row : row + r.n]
@@ -460,15 +476,20 @@ class GanEngine:
                 r.done = True
                 r.t_done = now
                 r.replica = replica
-                self.metrics.record_completion(r.latency_s, model=name)
+                self.metrics.record_completion(
+                    r.latency_s, model=name,
+                    due_latency_s=None if r.t_due is None else now - r.t_due)
                 self.completed.append(r)
-                if tracing:
-                    self._tl(r.rid, "slice", now, model=name, rows=r.n)
-                    self._tl(r.rid, "reply", now, model=name,
-                             latency_s=r.latency_s, replica=replica)
-        if tracing:
-            obs.counter("serve.completed", len(reqs))
-            obs.observe("serve.batch_wall_s", now - t0)
+            if tracing:
+                rids = [r.rid for r in reqs]
+                self.timeline.batch(rids, "slice", now, model=name,
+                                    per={"rows": [r.n for r in reqs]})
+                self.timeline.batch(
+                    rids, "reply", now, model=name,
+                    per={"latency_s": [r.latency_s for r in reqs]},
+                    replica=replica)
+                obs.counter("serve.completed", len(reqs))
+                obs.observe("serve.batch_wall_s", now - t0)
 
     def _execute(self, name: str, reqs: list, bucket: int) -> None:
         """Pad-and-mask dispatch: run the executable on the packed latents
@@ -483,14 +504,22 @@ class GanEngine:
         t0 = self.clock()
         tracing = obs.enabled()
         if tracing:
-            for r in reqs:
-                self._tl(r.rid, "dispatch", t0, model=name, bucket=bucket)
-        with (obs.span("serve.dispatch", model=name, bucket=bucket,
-                       n_real=n_real) if tracing else obs.NOOP_SPAN):
-            out = self._executable(name, bucket)(slot.params,
-                                                 torch.from_numpy(z))
-            self._sync()
-            out = out.cpu()
+            self.timeline.batch([r.rid for r in reqs], "dispatch", t0,
+                                model=name, bucket=bucket)
+            dispatch = obs.span("serve.dispatch", model=name, bucket=bucket,
+                                n_real=n_real)
+            launch, sync = obs.span("serve.launch"), obs.span("serve.sync")
+            copy_out = obs.span("serve.copy_out")
+        else:
+            dispatch = launch = sync = copy_out = obs.NOOP_SPAN
+        with dispatch:
+            with launch:
+                out = self._executable(name, bucket)(slot.params,
+                                                     torch.from_numpy(z))
+            with sync:
+                self._sync()
+            with copy_out:
+                out = out.cpu()
         self._finalize(name, reqs, out, n_real, bucket, t0)
 
     # -------------------------------------------------------- conservation
@@ -519,41 +548,84 @@ class GanEngine:
         batching between arrivals under the live policy, then drain. A
         ``QueueFull`` sheds that request (``rejected``); a malformed one is
         marked ``failed`` and counted in ``metrics.malformed``; the rest of
-        the trace is served."""
+        the trace is served. Each request's ``t_due`` is the replay's start
+        plus its offset.
+
+        While tracing, each loop pass lies under the spans ``serve.admit``
+        (its submits: ``n`` admitted, ``refused``, and the sum ``lag_s`` and
+        largest ``lag_max_s`` of admission minus due time), ``serve.step``
+        and ``serve.wait``, and a collector pass records ``host.gc``
+        (:class:`~repro_torch.obs.trace.GcSpans`, installed at the first
+        traced pass and removed on return)."""
         order = list(zip(requests, arrivals_s))
         if any(b < a for (_, a), (_, b) in zip(order, order[1:])):
             raise ValueError("arrivals_s must be sorted ascending")
+        gc_spans = obs.GcSpans()
         t0 = self.clock()
         i = 0
-        while i < len(order) or self.queued_requests:
-            now = self.clock() - t0
-            while i < len(order) and order[i][1] <= now:
-                req = order[i][0]
-                try:
-                    self.submit(req)
-                except QueueFull:
-                    pass   # shed: request marked rejected by submit
-                except ValueError:
-                    req.failed = True
-                    req.t_submit = req.t_done = self.clock()
-                    self.metrics.record_malformed(getattr(req, "model", None))
-                    if obs.enabled():
-                        self._tl(f"malformed#{self.metrics.malformed}", "fail",
-                                 req.t_done, model=getattr(req, "model", None),
-                                 reason="malformed")
-                        obs.counter("serve.malformed")
-                i += 1
-            if self.step():
-                continue
-            if i < len(order):   # idle until the next arrival or deadline
-                wait = order[i][1] - (self.clock() - t0)
-                if self.queued_requests:
-                    wait = min(wait, self.policy.max_wait_s)
-                if wait > 0:
-                    sleep(min(wait, 1e-3))
-            elif self.queued_requests:
-                self.step(drain=True)   # no more arrivals: flush the tail
+        try:
+            while i < len(order) or self.queued_requests:
+                tracing = obs.enabled()
+                if tracing and not gc_spans.installed:
+                    gc_spans.install()
+                now = self.clock() - t0
+                if i < len(order) and order[i][1] <= now:
+                    with (obs.span("serve.admit") if tracing
+                          else obs.NOOP_SPAN) as sp:
+                        i = self._admit_due(order, i, now, t0, sp, tracing)
+                with obs.span("serve.step") if tracing else obs.NOOP_SPAN:
+                    ran = self.step()
+                if ran:
+                    continue
+                if i < len(order):   # idle until the next arrival or deadline
+                    wait = order[i][1] - (self.clock() - t0)
+                    if self.queued_requests:
+                        wait = min(wait, self.policy.max_wait_s)
+                    if wait > 0:
+                        with obs.span("serve.wait") if tracing else obs.NOOP_SPAN:
+                            sleep(min(wait, 1e-3))
+                elif self.queued_requests:
+                    # no more arrivals: flush the tail
+                    with obs.span("serve.step") if tracing else obs.NOOP_SPAN:
+                        self.step(drain=True)
+        finally:
+            gc_spans.remove()
         return requests
+
+    def _admit_due(self, order: list, i: int, now: float, t0: float, sp,
+                   tracing: bool) -> int:
+        """Submit every request of ``order`` from ``i`` on that is due by
+        ``now`` (replay-relative), stamping ``t_due``; returns the next
+        index. While tracing, ``sp`` (the pass's ``serve.admit``) gets the
+        counts and the lags."""
+        n = refused = 0
+        lag = lag_max = 0.0
+        while i < len(order) and order[i][1] <= now:
+            req, at = order[i]
+            req.t_due = t0 + at
+            try:
+                self.submit(req)
+            except QueueFull:
+                refused += 1   # shed: request marked rejected by submit
+            except ValueError:
+                req.failed = True
+                req.t_submit = req.t_done = self.clock()
+                self.metrics.record_malformed(getattr(req, "model", None))
+                if obs.enabled():
+                    self._tl(f"malformed#{self.metrics.malformed}", "fail",
+                             req.t_done, model=getattr(req, "model", None),
+                             reason="malformed")
+                    obs.counter("serve.malformed")
+            else:
+                if tracing:
+                    n += 1
+                    late = req.t_submit - req.t_due
+                    lag += late
+                    lag_max = max(lag_max, late)
+            i += 1
+        if tracing:
+            sp.set(n=n, refused=refused, lag_s=lag, lag_max_s=lag_max)
+        return i
 
 
 def sequential_executables(cfg, params: dict, sizes, *, device=None,

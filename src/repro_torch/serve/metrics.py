@@ -14,6 +14,10 @@ The four signals the bucket policy is tuned against:
 * **latency percentiles** — p50/p95/p99 of request completion latency
   (admission to output ready). The max-wait deadline bounds the queueing
   component; bucket sizes trade the execution component against pad waste.
+  Beside it, where a request carries the time it was due
+  (``GenRequest.t_due``, stamped by the engine's replay), the latency from
+  that due time (``due_latency_s``): an open-loop client's latency, which
+  also counts how late the loop admitted the request.
 * **pad-waste fraction** — padded-but-discarded rows / dispatched rows.
   High pad waste means the bucket set is too coarse for the traffic's size
   distribution (or ``max_wait_s`` is too small, flushing half-empty).
@@ -84,6 +88,7 @@ class ServeMetrics:
 
     def reset(self) -> None:
         self.latencies_s: list = []       # per completed request
+        self.due_latencies_s: list = []   # from t_due, where it was set
         self.batches: int = 0             # dispatches
         self.samples: int = 0             # real rows dispatched
         self.padded: int = 0              # total rows dispatched (incl. pad)
@@ -182,9 +187,12 @@ class ServeMetrics:
             pm["samples"] += n_real
 
     def record_completion(self, latency_s: float,
-                          model: str | None = None) -> None:
+                          model: str | None = None,
+                          due_latency_s: float | None = None) -> None:
         self.requests += 1
         self.latencies_s.append(latency_s)
+        if due_latency_s is not None:
+            self.due_latencies_s.append(due_latency_s)
         pm = self._pm(model)
         if pm is not None:
             pm["requests"] += 1
@@ -287,6 +295,8 @@ class ServeMetrics:
         for edge, n in self.transition_counts.items():
             tr.gauge(f"{prefix}.transition.{edge}", float(n))
         for name, series in ((f"{prefix}.latency_s", self.latencies_s),
+                             (f"{prefix}.due_latency_s",
+                              self.due_latencies_s),
                              (f"{prefix}.expired_residence_s",
                               self.expired_residence_s)):
             tr.observations.pop(name, None)  # republish, don't duplicate
@@ -347,6 +357,7 @@ class ServeMetrics:
             "samples_per_s": self.samples / el if el else 0.0,
             "pad_waste": self.pad_waste,
             "latency_s": self.latency_percentiles(),
+            "due_latency_s": _percentiles(self.due_latencies_s),
             "per_model": per_model,
         }
 

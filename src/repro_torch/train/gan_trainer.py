@@ -49,7 +49,12 @@ tracing is enabled each step records the spans ``train.step`` (the hook,
 the inputs and the step), ``train.batch`` (drawing the inputs) and
 ``train.step_fn`` (the graph's replay and the read-back of the four
 scalars, the step's one sync), the observation ``train.step_s`` and the
-counters ``train.steps`` and ``train.skipped_steps``. An optional
+counters ``train.steps`` and ``train.skipped_steps``. The port splits
+``train.step_fn`` into ``train.launch`` (the static copies and the
+replay), ``train.readback`` (the scalars' read-back) and ``train.commit``
+(the NaN guard and the state's copy), and records a collector pass during
+:meth:`GanTrainer.run` as ``host.gc`` (``host.gc.hook`` marks the hook;
+:data:`PORT_SPANS`). An optional
 :class:`~repro_torch.obs.flight_recorder.FlightRecorder` (``recorder=``)
 records every step and dumps on a NaN-guard skip (``nan_guard``), on an
 exception (``crash:<ExcType>``) and after SIGTERM's checkpoint
@@ -102,6 +107,10 @@ from repro_torch.train.checkpoint import (
     save_checkpoint,
 )
 from repro_torch.tree import tree_leaves, tree_map
+
+# the spans the port records beyond the reference's (module docstring)
+PORT_SPANS = frozenset(("train.launch", "train.readback", "train.commit",
+                        "host.gc", "host.gc.hook"))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -297,22 +306,26 @@ class GanTrainer:
         returns the static state buffer, into which the new state was
         copied only if the step was finite (see the module docstring); on
         the CPU it returns the new state, or ``state`` itself."""
-        if self.device.type == "cuda":
-            graph = self._step_graph(state, reals, zs)
-            new, stats = graph(state, reals, zs)
-            state = graph.inputs[0]   # the donated buffer, the caller's state in it
-        else:
-            new, stats = self._step_eager(state, reals, zs)
-        vals = stats.tolist()
-        ok = all(np.isfinite(vals))
-        metrics = {"g_loss": vals[0], "d_loss": vals[1], "g_gnorm": vals[2],
-                   "d_gnorm": vals[3], "skipped": int(not ok)}
-        if not ok:   # the old state, whole: nothing wrote into it
-            return state, metrics
-        if self.device.type == "cuda":   # commit the graph's new state
-            torch._foreach_copy_(tree_leaves(state), tree_leaves(new))
-            return state, metrics
-        return new, metrics
+        tracing = obs.enabled()
+        with obs.span("train.launch") if tracing else obs.NOOP_SPAN:
+            if self.device.type == "cuda":
+                graph = self._step_graph(state, reals, zs)
+                new, stats = graph(state, reals, zs)
+                state = graph.inputs[0]   # the donated buffer, the caller's state in it
+            else:
+                new, stats = self._step_eager(state, reals, zs)
+        with obs.span("train.readback") if tracing else obs.NOOP_SPAN:
+            vals = stats.tolist()
+        with obs.span("train.commit") if tracing else obs.NOOP_SPAN:
+            ok = all(np.isfinite(vals))
+            metrics = {"g_loss": vals[0], "d_loss": vals[1], "g_gnorm": vals[2],
+                       "d_gnorm": vals[3], "skipped": int(not ok)}
+            if not ok:   # the old state, whole: nothing wrote into it
+                return state, metrics
+            if self.device.type == "cuda":   # commit the graph's new state
+                torch._foreach_copy_(tree_leaves(state), tree_leaves(new))
+                return state, metrics
+            return new, metrics
 
     # ------------------------------------------------------------ inputs
 
@@ -379,6 +392,7 @@ class GanTrainer:
         crash loses at most the steps since the last checkpoint."""
         self._stop = False
         prev_handler = self._install_sigterm()
+        gc_spans = obs.GcSpans()
         try:
             step, state = self.resume(state)
             if self.resumed_step is not None:
@@ -389,6 +403,8 @@ class GanTrainer:
             try:
                 while step < steps and not self._stop:
                     tracing = obs.enabled()
+                    if tracing and not gc_spans.installed:
+                        gc_spans.install()
                     with (obs.span("train.step", step=step) if tracing
                           else obs.NOOP_SPAN):
                         if self.hooks is not None:
@@ -446,6 +462,7 @@ class GanTrainer:
                 self.recorder.dump("sigterm", extra={"step": step})
             return state, history
         finally:
+            gc_spans.remove()
             if prev_handler is not None:
                 signal.signal(signal.SIGTERM, prev_handler)
 

@@ -921,7 +921,8 @@ def test_traced_engine_replays_count_the_eager_launches(card, tracing):
     assert eng.timeline.incomplete() == []
     assert eng.timeline.reconcile(eng.metrics.conservation())["ok"]
     names = tracing.span_names()
-    assert all(names[n] == 4 for n in ("serve.pack", "serve.dispatch", "serve.slice"))
+    assert all(names[n] == 4 for n in ("serve.pack", "serve.dispatch", "serve.slice",
+                                       "serve.launch", "serve.sync", "serve.copy_out"))
 
 
 def test_two_replica_supervisor_serves_unbatched_bits(card):

@@ -6,21 +6,29 @@ batched outputs differ from its unbatched ones by about 1 ulp, so bitwise
 equality is not asked of the CPU). Then the engine's unit tests from
 ``tests/test_gan_engine.py`` through the port's API: bucket policy,
 metrics, FIFO and cross-model fairness, deadline flush with a fake clock,
-backpressure, expiry, replay and the conservation ledger.
+backpressure, expiry, replay and the conservation ledger. Last, the
+replay's spans under a fake clock: the port's own (``PORT_SPANS``) cover
+the loop, nest per batch and carry the admission lags, the collector's
+hook lives only while a traced replay runs, and the timelines and the
+reference's span names equal the reference's replay.
 """
+import gc
+
 import jax
 import numpy as np
 import pytest
 import torch
 
 from repro.models import gan as jgan
+from repro.obs import trace as jobs
 from repro.serve import BucketPolicy as JBucketPolicy
 from repro.serve import GanEngine as JGanEngine
 from repro.serve import GenRequest as JGenRequest
 from repro_torch.models import gan
+from repro_torch.obs import trace as obs
 from repro_torch.serve import BucketPolicy, GanEngine, GenRequest, QueueFull
 from repro_torch.serve.batching import pow2_buckets
-from repro_torch.serve.gan_engine import sequential_executables
+from repro_torch.serve.gan_engine import PORT_SPANS, sequential_executables
 from repro_torch.serve.metrics import ServeMetrics
 from repro_torch.weights import from_jax_params
 
@@ -385,3 +393,287 @@ def test_conservation_ledger(tiny):
     assert c["expired"] == 1 and c["rejected"] == 1 and c["queued"] == 0
     assert sorted(r.terminal_state for r in reqs) == [
         "done", "done", "expired", "rejected"]
+
+
+# ------------------------------------------------ replay: spans and stamps
+
+class TickClock(FakeClock):
+    """A fake clock that also moves by ``tick`` at each reading: the host's
+    cost between two readings, which some span must hold."""
+
+    def __init__(self, t=0.0, tick=1e-6):
+        super().__init__(t)
+        self.tick = tick
+
+    def __call__(self):
+        self.t += self.tick
+        return self.t
+
+
+class CostlyEngine(GanEngine):
+    """An engine whose device work and admissions take fake-clock time."""
+
+    def _sync(self):
+        self.clock.advance(2e-3)
+
+    def submit(self, req):
+        self.clock.advance(5e-6)
+        return super().submit(req)
+
+
+@pytest.fixture
+def traced_clock():
+    """Tracing on into a tracer on a :class:`TickClock`; the previous
+    tracer and flag restored afterwards."""
+    clock = TickClock(100.0)
+    tracer = obs.Tracer(clock=clock)
+    prev, was = obs.set_tracer(tracer), obs.enabled()
+    obs.enable()
+    yield clock, tracer
+    obs.set_tracer(prev)
+    (obs.enable if was else obs.disable)()
+
+
+def _schedule(cfg, n=60, seed=13):
+    rng = np.random.default_rng(seed)
+    reqs = [GenRequest("dcgan", _z(rng, 1 + i % 2, cfg.z_dim)) for i in range(n)]
+    arrivals = np.cumsum(rng.exponential(7e-4, size=n)).tolist()
+    return reqs, arrivals
+
+
+def _costly(cfg, params, clock):
+    eng = CostlyEngine(BucketPolicy(buckets=(1, 2, 4, 8), max_wait_s=0.004,
+                                    max_queue=64), device="cpu", clock=clock)
+    eng.register(cfg, params)
+    eng.warmup()
+    return eng
+
+
+def _inside(s, outer):
+    return (outer["ts"] <= s["ts"]
+            and s["ts"] + s["dur"] <= outer["ts"] + outer["dur"]
+            and s["depth"] == outer["depth"] + 1)
+
+
+def _dispatched_at(eng, rid):
+    return next(e["t"] for e in eng.timeline.get(rid).events
+                if e["event"] == "dispatch")
+
+
+def test_replay_wall_lies_under_program_spans(tiny, traced_clock):
+    cfg, params = tiny
+    clock, tracer = traced_clock
+    eng = _costly(cfg, params, clock)
+    reqs, arrivals = _schedule(cfg)
+    t_start = clock.t
+    eng.replay(reqs, arrivals, sleep=clock.advance)
+    wall = clock.t - t_start
+    assert all(r.done for r in reqs)
+    top = [s for s in tracer.spans if s["depth"] == 0]
+    # a collector pass may fall between two spans: host.gc then holds it;
+    # the hook's zero-length mark opens the replay's first traced pass
+    assert ({s["name"] for s in top} - {"host.gc"}
+            == {"serve.admit", "serve.step", "serve.wait", "host.gc.hook"})
+    assert sum(s["dur"] for s in top) >= 0.99 * wall
+    assert eng.timeline.incomplete() == []
+    assert eng.timeline.reconcile(eng.conservation())["ok"]
+
+
+def test_replay_span_tree_per_batch(tiny, traced_clock):
+    cfg, params = tiny
+    clock, tracer = traced_clock
+    eng = _costly(cfg, params, clock)
+    reqs, arrivals = _schedule(cfg)
+    eng.replay(reqs, arrivals, sleep=clock.advance)
+    spans = sorted(tracer.spans, key=lambda s: (s["ts"], s["depth"]))
+    dispatches = [s for s in spans if s["name"] == "serve.dispatch"]
+    assert len(dispatches) == eng.metrics.batches > 1
+    spans = [s for s in spans if s["name"] != "host.gc"]   # anywhere, any time
+    packed = []
+    for d in dispatches:
+        kids = [s["name"] for s in spans if _inside(s, d)]
+        assert kids == ["serve.launch", "serve.sync", "serve.copy_out"]
+        step = next(s for s in spans if s["name"] == "serve.step" and _inside(d, s))
+        batch = [s for s in spans if _inside(s, step)]
+        assert [s["name"] for s in batch] == ["serve.pack", "serve.dispatch",
+                                               "serve.slice"]
+        pack = batch[0]
+        rids = [r.rid for r in reqs
+                if pack["ts"] + pack["dur"] <= _dispatched_at(eng, r.rid) <= d["ts"]]
+        assert pack["args"]["rids"] == tuple(rids) and rids
+        assert pack["args"]["reqs"] == len(rids)
+        packed += rids
+    assert packed == [r.rid for r in eng.completed] == list(range(len(reqs)))
+
+
+def test_replay_admit_spans_carry_the_stamped_lags(tiny, traced_clock):
+    cfg, params = tiny
+    clock, tracer = traced_clock
+    eng = _costly(cfg, params, clock)
+    reqs, arrivals = _schedule(cfg)
+    t0 = clock.t + clock.tick        # the replay's first reading
+    eng.replay(reqs, arrivals, sleep=clock.advance)
+    assert [r.t_due for r in reqs] == [t0 + a for a in arrivals]
+    admits = [s for s in tracer.spans if s["name"] == "serve.admit"]
+    assert sum(s["args"]["n"] for s in admits) == len(reqs)
+    for s in admits:
+        mine = [r for r in reqs if s["ts"] <= r.t_submit <= s["ts"] + s["dur"]]
+        lags = [r.t_submit - r.t_due for r in mine]
+        assert s["args"]["n"] == len(mine) and s["args"]["refused"] == 0
+        assert s["args"]["lag_s"] == sum(lags)
+        assert s["args"]["lag_max_s"] == max(lags)
+    m = eng.metrics
+    assert m.due_latencies_s == [r.t_done - r.t_due for r in eng.completed]
+    assert m.latencies_s == [r.t_done - r.t_submit for r in eng.completed]
+    assert m.summary()["due_latency_s"]["max"] == max(m.due_latencies_s)
+
+
+def test_replay_admit_refused_counts_backpressure_only(tiny, traced_clock):
+    cfg, params = tiny
+    clock, tracer = traced_clock
+    eng = CostlyEngine(BucketPolicy(buckets=(1, 2, 4), max_wait_s=0.004,
+                                    max_queue=4), device="cpu", clock=clock)
+    eng.register(cfg, params)
+    eng.warmup()
+    reqs, _ = _schedule(cfg, n=20)
+    reqs[5].deadline_s = -1.0                      # malformed
+    arrivals = [0.003 * (i // 5) for i in range(len(reqs))]
+    eng.replay(reqs, arrivals, sleep=clock.advance)
+    admits = [s["args"] for s in tracer.spans if s["name"] == "serve.admit"]
+    m = eng.metrics
+    assert m.rejected > 0 and m.malformed == 1 and reqs[5].failed
+    assert sum(a["refused"] for a in admits) == m.rejected
+    assert tracer.counters["serve.rejected"] == m.rejected
+    assert sum(a["n"] for a in admits) == len(reqs) - m.rejected - 1
+
+
+def test_replay_records_collector_passes_and_removes_its_hook(tiny, traced_clock):
+    cfg, params = tiny
+    clock, tracer = traced_clock
+    eng = _costly(cfg, params, clock)
+    reqs, arrivals = _schedule(cfg, n=12)
+    before = list(gc.callbacks)
+    hooked = []
+
+    def sleep(dt):
+        if not hooked:
+            hooked.append(len(gc.callbacks))
+            gc.collect()
+        clock.advance(dt)
+
+    eng.replay(reqs, arrivals, sleep=sleep)
+    assert hooked == [len(before) + 1]
+    assert gc.callbacks == before
+    passes = [s for s in tracer.spans if s["name"] == "host.gc"]
+    full = [s for s in passes if s["args"]["generation"] == 2]
+    assert all(s["args"]["collected"] >= 0 for s in passes)
+    assert any(_inside(g, w) for g in full
+               for w in tracer.spans if w["name"] == "serve.wait")
+
+    def failing(dt):
+        raise RuntimeError("stop")
+
+    with pytest.raises(RuntimeError):
+        eng.replay(*_schedule(cfg, n=4), sleep=failing)
+    assert gc.callbacks == before
+
+
+def test_untraced_replay_records_nothing_and_installs_no_hook(tiny):
+    cfg, params = tiny
+    clock = FakeClock(5.0)
+    tracer = obs.Tracer(clock=clock)
+    prev, was = obs.set_tracer(tracer), obs.enabled()
+    obs.disable()
+    try:
+        eng = _costly(cfg, params, clock)
+        reqs, arrivals = _schedule(cfg, n=12)
+        before = list(gc.callbacks)
+        seen = []
+
+        def sleep(dt):   # at least a microsecond: a sub-ulp step would stall
+            if not seen:
+                gc.collect()
+            seen.append(list(gc.callbacks))
+            clock.advance(max(dt, 1e-6))
+
+        t0 = clock.t
+        eng.replay(reqs, arrivals, sleep=sleep)
+    finally:
+        obs.set_tracer(prev)
+        (obs.enable if was else obs.disable)()
+    assert seen and all(cbs == before for cbs in seen)
+    assert len(tracer.spans) == 0 and not tracer.counters
+    assert len(eng.timeline) == 0
+    # the stamps are plain fields, written whether tracing is on or off
+    assert [r.t_due for r in reqs] == [t0 + a for a in arrivals]
+    assert eng.metrics.due_latencies_s == [r.t_done - r.t_due for r in eng.completed]
+
+
+def test_replay_matches_the_reference_replay(tmp_path, monkeypatch):
+    """Both packages replay one schedule under fake clocks with tracing on:
+    the port's batched timelines read out the reference's per-request
+    events, event for event; the span names equal the reference's over its
+    names, and the port's extra names are exactly ``PORT_SPANS``. Both plan
+    cold (a fresh autotune cache) and per layer."""
+    monkeypatch.setenv("REPRO_AUTOTUNE_CACHE", str(tmp_path / "autotune.json"))
+    cfg_j = jgan.reduced_config(jgan.DCGAN, 16)
+    params_np = jax.tree.map(np.asarray,
+                             jgan.generator_init(jax.random.key(0), cfg_j))
+    cfg = gan.reduced_config(gan.DCGAN, 16)
+    params = from_jax_params(params_np, cfg, "cpu")
+    reqs, _ = _schedule(cfg, n=25, seed=14)
+    # bursts of five (past the queue's bound: some are refused), and a
+    # deadline on every seventh request (some expire while queued)
+    arrivals = [0.002 * (i // 5) for i in range(len(reqs))]
+    deadlines = [0.001 if i % 7 == 3 else None for i in range(len(reqs))]
+    policy = dict(buckets=(1, 2, 4), max_wait_s=0.003, max_queue=6)
+
+    def run(engine_cls, request_cls, p, c):
+        clock = FakeClock(3.0)
+        eng = engine_cls(policy_cls(**policy), clock=clock, fuse="off", **device)
+        eng.register(c, p)
+        eng.warmup()
+        mine = [request_cls("dcgan", r.z, deadline_s=d)
+                for r, d in zip(reqs, deadlines)]
+        collected = []
+
+        def sleep(dt):   # at least a microsecond: a sub-ulp step would stall
+            if not collected:
+                collected.append(gc.collect())
+            clock.advance(max(dt, 1e-6))
+
+        eng.replay(mine, arrivals, sleep=sleep)
+        return eng, mine
+
+    tracers = (obs.Tracer(), jobs.Tracer())
+    prev = (obs.set_tracer(tracers[0]), jobs.set_tracer(tracers[1]))
+    was = (obs.enabled(), jobs.enabled())
+    obs.enable()
+    jobs.enable()
+    try:
+        policy_cls, device = JBucketPolicy, {}
+        jeng, jreqs = run(JGanEngine, JGenRequest, params_np, cfg_j)
+        policy_cls, device = BucketPolicy, {"device": "cpu"}
+        eng, preqs = run(GanEngine, GenRequest, params, cfg)
+    finally:
+        for mod, tracer, on in ((obs, prev[0], was[0]), (jobs, prev[1], was[1])):
+            mod.set_tracer(tracer)
+            (mod.enable if on else mod.disable)()
+
+    assert eng.metrics.rejected == jeng.metrics.rejected > 0
+    assert eng.metrics.expired == jeng.metrics.expired > 0
+    assert ([r.terminal_state for r in preqs]
+            == [r.terminal_state for r in jreqs])
+
+    def events(store):
+        return [(tl.rid, tl.model, tl.events) for tl in store.timelines()]
+
+    assert events(eng.timeline) == events(jeng.timeline)
+    assert eng.timeline.incomplete() == [] and jeng.timeline.incomplete() == []
+    assert eng.timeline.reconcile(eng.conservation())["ok"]
+    names, jnames = tracers[0].span_names(), tracers[1].span_names()
+    assert {k: names.get(k) for k in jnames} == jnames
+    assert set(names) - set(jnames) == PORT_SPANS
+    assert (sum(s["args"]["refused"] for s in tracers[0].spans
+                if s["name"] == "serve.admit") == eng.metrics.rejected)
+    assert tracers[0].counters == tracers[1].counters

@@ -8,8 +8,12 @@ it; the engine's and the trainer's wiring; the shared percentile summary.
 
 Then both packages on one event stream under one fake clock: equal
 ``summary()``, ``segments()``, Chrome trace (but for the exporter's name in
-its metadata) and Prometheus text.
+its metadata) and Prometheus text. The port's own: batch edges read out as
+per-request events, the span log, the collector's ``host.gc`` spans and
+their hook's ``host.gc.hook`` mark, and the trainer's ``train.launch``,
+``train.readback`` and ``train.commit``.
 """
+import gc
 import json
 import os
 import subprocess
@@ -37,7 +41,7 @@ from repro_torch.obs.export import (
 )
 from repro_torch.obs.flight_recorder import FlightRecorder
 from repro_torch.obs.timeline import RequestTimeline, TimelineStore
-from repro_torch.obs.trace import NOOP_SPAN, Tracer, percentiles
+from repro_torch.obs.trace import NOOP_SPAN, GcSpans, Tracer, percentiles
 from repro_torch.serve import BucketPolicy, GanEngine, GenRequest, QueueFull
 
 TINY = gan.GANConfig("tiny", 8, ((4, 4, 4), (8, 4, 3)))
@@ -194,6 +198,86 @@ def test_enabled_helpers_hit_installed_tracer(iso_tracer):
     assert iso_tracer.counters["n"] == 1.0
     assert list(iso_tracer.observations["w"]) == [0.25]
     assert iso_tracer.instants[0]["args"]["k"] == 1
+
+
+
+def test_record_nests_an_interval_under_the_open_spans():
+    clock = FakeClock(1.0)
+    tr = Tracer(clock=clock)
+    with tr.span("outer"):
+        clock.advance(0.5)
+        tr.record("host.gc", 1.1, 1.3, generation=2, collected=7)
+    gcs, outer = tr.spans
+    assert gcs == {"name": "host.gc", "ts": 1.1, "dur": pytest.approx(0.2),
+                   "depth": 1, "tid": outer["tid"],
+                   "args": {"generation": 2, "collected": 7}}
+    assert outer["depth"] == 0
+
+
+def test_span_log_reads_out_dicts_and_is_left_untracked():
+    """Finished spans read out as dicts, oldest first, bounded; they are
+    kept as tuples of plain values, which a collector pass stops tracking,
+    so a long trace adds nothing to later full passes."""
+    clock = FakeClock(2.0)
+    tr = Tracer(clock=clock, max_events=3)
+    for i in range(5):
+        with tr.span("s", i=i, rids=(i, i + 1)):
+            clock.advance(0.5)
+    assert len(tr.spans) == 3
+    assert [s["args"] for s in tr.spans] == [{"i": i, "rids": (i, i + 1)}
+                                             for i in (2, 3, 4)]
+    assert tr.spans[0] == {"name": "s", "ts": 3.0, "dur": 0.5, "depth": 0,
+                           "tid": tr.spans[0]["tid"], "args": {"i": 2, "rids": (2, 3)}}
+    assert tr.span_names() == {"s": 3} and tr.span_walls("s") == [0.5] * 3
+    gc.collect()
+    gc.collect()            # a tuple valued arg goes first, its record next
+    assert not any(gc.is_tracked(item) for item in tr.spans._items)
+
+
+def test_gc_spans_record_only_while_installed_and_tracing(iso_tracer):
+    hook = GcSpans()
+    before = list(gc.callbacks)
+    clock = iso_tracer.clock
+    gc.collect()                                    # not installed
+    t_on = clock()
+    hook.install()
+    hook.install()                                  # idempotent
+    assert len(gc.callbacks) == len(before) + 1
+    with obs.span("outer"):
+        gc.collect()
+    t_off = clock()
+    obs.disable()
+    gc.collect()                                    # installed, tracing off
+    obs.enable()
+    t_on2 = clock()
+    hook.remove()
+    hook.remove()
+    t_off2 = clock()
+    assert gc.callbacks == before
+    gc.collect()                                    # removed
+    passes = [s for s in iso_tracer.spans if s["name"] == "host.gc"]
+    outer = next(s for s in iso_tracer.spans if s["name"] == "outer")
+    assert any(s["args"]["generation"] == 2 and s["depth"] == 1
+               and outer["ts"] <= s["ts"] <= s["ts"] + s["dur"] <= outer["ts"] + outer["dur"]
+               for s in passes)
+    assert all(t_on <= s["ts"] <= t_off or t_on2 <= s["ts"] <= t_off2 for s in passes)
+    assert all(s["args"]["collected"] >= 0 for s in passes)
+    # one zero-length mark, at the install that took effect
+    marks = [s for s in iso_tracer.spans if s["name"] == "host.gc.hook"]
+    assert len(marks) == 1 and marks[0]["dur"] == 0.0 and t_on <= marks[0]["ts"] <= t_off
+
+
+def test_gc_spans_mark_only_an_install_made_while_tracing(iso_tracer):
+    hook = GcSpans()
+    obs.disable()
+    hook.install()
+    obs.enable()
+    try:
+        gc.collect()
+    finally:
+        hook.remove()
+    names = iso_tracer.span_names()
+    assert "host.gc.hook" not in names and names.get("host.gc", 0) >= 1
 
 
 # ---------------------------------------------------------------- timeline
@@ -677,6 +761,42 @@ def test_trainer_steps_emit_spans_and_observations(iso_tracer):
     assert len(iso_tracer.observations["train.step_s"]) == 2
 
 
+class _CollectAt:
+    """A step hook that runs a full collection at one step."""
+
+    def __init__(self, step):
+        self.step, self.hooked = step, []
+
+    def on_step_start(self, step):
+        if step == self.step:
+            self.hooked.append(len(gc.callbacks))
+            gc.collect()
+
+
+def test_trainer_step_fn_splits_into_child_spans(iso_tracer):
+    before = list(gc.callbacks)
+    hook = _CollectAt(1)
+    tr = _tiny_trainer(hooks=hook)
+    tr.run(tr.init_state(torch.Generator().manual_seed(0)), steps=3)
+    spans = sorted(iso_tracer.spans, key=lambda s: (s["ts"], s["depth"]))
+    step_fns = [s for s in spans if s["name"] == "train.step_fn"]
+    assert len(step_fns) == 3
+    for sf in step_fns:
+        kids = [s for s in spans if s["name"] != "host.gc"
+                and sf["ts"] <= s["ts"] <= s["ts"] + s["dur"] <= sf["ts"] + sf["dur"]
+                and s["depth"] == sf["depth"] + 1]
+        assert [s["name"] for s in kids] == ["train.launch", "train.readback",
+                                             "train.commit"]
+    # the collector's hook lives for the run alone, its pass under the step
+    assert hook.hooked == [len(before) + 1] and gc.callbacks == before
+    from repro_torch.train.gan_trainer import PORT_SPANS
+
+    assert ({s["name"] for s in spans} - {"train.step", "train.batch", "train.step_fn"}
+            == PORT_SPANS)
+    assert any(s["name"] == "host.gc" and s["args"]["generation"] == 2
+               and s["depth"] == 1 for s in spans)
+
+
 def test_trainer_nan_guard_dumps_flight_recorder(tmp_path, iso_tracer):
     from repro_torch.train.fault_injection import FaultInjector, FaultPlan
 
@@ -769,6 +889,71 @@ def _feed(trace_mod, timeline_mod):
     store.event("reject#1", "reject", clock(), model="m")
     store.event(9, "admit", clock(), model="m")
     return tr, store
+
+
+def _stream(store, batched):
+    """One serving stream into ``store``: the edges a batch shares per
+    request, or once a batch (``batched``), with per-request retries and
+    terminals between them and timelines touched first by a batch edge."""
+    def edge(rids, name, t, model=None, per=None, **attrs):
+        if batched:
+            store.batch(rids, name, t, model=model, per=per, **attrs)
+            return
+        for i, rid in enumerate(rids):
+            own = {k: v[i] for k, v in (per or {}).items()}
+            store.event(rid, name, t, model=model, **own, **attrs)
+
+    t = 10.0
+    for b in range(4):
+        rids = [3 * b, 3 * b + 1, 3 * b + 2]
+        for rid in rids[1:] if b == 1 else rids:    # rid 3: admitted unseen
+            store.event(rid, "admit", t, model="m", n=1 + rid % 2, deadline_s=None)
+            store.event(rid, "queue", t, depth=rid, queued_samples=2 * rid)
+        t += 0.001
+        edge(rids, "pack", t, model="m", bucket=4, n_real=3)
+        edge(rids, "dispatch", t, model="m", bucket=4)
+        if b == 2:
+            store.event(rids[0], "retry", t, model="m", reason="timeout", attempt=1)
+            store.event(rids[1], "fail", t, model="m", reason="timeout", retries=3)
+            rids = [rids[0], rids[2]]
+            edge(rids, "pack", t, model="m", bucket=2, n_real=2)
+            edge(rids, "dispatch", t, model="m", bucket=2)
+        t += 0.002
+        edge(rids, "slice", t, model="m", per={"rows": [1 + r % 2 for r in rids]})
+        edge(rids, "reply", t, model="m",
+             per={"latency_s": [0.003 + r * 1e-4 for r in rids]}, replica=None)
+    store.event("reject#1", "reject", t, model="m", n=1)
+    store.event(99, "admit", t, model="m")
+    edge([99], "pack", t, model="m", bucket=1, n_real=1)
+
+
+def test_batched_edges_read_out_the_per_request_events():
+    from repro_torch.obs import export
+
+    stores = []
+    for batched in (False, True):
+        store = TimelineStore(capacity=6)
+        _stream(store, batched)
+        stores.append(store)
+    per, batch = stores
+    assert len(per) == len(batch) == 7 and per.active == batch.active == 1
+
+    def read(store):
+        return [(tl.rid, tl.model, tl.events, tl.segments(), tl.to_dict(),
+                 tl.terminal_event, tl.complete, tl.has("retry"))
+                for tl in store.timelines()]
+
+    assert read(batch) == read(per)
+    assert batch.get(10).events == per.get(10).events and batch.get(1) is None
+    assert [tl.rid for tl in batch.incomplete()] == [tl.rid for tl in per.incomplete()]
+    assert batch.terminal_counts() == per.terminal_counts()
+    ledger = {"done": 5, "expired": 0, "failed": 1, "rejected": 1}
+    assert batch.reconcile(ledger) == per.reconcile(ledger)
+    tr = Tracer(clock=FakeClock())
+    assert (export.chrome_trace(tr, timeline=batch)
+            == export.chrome_trace(tr, timeline=per))
+    with pytest.raises(ValueError):
+        batch.batch([1], "bogus", 0.0)
 
 
 def test_one_stream_gives_both_packages_the_same_records():
