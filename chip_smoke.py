@@ -10,7 +10,7 @@ Phases, in order; any failure raises and the script exits non-zero:
 1. device  -- the card's name, count and power limit; TF32 off for matmul
               and cuDNN, so every fp32 comparison is fp32; cudnn.benchmark
               off; CUBLAS_WORKSPACE_CONFIG set before torch is imported.
-2. build   -- the six CUDA sources compiled from src/repro_torch/kernels/csrc
+2. build   -- the seven CUDA sources compiled from src/repro_torch/kernels/csrc
               (in parallel), with nvcc's -Xptxas -v report; the registers
               and spills of each instance of the fused kernel (16), of the
               per-phase kernel (10, (layout, R, ks)), of the implicit-GEMM
@@ -18,7 +18,9 @@ Phases, in order; any failure raises and the script exits non-zero:
               act', and poor at R 1-4), which must all spill nothing, of
               the pair kernel (8 instances, R x D), of the dw kernels (2 rich
               tiles on gm and folding act', 4 poor R) and of the decode
-              kernel (7: bf16 by head dimension, fp32 by G).
+              kernel (7: bf16 by head dimension, fp32 by G), and of the
+              projection's forward, dW and dz kernels, which must spill
+              nothing.
 3. check   -- each forward kernel against its plain PyTorch version at the
               four DCGAN layer shapes at batch 8 and at odd geometries, the
               GEMM kernel also at GEMM_SHAPES' own (DCGAN and EB-GAN L0 at
@@ -48,9 +50,15 @@ Phases, in order; any failure raises and the script exits non-zero:
               after warm-up, finite outputs, the launch counts exactly the
               sum of the batches' eager counts, each request bitwise equal
               to its own unbatched call, agreement with a unified_reshape
-              plan); then whether one batched projection matmul gives each
-              row the bits of its one-row call, at every row count from 1
-              to 8.
+              plan); then the latent projection at DCGAN's shape: whether
+              one batched cuBLAS matmul gives each row the bits of its
+              one-row call (1-8 rows), whether the projection kernel gives
+              each row its batch-128 bits at batches 1-8, 64 and 128 (a
+              gate), its forward, dW and dz against float64 within
+              tolerance (a gate), and by graph replay the kernel against
+              the per-row cuBLAS path and one batched cuBLAS call at
+              buckets 1, 8, 64 and batch 128, dW against the per-row
+              products summed and one cuBLAS call, with the bounds.
 6. serving -- throughput and latency over open-loop Poisson traces of
               SERVE_WINDOW_S seconds at each of SERVE_RATES requests/s
               (same request mix), each on a freshly warmed engine, through
@@ -586,8 +594,8 @@ def phase_build() -> dict:
     t0 = time.perf_counter()
     logs = _build.build("transpose_conv2d_fused", "transpose_conv2d_gemm",
                         "transpose_conv2d_bwd", "transpose_conv2d_phase",
-                        "transpose_conv2d_pair", "decode_attention")
-    log(f"[build] six sources in {time.perf_counter() - t0:.1f} s")
+                        "transpose_conv2d_pair", "decode_attention", "gan_project")
+    log(f"[build] seven sources in {time.perf_counter() - t0:.1f} s")
     for name, text in logs.items():   # registers, shared memory, spills
         for line in text.splitlines():
             if line.strip():
@@ -620,7 +628,10 @@ def phase_build() -> dict:
             ("transpose_conv2d_pair", "pair_kernelI", "pair R{} D{}", 8),
             ("transpose_conv2d_bwd", "dw_kernelI", "dw rich {}x{} fold{}", 4),
             ("transpose_conv2d_bwd", "dw_poor_kernelI", "dw poor R{}", 4),
-            ("decode_attention", "split_kernelI", "decode {} G{} hd{}", 7)):
+            ("decode_attention", "split_kernelI", "decode {} G{} hd{}", 7),
+            ("gan_project", "project_relu_kernel", "project relu", 1),
+            ("gan_project", "project_dw_kernel", "project dw", 1),
+            ("gan_project", "project_dz_kernel", "project dz", 1)):
         found = {}
         for fn, rep in _build.ptxas_report(logs[src]).items():
             if kernel not in fn:
@@ -640,10 +651,10 @@ def phase_build() -> dict:
             raise AssertionError(f"expected {want} {kernel} instances, got {sorted(found)}")
         instances.update(found)
     spilled = [k for k, v in instances.items()
-               if k.startswith(("phase", "gemm", "dx")) and (v["spill_stores"]
-                                                            or v["spill_loads"])]
+               if k.startswith(("phase", "gemm", "dx", "project")) and (
+                   v["spill_stores"] or v["spill_loads"])]
     if spilled:
-        raise AssertionError(f"per-phase, GEMM or dx kernel instances spill: {spilled}")
+        raise AssertionError(f"per-phase, GEMM, dx or projection kernels spill: {spilled}")
     return {"logs": logs, "fused_ptxas": fused, "ptxas": instances}
 
 
@@ -1040,25 +1051,96 @@ def phase_engine(torch) -> dict:
             "warmup_s": warm_s, "memory": mem, "vs_unified_reshape": err}
 
 
+PROJECTION_BATCHES = (1, 8, 64, 128)   # buckets 1, 8 and 64; the training batch
+
+
 def phase_projection(torch) -> dict:
-    """Whether one batched ``z @ w`` at the DCGAN projection's shape gives
-    each row the same bits as that row's own one-row call, for every row
-    count a bucket or a request can have (1-8)."""
+    """The latent projection at DCGAN's shape (W 100 x 16384): whether one
+    batched cuBLAS ``z @ w`` gives each row the bits of its one-row call
+    (1-8 rows: it does not, which is why the port has its own kernels);
+    whether the projection kernel gives each row the bits of that row at
+    batch 128 (every batch 1-8, 64, 128: it must), and its forward, dW and
+    dz within tolerance of float64; then, by graph replay, the kernel
+    against the per-row cuBLAS path it replaced and one batched cuBLAS call
+    (each with relu) at buckets 1, 8, 64 and batch 128, dW against the
+    per-row path's 128 one-row products summed in turn and one cuBLAS
+    ``z^T @ gm``, each beside its bound."""
+    from repro_torch.kernels import project as proj
     from repro_torch.models import gan
 
     cfg = gan.DCGAN
     h0, c0, _ = cfg.layers[0]
+    k, n = cfg.z_dim, h0 * h0 * c0
     g = torch.Generator(device="cuda").manual_seed(7)
-    w = 0.02 * torch.randn((cfg.z_dim, h0 * h0 * c0), device="cuda", generator=g)
-    z = torch.randn((8, cfg.z_dim), device="cuda", generator=g)
+    w = 0.02 * torch.randn((k, n), device="cuda", generator=g)
+    z = torch.randn((128, k), device="cuda", generator=g)
+    gy = torch.randn((128, n), device="cuda", generator=g)
     rows = torch.cat([z[i : i + 1] @ w for i in range(8)])
-    out = {}
+    out = {"cublas": {}, "kernel": {}, "times": {}}
     for m in range(1, 9):
         batched = z[:m] @ w
-        out[m] = {"bitwise": bool(torch.equal(batched, rows[:m])),
-                  "max_abs_diff": (batched - rows[:m]).abs().max().item()}
+        out["cublas"][m] = {"bitwise": bool(torch.equal(batched, rows[:m])),
+                            "max_abs_diff": (batched - rows[:m]).abs().max().item()}
         log(f"[projection] batched z[:{m}] @ w vs one-row calls: bitwise "
-            f"{out[m]['bitwise']}, max abs diff {out[m]['max_abs_diff']:.3e}")
+            f"{out['cublas'][m]['bitwise']}, max abs diff "
+            f"{out['cublas'][m]['max_abs_diff']:.3e}")
+    full = proj.project_relu_fwd(z, w)
+    for m in (*range(1, 9), 64, 128):
+        same = bool(torch.equal(proj.project_relu_fwd(z[:m], w), full[:m]))
+        out["kernel"][m] = same
+        if not same:
+            raise AssertionError(f"projection kernel: rows at batch {m} differ from "
+                                 f"batch 128's")
+    log("[projection] kernel: every row at batch 1-8, 64 and 128 bitwise that row "
+        "at batch 128 (bitwise invariant: True)")
+    y = full
+    gm = torch.where(y <= 0, 0.0, gy)
+    errs = {}
+    for name, got, want in (
+            ("forward", y, torch.relu(z.double() @ w.double())),
+            ("dw", proj.project_relu_dw(z, y, gy), z.double().t() @ gm.double()),
+            ("dz", proj.project_relu_dz(w, y, gy), gm.double() @ w.double().t())):
+        errs[name] = (got.double() - want).abs().max().item()
+        tol = TOL_REL * want.abs().max().item() + TOL_ABS
+        if errs[name] > tol:
+            raise AssertionError(f"projection {name} vs float64: {errs[name]} > {tol}")
+    out["max_abs_err"] = errs
+    log(f"[projection] kernel vs float64 max abs err {errs}")
+
+    def per_row_dw(zz, gg):
+        dw = zz[0:1].t() @ gg[0:1]
+        for i in range(1, zz.shape[0]):
+            dw = dw + zz[i : i + 1].t() @ gg[i : i + 1]
+        return dw
+
+    card = torch.cuda.get_device_name(0)
+    for m in PROJECTION_BATCHES:
+        zm = z[:m]
+        row = {
+            "kernel_us": _device_us(torch, proj.project_relu_fwd, zm, w),
+            "per_row_us": _device_us(torch, lambda a: torch.relu(proj.project_rows(a, w)),
+                                     zm),
+            "cublas_us": _device_us(torch, lambda a: torch.relu(a @ w), zm),
+            **_limits(2 * m * k * n, 4 * (m * k + k * n + m * n)),
+        }
+        if m == 128:
+            row.update({
+                "dw_kernel_us": _device_us(torch, proj.project_relu_dw, zm, y, gy),
+                "dw_per_row_us": _device_us(torch, per_row_dw, zm, gm),
+                "dw_cublas_us": _device_us(torch, lambda a, b: a.t() @ b, zm, gm),
+                "dw_bound": _limits(2 * m * k * n, 4 * (m * k + 2 * m * n + k * n)),
+            })
+        out["times"][m] = row
+        log(f"[projection] {card} batch {m}: kernel {row['kernel_us']:.2f} us, per-row "
+            f"cuBLAS + relu {row['per_row_us']:.2f} us, one cuBLAS call + relu "
+            f"{row['cublas_us']:.2f} us, bound {row['bound_ms'] * 1e3:.2f} us "
+            f"({row['bound_by']})")
+        if m == 128:
+            log(f"[projection] {card} dW at batch 128: kernel {row['dw_kernel_us']:.2f} us"
+                f", per-row products summed {row['dw_per_row_us']:.2f} us, one cuBLAS "
+                f"call {row['dw_cublas_us']:.2f} us, bound "
+                f"{row['dw_bound']['bound_ms'] * 1e3:.2f} us "
+                f"({row['dw_bound']['bound_by']})")
     return out
 
 

@@ -67,7 +67,8 @@ class LaunchCounters:
 
 
 def kernel_counters() -> LaunchCounters:
-    """The counters of the port's eight kernel wrappers."""
+    """The counters of the port's eleven kernel wrappers
+    (:func:`repro_torch.kernels.wrappers`)."""
     from repro_torch.kernels import wrappers
 
     return LaunchCounters(wrappers().values())

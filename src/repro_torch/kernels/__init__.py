@@ -4,12 +4,18 @@ first launch (:mod:`repro_torch.kernels._build`)."""
 
 
 def wrappers() -> dict:
-    """The eight kernel wrappers by name, one for each TPU kernel of the
-    reference. Each counts its kernel's launches in ``.launches``; those
-    with a second pass (split sums, the decode combine) count it apart in
-    ``.reduce_launches``. A CUDA graph's replay adds the launches it
-    captured (:mod:`repro_torch.graphs`)."""
+    """The eleven kernel wrappers by name: one for each TPU kernel of the
+    reference, then the GAN projection's forward, dW and dz, which replace
+    per-row library calls (:mod:`repro_torch.kernels.project`). Each counts
+    its kernel's launches in ``.launches``; those with a second pass (split
+    sums, the decode combine) count it apart in ``.reduce_launches``. A CUDA
+    graph's replay adds the launches it captured (:mod:`repro_torch.graphs`)."""
     from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.project import (
+        project_relu_dw,
+        project_relu_dz,
+        project_relu_fwd,
+    )
     from repro_torch.kernels.transpose_conv2d import (
         transpose_conv2d_fused,
         transpose_conv2d_phase,
@@ -31,4 +37,7 @@ def wrappers() -> dict:
         "dx": transpose_conv2d_dx,
         "dw": transpose_conv2d_dw,
         "decode_attention": decode_attention,
+        "project": project_relu_fwd,
+        "project_dw": project_relu_dw,
+        "project_dz": project_relu_dz,
     }

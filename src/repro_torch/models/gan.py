@@ -24,6 +24,7 @@ from repro_torch.core.segregation import (
 )
 from repro_torch.device import resolve_device
 from repro_torch.kernels import plan as planlib
+from repro_torch.kernels import project as projlib
 from repro_torch.kernels.epilogue import Epilogue
 from repro_torch.models.layers import tconv_apply, tconv_init
 
@@ -120,13 +121,19 @@ def generator_init(generator: torch.Generator, cfg: GANConfig, *,
 
 
 def project(z: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``z @ w`` one row at a time. Each row then goes through the same
-    matmul call whatever the batch, so a request's output does not depend
-    on the bucket it was packed into. A batched call is not such: on an
-    H100, cuBLAS runs 2-8 rows through another kernel than one row, and
-    the rows differ from their one-row results by up to 3.6e-7
-    (``chip_smoke.py`` phase 5 prints the comparison)."""
-    return torch.cat([z[i : i + 1] @ w for i in range(z.shape[0])])
+    """The projection's ``relu(z @ w)``, batch-invariant: a row's bits do not
+    depend on the batch it is computed in, so a request's output does not
+    depend on the bucket it was packed into. A batched cuBLAS call is not
+    such (on an H100 its rows differ from their one-row results by up to
+    3.6e-7, ``chip_smoke.py`` phase 5), so the card runs the hand-written
+    kernels of :mod:`repro_torch.kernels.project`: one launch for the whole
+    batch, each output one fp32 sum in ascending k with relu on the
+    accumulator, and the backward with relu's derivative folded in. The CPU
+    runs one matmul call a row (:func:`~repro_torch.kernels.project.project_rows`)
+    and ``torch.relu``, as it always has."""
+    if z.device.type == "cpu":
+        return torch.relu(projlib.project_rows(z, w))
+    return projlib.ProjectReLU.apply(z, w)
 
 
 def generator_apply(params: dict, cfg: GANConfig, z, *, method: str = "auto",
@@ -155,7 +162,7 @@ def generator_apply(params: dict, cfg: GANConfig, z, *, method: str = "auto",
         raise ValueError(f"params live on {w.device}, asked to run on {dev}")
     z = torch.as_tensor(z, dtype=w.dtype).to(dev)
     h0, c0, _ = cfg.layers[0]
-    x = torch.relu(project(z, w)).reshape(z.shape[0], h0, h0, c0)
+    x = project(z, w).reshape(z.shape[0], h0, h0, c0)
     entries = plan.entries if plan is not None else (None,) * len(cfg.layers)
     i = 0
     for entry in entries:

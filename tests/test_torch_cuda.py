@@ -5,7 +5,10 @@ to unbatched calls bit for bit, dx on both sides of its layout boundary and
 with unaligned operands, the dx and dw kernels that fold act' into their
 staging bitwise the standalone epilogue-grad -> dx -> dw route (with an
 unaligned y too), the generator's batch invariance (per layer and
-through fused pairs), and the generator's gradients through the backward
+through fused pairs), the latent projection's kernels (rows bitwise
+independent of the batch, forward, dW and dz against float64, one launch a
+generator call, a captured graph bitwise its eager calls), and the
+generator's gradients through the backward
 kernels, fused pairs and the per-phase kernel, the decode attention kernel
 at the LM shapes, and a decode step's independence of the other slots;
 then the CUDA graphs of the main path (repro_torch.graphs): each kind of
@@ -43,6 +46,7 @@ from repro_torch.core import transpose_conv as tc
 from repro_torch.core.dilated_conv import dilated_conv2d
 from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import epilogue as epilib
+from repro_torch.kernels import project as proj
 from repro_torch.kernels import ref
 from repro_torch.kernels import transpose_conv2d as tcf
 from repro_torch.kernels import transpose_conv2d_bwd as bw
@@ -200,6 +204,118 @@ def test_generator_batch_invariant_bitwise(card):
     for i in range(8):
         one = gan.generator_apply(params, cfg, z[i : i + 1], device=card)
         assert torch.equal(one[0], batched[i])
+
+
+# --------------------------------------------------------- the projection
+
+# (K, N) of the latent projection: DCGAN, EB-GAN, and a ragged N (4-byte
+# copies and column tails)
+PROJECTION_WIDTHS = [(100, 16384), (100, 32768), (37, 70)]
+PROJECTION_BATCHES = (1, 2, 7, 8, 64, 128)
+
+
+def _projection_case(seed, b, k, n, device):
+    rng = np.random.default_rng(seed)
+    z = rng.standard_normal((b, k)).astype(np.float32)
+    w = (0.02 * rng.standard_normal((k, n))).astype(np.float32)
+    g = rng.standard_normal((b, n)).astype(np.float32)
+    return tuple(torch.from_numpy(a).to(device) for a in (z, w, g))
+
+
+def _within(got, want):
+    """Within 1e-4 * max|ref| + 1e-5 of a float64 reference."""
+    err = (got.double() - want).abs().max().item()
+    assert err <= 1e-4 * want.abs().max().item() + 1e-5, err
+
+
+@pytest.mark.parametrize("width", PROJECTION_WIDTHS, ids=str)
+def test_projection_rows_do_not_depend_on_the_batch(card, width):
+    """Each row of the projection's forward at batch B is bitwise that row
+    at batch 128, for every B a bucket or the training batch takes; a W
+    4 bytes off alignment (4-byte copies) gives the same bits."""
+    k, n = width
+    z, w, _ = _projection_case(0, 128, k, n, card)
+    full = proj.project_relu_fwd(z, w)
+    for b in PROJECTION_BATCHES:
+        assert torch.equal(proj.project_relu_fwd(z[:b], w), full[:b]), b
+        assert torch.equal(proj.project_relu_fwd(z[:b].clone(), offset_view(w)), full[:b]), b
+
+
+@pytest.mark.parametrize("b", [1, 7, 128])
+@pytest.mark.parametrize("width", PROJECTION_WIDTHS, ids=str)
+def test_projection_and_its_gradients_match_float64(card, width, b):
+    """y, dW and dz against float64 products, within 1e-4 * max|ref| + 1e-5;
+    a y and g 4 bytes off alignment give dW's bits."""
+    k, n = width
+    z, w, g = _projection_case(b + n, b, k, n, card)
+    y = proj.project_relu_fwd(z, w)
+    y64 = torch.relu(z.double() @ w.double())
+    _within(y, y64)
+    gm = torch.where(y <= 0, 0.0, g.double())
+    dw = proj.project_relu_dw(z, y, g)
+    _within(dw, z.double().t() @ gm)
+    assert torch.equal(proj.project_relu_dw(z, offset_view(y), offset_view(g)), dw)
+    _within(proj.project_relu_dz(w, y, g), gm @ w.double().t())
+    torch.cuda.synchronize()
+
+
+def test_projection_function_gradients(card):
+    """The autograd function on the card: dW and dz of a scalar loss within
+    tolerance of float64, dz only where z asks for it."""
+    z, w, g = _projection_case(3, 8, 100, 16384, card)
+    for want_dz in (False, True):
+        zz, ww = z.clone().requires_grad_(want_dz), w.clone().requires_grad_()
+        before = [f.launches for f in (proj.project_relu_fwd, proj.project_relu_dw,
+                                       proj.project_relu_dz)]
+        (gan.project(zz, ww) * g).sum().backward()
+        after = [f.launches for f in (proj.project_relu_fwd, proj.project_relu_dw,
+                                      proj.project_relu_dz)]
+        assert [a - b for a, b in zip(after, before)] == [1, 1, int(want_dz)]
+        gm = torch.where(z.double() @ w.double() <= 0, 0.0, g.double())
+        _within(ww.grad, z.double().t() @ gm)
+        if want_dz:
+            _within(zz.grad, gm @ w.double().t())
+        else:
+            assert zz.grad is None
+
+
+def test_projection_refuses_other_dtypes(card):
+    z, w, _ = _projection_case(0, 2, 4, 8, card)
+    with pytest.raises(TypeError):
+        proj.project_relu_fwd(z.double(), w.double())
+
+
+@pytest.mark.parametrize("b", [1, 8, 64])
+def test_generator_call_launches_one_projection(card, b):
+    """One forward launch of the projection a generator call, whatever the
+    batch, read through the kernel counters."""
+    cfg = gan.reduced_config(gan.DCGAN, 4)
+    params = gan.generator_init(torch.Generator().manual_seed(0), cfg, device=card)
+    z = torch.randn((b, cfg.z_dim), generator=torch.Generator().manual_seed(1))
+    _, counts = _counted(gan.generator_apply, params, cfg, z, device=card)
+    slots = graphs.kernel_counters().slots
+    got = {fn.__name__: n for (fn, name), n in zip(slots, counts) if name == "launches"}
+    assert (got["project_relu_fwd"], got["project_relu_dw"], got["project_relu_dz"]) == (1, 0, 0)
+
+
+def test_projection_graph_equals_eager_bitwise(card):
+    """The forward and the whole backward (dW and dz) captured as one CUDA
+    graph: bitwise the eager calls, each replay counting their launches."""
+    z, w, g = _projection_case(5, 64, 100, 16384, card)
+
+    def step(zz, gg):
+        y = proj.project_relu_fwd(zz, w)
+        return y, proj.project_relu_dw(zz, y, gg), proj.project_relu_dz(w, y, gg)
+
+    want, eager = _counted(step, z, g)
+    graph = graphs.CudaGraph(step, z, g)
+    assert graph.launches == eager and sum(eager) == 3
+    z2, _, g2 = _projection_case(6, 64, 100, 16384, card)
+    want2 = step(z2, g2)
+    for zz, gg, ref in ((z, g, want), (z2, g2, want2)):
+        got, replayed = _counted(graph, zz, gg)
+        assert replayed == eager
+        assert all(torch.equal(a, b) for a, b in zip(got, ref))
 
 
 @pytest.mark.parametrize("shape", [

@@ -99,6 +99,7 @@ def test_module_list_covers_the_slice():
                  "kernels.transpose_conv2d", "kernels.transpose_conv2d_gemm",
                  "kernels.transpose_conv2d_bwd", "kernels.ops",
                  "kernels.transpose_conv2d_pair", "kernels.plan_registry",
+                 "kernels.project",
                  "models.layers", "models.gan", "serve.batching",
                  "serve.metrics", "serve.gan_engine", "timing", "weights",
                  "tree", "optim.adamw", "optim.compression", "data.pipeline",
@@ -282,7 +283,7 @@ def _c_entry_points(source: str) -> dict:
     kinds = {"float": ctypes.c_float, "int": ctypes.c_int,
              "long long": ctypes.c_longlong}
     out = {}
-    for m in re.finditer(r"\bint\s+((?:tconv|decode)_\w+)\s*\(([^)]*)\)\s*\{", text):
+    for m in re.finditer(r"\bint\s+((?:tconv|decode|project)_\w+)\s*\(([^)]*)\)\s*\{", text):
         params = [p.strip() for p in m.group(2).split(",")]
         out[m.group(1)] = [
             ctypes.c_void_p if "*" in p
@@ -325,7 +326,8 @@ def test_ctypes_argtypes_match_the_c_signatures(monkeypatch):
                          ("transpose_conv2d_gemm", ("_lib",)),
                          ("transpose_conv2d_bwd", ("_lib",)),
                          ("transpose_conv2d_pair", ("_lib",)),
-                         ("decode_attention", ("_lib",))):
+                         ("decode_attention", ("_lib",)),
+                         ("project", ("_lib",))):
         m = importlib.import_module(f"repro_torch.kernels.{mod}")
         for loader in loaders:
             fn = getattr(m, loader)
