@@ -594,8 +594,9 @@ def phase_build() -> dict:
     t0 = time.perf_counter()
     logs = _build.build("transpose_conv2d_fused", "transpose_conv2d_gemm",
                         "transpose_conv2d_bwd", "transpose_conv2d_phase",
-                        "transpose_conv2d_pair", "decode_attention", "gan_project")
-    log(f"[build] seven sources in {time.perf_counter() - t0:.1f} s")
+                        "transpose_conv2d_pair", "decode_attention", "gan_project",
+                        "rgb_head")
+    log(f"[build] eight sources in {time.perf_counter() - t0:.1f} s")
     for name, text in logs.items():   # registers, shared memory, spills
         for line in text.splitlines():
             if line.strip():
@@ -631,7 +632,11 @@ def phase_build() -> dict:
             ("decode_attention", "split_kernelI", "decode {} G{} hd{}", 7),
             ("gan_project", "project_relu_kernel", "project relu", 1),
             ("gan_project", "project_dw_kernel", "project dw", 1),
-            ("gan_project", "project_dz_kernel", "project dz", 1)):
+            ("gan_project", "project_dz_kernel", "project dz", 1),
+            ("rgb_head", "rgb_head_kernelI", "rgb head K/32 {}", 2),
+            ("rgb_head", "rgb_head_dx_kernelI", "rgb head dx K/32 {}", 2),
+            ("rgb_head", "rgb_head_dw_kernelI", "rgb head dw K/32 {}", 2),
+            ("rgb_head", "rgb_head_sum_kernel", "rgb head sum", 1)):
         found = {}
         for fn, rep in _build.ptxas_report(logs[src]).items():
             if kernel not in fn:
@@ -651,10 +656,11 @@ def phase_build() -> dict:
             raise AssertionError(f"expected {want} {kernel} instances, got {sorted(found)}")
         instances.update(found)
     spilled = [k for k, v in instances.items()
-               if k.startswith(("phase", "gemm", "dx", "project")) and (
+               if k.startswith(("phase", "gemm", "dx", "project", "rgb")) and (
                    v["spill_stores"] or v["spill_loads"])]
     if spilled:
-        raise AssertionError(f"per-phase, GEMM, dx or projection kernels spill: {spilled}")
+        raise AssertionError(f"per-phase, GEMM, dx, projection or RGB head kernels "
+                             f"spill: {spilled}")
     return {"logs": logs, "fused_ptxas": fused, "ptxas": instances}
 
 
@@ -1141,6 +1147,113 @@ def phase_projection(torch) -> dict:
                 f"call {row['dw_cublas_us']:.2f} us, bound "
                 f"{row['dw_bound']['bound_ms'] * 1e3:.2f} us "
                 f"({row['dw_bound']['bound_by']})")
+    return out
+
+
+HEAD_SHAPE = (64, 256, 64, 3)   # EB-GAN's head in its cell: batch, side, K, C
+HEAD_BUCKETS = (1, 8, 64)
+
+
+def phase_rgb_head(torch) -> dict:
+    """EB-GAN's RGB head at its cell's shape (batch 64, 256^2 pixels,
+    64 -> 3): the forward, dx and dW/db kernels within tolerance of
+    float64 (1e-4 of the largest entry: a wrong sum, tap or tanh' is off
+    by far more); each sample at buckets 1, 8 and 64 bitwise that sample
+    at batch 64, forward and dx; one launch a call (dW two: its sum
+    pass), and through the autograd function one forward, one dx, one dW
+    and one sum; then, by graph replay, each kernel against its plain
+    version (the wrapper's eager ``head_plain`` / ``head_dx_plain`` /
+    ``head_dw_plain``) and one cuBLAS call (``addmm`` + tanh forward; dx
+    and dW the product alone, given ``g * (1 - y^2)``), beside its bound."""
+    from repro_torch.kernels import rgb_head as head
+    from repro_torch.models import gan
+
+    b, hw, k, c = HEAD_SHAPE
+    g = torch.Generator(device="cuda").manual_seed(11)
+    x = torch.relu(torch.randn((b, hw, hw, k), device="cuda", generator=g))
+    w = torch.randn((k, c), device="cuda", generator=g) * k ** -0.5
+    bias = 0.1 * torch.randn((c,), device="cuda", generator=g)
+    gy = torch.randn((b, hw, hw, c), device="cuda", generator=g)
+    out = {"shape": HEAD_SHAPE, "times": {}}
+
+    fns = (head.rgb_head_fwd, head.rgb_head_dx, head.rgb_head_dw)
+
+    def counts():
+        return [f.launches for f in fns] + [head.rgb_head_dw.reduce_launches]
+
+    before = counts()
+    y = head.rgb_head_fwd(x, w, bias)
+    dx = head.rgb_head_dx(gy, y, w)
+    dw, db = head.rgb_head_dw(x, gy, y)
+    calls = [a - n for a, n in zip(counts(), before)]
+    xx = x.clone().requires_grad_(True)
+    ww, bb = w.clone().requires_grad_(True), bias.clone().requires_grad_(True)
+    before = counts()
+    (gan.rgb_head(xx, ww, bb) * gy).sum().backward()
+    function = [a - n for a, n in zip(counts(), before)]
+    out["launches"] = {"wrappers": calls, "function": function}
+    if calls != [1, 1, 1, 1] or function != [1, 1, 1, 1]:
+        raise AssertionError(f"RGB head launches (forward, dx, dW, sum): wrappers {calls}, "
+                             f"function {function}; want one each")
+    if not (torch.equal(xx.grad, dx) and torch.equal(ww.grad, dw) and torch.equal(bb.grad, db)):
+        raise AssertionError("the RGB head's function differs from its wrappers")
+    del xx, ww, bb
+    log(f"[rgb-head] launches a call (forward, dx, dW, sum): wrappers {calls}, the autograd "
+        f"function's forward and backward {function}")
+
+    for n in HEAD_BUCKETS:
+        if not (torch.equal(head.rgb_head_fwd(x[:n].clone(), w, bias), y[:n])
+                and torch.equal(head.rgb_head_dx(gy[:n].clone(), y[:n].clone(), w), dx[:n])):
+            raise AssertionError(f"RGB head: rows at batch {n} differ from batch {b}'s")
+    out["bitwise_buckets"] = list(HEAD_BUCKETS)
+    log(f"[rgb-head] forward and dx: every sample at batch {HEAD_BUCKETS} bitwise that "
+        f"sample at batch {b} (bitwise invariant: True)")
+
+    errs = {}
+    x64, w64 = x.double().reshape(-1, k), w.double()
+    y64 = torch.tanh(x64 @ w64 + bias.double())
+    gm64 = gy.double().reshape(-1, c) * (1 - y.double().reshape(-1, c) ** 2)
+    for name, got, want in (("forward", y.reshape(-1, c), y64),
+                            ("dx", dx.reshape(-1, k), gm64 @ w64.t()),
+                            ("dw", dw, x64.t() @ gm64), ("db", db, gm64.sum(0))):
+        errs[name] = (got.double() - want).abs().max().item()
+        tol = TOL_REL * want.abs().max().item() + TOL_ABS
+        log(f"[rgb-head] {name} vs float64: max abs err {errs[name]:.3e} (tol {tol:.3e})")
+        if errs[name] > tol:
+            raise AssertionError(f"RGB head {name} vs float64: {errs[name]} > {tol}")
+    out["max_abs_err"] = errs
+    del x64, y64, gm64
+
+    px = b * hw * hw
+    flops = 2 * px * k * c
+    gm = head.tanh_grad(gy, y)
+    x2, gm2 = x.reshape(-1, k), gm.reshape(-1, c)
+    card = torch.cuda.get_device_name(0)
+    rows = {
+        "forward": (lambda: head.rgb_head_fwd(x, w, bias), lambda: head.head_plain(x, w, bias),
+                    lambda: torch.tanh(torch.addmm(bias, x2, w)),
+                    _limits(flops, 4 * (px * k + k * c + c + px * c))),
+        "dx": (lambda: head.rgb_head_dx(gy, y, w), lambda: head.head_dx_plain(gy, y, w),
+               lambda: gm2 @ w.t(), _limits(flops, 4 * (2 * px * c + k * c + px * k))),
+        "dw": (lambda: head.rgb_head_dw(x, gy, y), lambda: head.head_dw_plain(x, gy, y),
+               lambda: x2.t() @ gm2, _limits(flops, 4 * (px * k + 2 * px * c + k * c + c))),
+    }
+    for name, (kernel, plain, library, bound) in rows.items():
+        row = {"kernel_us": _device_us(torch, kernel, calls=10),
+               "plain_us": _device_us(torch, plain, calls=10),
+               "library_us": _device_us(torch, library, calls=10), **bound}
+        row["roofline"] = row["bound_ms"] * 1e3 / row["kernel_us"]
+        out["times"][name] = row
+        log(f"[rgb-head] {card} {name} at {HEAD_SHAPE}: kernel {row['kernel_us']:.2f} us "
+            f"({100 * row['roofline']:.1f}% of its bound), plain {row['plain_us']:.2f} us, "
+            f"one cuBLAS call {row['library_us']:.2f} us, bound "
+            f"{row['bound_ms'] * 1e3:.2f} us ({row['bound_by']})")
+    step = 2 * out["times"]["forward"]["kernel_us"] + out["times"]["dx"]["kernel_us"] \
+        + out["times"]["dw"]["kernel_us"]
+    out["step_us"] = step
+    log(f"[rgb-head] {card} a training step's head (two forwards, dx, dW): {step:.2f} us")
+    del x, gy, y, dx, gm, x2, gm2
+    torch.cuda.empty_cache()
     return out
 
 
@@ -5231,6 +5344,7 @@ def main(argv) -> int:
     profiled = run("4 profile", phase_profile, torch)
     engine = run("5 engine", phase_engine, torch)
     projection = run("5 projection", phase_projection, torch)
+    rgb_head = run("5 rgb head", phase_rgb_head, torch)
     serving = run("6 serving", lambda: phase_serving(torch)
                   + phase_serving(torch, eager=True))
     worst.update(run("7 bwd", phase_bwd_check, torch))
@@ -5323,6 +5437,7 @@ def main(argv) -> int:
                    "ptxas": build["ptxas"], "pair_clusters": pair_clusters,
                    "kernels": entries, "times": times,
                    "profile": profiled, "engine": engine, "projection": projection,
+                   "rgb_head": rgb_head,
                    "serving": serving, "max_abs_err": worst, "grads": grads,
                    "bwd_times": bwd_times, "pair_times": pair_times,
                    "fused_engine": fused_engine, "fused_serving": fused_serving,

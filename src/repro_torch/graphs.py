@@ -67,7 +67,7 @@ class LaunchCounters:
 
 
 def kernel_counters() -> LaunchCounters:
-    """The counters of the port's eleven kernel wrappers
+    """The counters of the port's fourteen kernel wrappers
     (:func:`repro_torch.kernels.wrappers`)."""
     from repro_torch.kernels import wrappers
 

@@ -4,18 +4,21 @@ first launch (:mod:`repro_torch.kernels._build`)."""
 
 
 def wrappers() -> dict:
-    """The eleven kernel wrappers by name: one for each TPU kernel of the
+    """The fourteen kernel wrappers by name: one for each TPU kernel of the
     reference, then the GAN projection's forward, dW and dz, which replace
-    per-row library calls (:mod:`repro_torch.kernels.project`). Each counts
-    its kernel's launches in ``.launches``; those with a second pass (split
-    sums, the decode combine) count it apart in ``.reduce_launches``. A CUDA
-    graph's replay adds the launches it captured (:mod:`repro_torch.graphs`)."""
+    per-row library calls (:mod:`repro_torch.kernels.project`), and the RGB
+    head's forward, dx and dW (:mod:`repro_torch.kernels.rgb_head`). Each
+    counts its kernel's launches in ``.launches``; those with a second pass
+    (split sums, the decode combine, the head's dW partials) count it apart
+    in ``.reduce_launches``. A CUDA graph's replay adds the launches it
+    captured (:mod:`repro_torch.graphs`)."""
     from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.project import (
         project_relu_dw,
         project_relu_dz,
         project_relu_fwd,
     )
+    from repro_torch.kernels.rgb_head import rgb_head_dw, rgb_head_dx, rgb_head_fwd
     from repro_torch.kernels.transpose_conv2d import (
         transpose_conv2d_fused,
         transpose_conv2d_phase,
@@ -40,4 +43,7 @@ def wrappers() -> dict:
         "project": project_relu_fwd,
         "project_dw": project_relu_dw,
         "project_dz": project_relu_dz,
+        "rgb_head": rgb_head_fwd,
+        "rgb_head_dx": rgb_head_dx,
+        "rgb_head_dw": rgb_head_dw,
     }

@@ -24,7 +24,9 @@ adds one. The backward dispatches by the layer's plan
 A plan's ``bwd="auto"`` resolves in
 :func:`repro_torch.kernels.plan.resolve_bwd`.
 
-dx is computed only when the input needs a gradient.
+dx is computed only when the input needs a gradient, dw and db only when
+the kernel or the bias does (a discriminator's layers in the generator's
+phase need dx alone).
 
 :class:`TconvPairFn` runs two layers through the pair kernel and saves only
 the pair's inputs; its backward recomputes the interface through the
@@ -57,33 +59,39 @@ def _save(ctx, lp, x, kernel, y, bias) -> None:
     )
 
 
-def _autograd_bwd(x, kernel, y, g, padding, epi, need_dx):
+def _autograd_bwd(x, kernel, y, g, padding, epi, need_dx, need_dw=True):
     gm = g if epi is None else epi.grad_from_y(g, y)
+    wanted = [t for t, need in ((x, need_dx), (kernel, need_dw)) if need]
     with torch.enable_grad():
-        xx = x.detach().requires_grad_(need_dx)
-        kk = kernel.detach().requires_grad_(True)
+        leaves = [t.detach().requires_grad_(True) for t in wanted]
+        xx = leaves[0] if need_dx else x.detach()
+        kk = leaves[-1] if need_dw else kernel.detach()
         out = tc.transpose_conv_unified(xx, kk, padding)
-        grads = torch.autograd.grad(out, (xx, kk) if need_dx else (kk,), gm)
-    db = gm.sum((0, 1, 2)) if epi is not None and epi.bias else None
-    return grads[0] if need_dx else None, grads[-1], db
+        grads = torch.autograd.grad(out, leaves, gm)
+    db = gm.sum((0, 1, 2)) if need_dw and epi is not None and epi.bias else None
+    return (grads[0] if need_dx else None), (grads[-1] if need_dw else None), db
 
 
 def _backward(ctx, g):
     x, kernel, y, bias = ctx.saved_tensors
     lp = ctx.lp
     need_dx = ctx.needs_input_grad[0]
+    # dw and db come out of one kernel: computed where either is needed
+    need_dw = ctx.needs_input_grad[1] or ctx.needs_input_grad[2]
     if lp.bwd_method == "segregated":
         dx, dw, db = transpose_conv2d_bwd(x, kernel, g, lp.padding,
                                           epilogue=lp.epilogue, y=y,
-                                          need_dx=need_dx)
+                                          need_dx=need_dx, need_dw=need_dw)
     elif lp.bwd_method == "autograd":
         dx, dw, db = _autograd_bwd(x, kernel, y, g, lp.padding, lp.epilogue,
-                                   need_dx)
+                                   need_dx, need_dw)
     else:
         raise ValueError(f"unknown bwd_method {lp.bwd_method!r}; one of {BWD_METHODS}")
     if db is not None:
         db = db.to(bias.dtype)
-    return dx, dw.to(kernel.dtype), db, None
+    if dw is not None:
+        dw = dw.to(kernel.dtype)
+    return dx, dw, db, None
 
 
 class TconvFusedFn(torch.autograd.Function):

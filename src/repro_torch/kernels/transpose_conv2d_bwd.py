@@ -575,14 +575,15 @@ transpose_conv2d_dw.reduce_launches = 0
 
 
 def transpose_conv2d_bwd(x, kernel, g, padding: int = 0, *, epilogue=None,
-                         y=None, need_dx: bool = True):
+                         y=None, need_dx: bool = True, need_dw: bool = True):
     """``(dx, dw, db)`` of ``y = act(tconv(x, kernel) + b)`` for the
     cotangent ``g`` of ``y``. ``y`` is the saved output, needed iff the
     epilogue has an activation; ``db`` is None unless the epilogue adds a
-    bias, ``dx`` None unless ``need_dx``. On the card the dx and dw kernels
-    take ``g`` and ``y`` and apply ``act'`` as they stage ``g`` (two
-    kernels; ``gm`` is never written); on the CPU the plain epilogue-grad
-    runs once, then plain dx and dw."""
+    bias and ``need_dw``, ``dx`` None unless ``need_dx``, ``dw`` None
+    unless ``need_dw`` (dw and db are one kernel's). On the card the dx and
+    dw kernels take ``g`` and ``y`` and apply ``act'`` as they stage ``g``
+    (two kernels; ``gm`` is never written); on the CPU the plain
+    epilogue-grad runs once, then plain dx and dw."""
     epi = epilib.canonical(epilogue)
     act = _activation(epi)
     if act is not None and g.device.type == "cpu":
@@ -590,6 +591,8 @@ def transpose_conv2d_bwd(x, kernel, g, padding: int = 0, *, epilogue=None,
     g = g.contiguous()
     dx = (transpose_conv2d_dx(g, kernel, x.shape[1], padding, y=y, epilogue=act)
           if need_dx else None)
+    if not need_dw:
+        return dx, None, None
     with_db = epi is not None and epi.bias
     dw = transpose_conv2d_dw(x, g, kernel.shape[0], padding, with_db=with_db, y=y,
                              epilogue=act)

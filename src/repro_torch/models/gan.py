@@ -9,6 +9,17 @@ a plain dict in the reference's layout: ``{"proj": {"w": (z_dim,
 h0*h0*c0)}, "tconv{i}": {"w": (4, 4, cin, cout) HWIO, "b": (cout,)}}``; the
 discriminator's are ``{"conv{i}": {"w": (4, 4, cin, cout) HWIO}, "head":
 {"w": (hw*hw*c, 1)}}``.
+
+Beyond the reference: a generator may end in an RGB head (``GANConfig.head``
+output channels): every transpose conv then takes relu, and a per-pixel
+``tanh(x @ W + b)`` (:mod:`repro_torch.kernels.rgb_head`, params ``"head":
+{"w": (c_last, head), "b": (head,)}``) makes the image, as the published
+EB-GAN's does (:data:`EBGAN_PUBLISHED`, arXiv:1609.03126). EB-GAN trains
+against an auto-encoder (:func:`autoencoder_init`): stride-2 4x4 convs down
+to a code, stride-2 4x4 transpose convs on the port's kernels back up, and
+a sample's energy is its reconstruction's mean squared error
+(:func:`energy`); params ``{"enc{i}": {"w": HWIO}, "dec": {"tconv{i}":
+{"w", "b"}}}``.
 """
 from __future__ import annotations
 
@@ -25,6 +36,7 @@ from repro_torch.core.segregation import (
 from repro_torch.device import resolve_device
 from repro_torch.kernels import plan as planlib
 from repro_torch.kernels import project as projlib
+from repro_torch.kernels import rgb_head as headlib
 from repro_torch.kernels.epilogue import Epilogue
 from repro_torch.models.layers import tconv_apply, tconv_init
 
@@ -39,9 +51,20 @@ class GANConfig:
     # paper-convention padding on the upsampled map (Fig. 5: P=2 for 4x4):
     # out = 2N - n + 2P = 2N, i.e. resolution doubles per layer
     padding: int = 2
+    # output channels of an RGB head after the last layer (0: none, the
+    # last transpose conv makes the image)
+    head: int = 0
 
     def out_hw(self, in_hw: int) -> int:
         return 2 * in_hw - self.kernel + 2 * self.padding
+
+    @property
+    def image_hw(self) -> int:
+        return self.out_hw(self.layers[-1][0])
+
+    @property
+    def image_channels(self) -> int:
+        return self.head or self.layers[-1][2]
 
 
 # Table 4 layer stacks (input size / kernel columns).
@@ -63,6 +86,9 @@ EBGAN = GANConfig(
      (64, 128, 64), (128, 64, 64)),
 )
 GAN_ZOO = {g.name: g for g in (DCGAN, ARTGAN, GPGAN, EBGAN)}
+# EB-GAN as published (arXiv:1609.03126, ImageNet 256x256): Table 4's six
+# layers, relu on each, then a 64 -> 3 RGB head with tanh
+EBGAN_PUBLISHED = GANConfig("ebgan_published", 100, EBGAN.layers, head=3)
 
 
 def reduced_config(cfg: GANConfig, scale: int = 16) -> GANConfig:
@@ -76,8 +102,9 @@ def reduced_config(cfg: GANConfig, scale: int = 16) -> GANConfig:
 
 
 def generator_act(cfg: GANConfig, i: int) -> str:
-    """Activation of generator layer ``i``: relu mid-stack, tanh output."""
-    return "tanh" if i == len(cfg.layers) - 1 else "relu"
+    """Activation of generator layer ``i``: relu mid-stack, tanh output
+    (relu there too where an RGB head follows)."""
+    return "tanh" if i == len(cfg.layers) - 1 and not cfg.head else "relu"
 
 
 def generator_epilogues(cfg: GANConfig) -> tuple:
@@ -117,6 +144,11 @@ def generator_init(generator: torch.Generator, cfg: GANConfig, *,
     for i, (_, cin, cout) in enumerate(cfg.layers):
         params[f"tconv{i}"] = tconv_init(generator, cfg.kernel, cin, cout,
                                          device=dev)
+    if cfg.head:
+        c_last = cfg.layers[-1][2]
+        w = torch.randn((c_last, cfg.head), generator=generator,
+                        device=generator.device) * c_last ** -0.5
+        params["head"] = {"w": w.to(dev), "b": torch.zeros((cfg.head,), device=dev)}
     return params
 
 
@@ -136,10 +168,40 @@ def project(z: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return projlib.ProjectReLU.apply(z, w)
 
 
+def rgb_head(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The RGB head ``tanh(x @ w + b)`` over each pixel of the NHWC map
+    ``x``, batch-invariant as :func:`project` is: the card runs the
+    hand-written kernels of :mod:`repro_torch.kernels.rgb_head` (one fmaf
+    chain an output, tanh's derivative folded into the backward), the CPU
+    one matmul a sample (:func:`~repro_torch.kernels.rgb_head.head_rows`)."""
+    if x.device.type == "cpu":
+        return headlib.head_rows(x, w, b)
+    return headlib.RgbHead.apply(x, w, b)
+
+
+def _tconv_stack(params: dict, cfg: GANConfig, x, plan, method: str,
+                 train: bool) -> torch.Tensor:
+    """``cfg``'s transpose-conv layers on ``x`` (NHWC), each as ``plan``
+    resolved it (a fused pair as one pair-kernel launch) or by ``method``."""
+    entries = plan.entries if plan is not None else (None,) * len(cfg.layers)
+    i = 0
+    for entry in entries:
+        if isinstance(entry, planlib.FusedPairPlan):
+            p1, p2 = params[f"tconv{i}"], params[f"tconv{i + 1}"]
+            x = planlib.execute_pair(entry, x, p1["w"], p2["w"],
+                                     bias1=p1["b"], bias2=p2["b"])
+            i += 2
+        else:
+            x = tconv_apply(params[f"tconv{i}"], x, cfg.padding, method=method,
+                            train=train, plan=entry, act=generator_act(cfg, i))
+            i += 1
+    return x
+
+
 def generator_apply(params: dict, cfg: GANConfig, z, *, method: str = "auto",
                     train: bool = False, plan=None,
                     device=None) -> torch.Tensor:
-    """z: (B, z_dim) -> image (B, H, W, C_last) in [-1, 1], on ``device``
+    """z: (B, z_dim) -> image (B, H, W, C) in [-1, 1], on ``device``
     (the CUDA card unless the caller names another); ``params`` must be
     there already, ``z`` (a tensor or array) is moved there.
 
@@ -163,18 +225,9 @@ def generator_apply(params: dict, cfg: GANConfig, z, *, method: str = "auto",
     z = torch.as_tensor(z, dtype=w.dtype).to(dev)
     h0, c0, _ = cfg.layers[0]
     x = project(z, w).reshape(z.shape[0], h0, h0, c0)
-    entries = plan.entries if plan is not None else (None,) * len(cfg.layers)
-    i = 0
-    for entry in entries:
-        if isinstance(entry, planlib.FusedPairPlan):
-            p1, p2 = params[f"tconv{i}"], params[f"tconv{i + 1}"]
-            x = planlib.execute_pair(entry, x, p1["w"], p2["w"],
-                                     bias1=p1["b"], bias2=p2["b"])
-            i += 2
-        else:
-            x = tconv_apply(params[f"tconv{i}"], x, cfg.padding, method=method,
-                            train=train, plan=entry, act=generator_act(cfg, i))
-            i += 1
+    x = _tconv_stack(params, cfg, x, plan, method, train)
+    if cfg.head:
+        x = rgb_head(x, params["head"]["w"], params["head"]["b"])
     return x
 
 
@@ -254,3 +307,84 @@ def discriminator_apply(params: dict, x: torch.Tensor) -> torch.Tensor:
         h = F.leaky_relu(F.conv2d(h, w, stride=2, padding=1), 0.2)
     h = h.permute(0, 2, 3, 1).reshape(h.shape[0], -1)
     return (h @ params["head"]["w"])[:, 0]
+
+
+# ------------------------------------------- EB-GAN's auto-encoder discriminator
+
+# the encoder's stride-2 4x4 convs (256^2 -> 16^2 for EB-GAN's images)
+AE_DEPTH = 4
+
+
+def autoencoder_widths(cfg: GANConfig) -> tuple:
+    """The encoder's widths for the generator ``cfg``: the input widths of
+    its last :data:`AE_DEPTH` layers, last first (64, 128, 256, 512 for
+    :data:`EBGAN_PUBLISHED`), as DCGAN's discriminator mirrors its
+    generator; a :func:`reduced_config` gives them reduced alike."""
+    return tuple(cin for _, cin, _ in reversed(cfg.layers[-AE_DEPTH:]))
+
+
+def decoder_config(in_hw: int, cin: int, widths) -> GANConfig:
+    """The auto-encoder's decoder as a transpose-conv stack: from the code
+    (``in_hw / 2^len(widths)`` square, ``widths[-1]`` channels) back up to
+    ``in_hw`` and ``cin``, stride 2, 4x4, relu mid-stack and tanh out, so
+    :func:`generator_plan` plans it as it plans a generator's layers."""
+    hw = in_hw >> len(widths)
+    if hw << len(widths) != in_hw or hw < 1:
+        raise ValueError(f"{len(widths)} stride-2 convs do not divide {in_hw}")
+    chans = tuple(reversed(widths)) + (cin,)
+    layers = tuple((hw << i, chans[i], chans[i + 1]) for i in range(len(widths)))
+    return GANConfig("decoder", 0, layers)
+
+
+def autoencoder_init(generator: torch.Generator, in_hw: int, cin: int,
+                     widths, *, device=None) -> dict:
+    """The encoder's convs (``cin -> widths``, HWIO, fan-in scaled, no bias)
+    and the decoder's transpose convs (:func:`decoder_config`, as
+    :func:`tconv_init` draws them), from ``generator``, on ``device``."""
+    dev = resolve_device(device)
+    chans = (cin,) + tuple(widths)
+    params = {}
+    for i in range(len(widths)):
+        w = torch.randn((4, 4, chans[i], chans[i + 1]), generator=generator,
+                        device=generator.device) * (16 * chans[i]) ** -0.5
+        params[f"enc{i}"] = {"w": w.to(dev)}
+    dcfg = decoder_config(in_hw, cin, widths)
+    params["dec"] = {f"tconv{i}": tconv_init(generator, dcfg.kernel, ci, co, device=dev)
+                     for i, (_, ci, co) in enumerate(dcfg.layers)}
+    return params
+
+
+def encode(params: dict, x: torch.Tensor) -> torch.Tensor:
+    """NHWC images -> the NHWC code: stride-2 4x4 convs, padding 1, each
+    followed by a 0.2 leaky relu (``F.conv2d``, as the discriminator's)."""
+    h = x.permute(0, 3, 1, 2)
+    i = 0
+    while f"enc{i}" in params:
+        w = params[f"enc{i}"]["w"].permute(3, 2, 0, 1)  # HWIO -> OIHW
+        h = F.leaky_relu(F.conv2d(h, w, stride=2, padding=1), 0.2)
+        i += 1
+    return h.permute(0, 2, 3, 1).contiguous()
+
+
+def energy(params: dict, dcfg: GANConfig, x: torch.Tensor, *, plan=None) -> tuple:
+    """``(energy (B,), code)``: each sample's energy, the mean squared error
+    of its reconstruction ``Dec(Enc(x))``, and the NHWC code. The decoder
+    runs ``plan`` (:func:`generator_plan` of ``dcfg``, train mode where it
+    is differentiated), or each layer's memoized plan."""
+    code = encode(params, x)
+    recon = _tconv_stack(params["dec"], dcfg, code, plan, "auto", False)
+    return (recon - x).square().mean((1, 2, 3)), code
+
+
+def pulling_away(code: torch.Tensor) -> torch.Tensor:
+    """EB-GAN's pulling-away term of a batch's codes (one flattened row a
+    sample): the mean squared cosine over the ordered pairs of distinct
+    rows, ``sum_{i != j} cos(S_i, S_j)^2 / (N (N - 1))``."""
+    s = code.reshape(code.shape[0], -1)
+    n = s.shape[0]
+    if n < 2:
+        raise ValueError("the pulling-away term needs at least two samples")
+    s = s / s.norm(dim=1, keepdim=True)
+    cos2 = (s @ s.t()).square()
+    off = 1.0 - torch.eye(n, device=s.device, dtype=s.dtype)
+    return (cos2 * off).sum() / (n * (n - 1))

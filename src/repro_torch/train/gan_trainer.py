@@ -6,6 +6,24 @@ against the current generator, then the generator's update against the
 updated discriminator; non-saturating softplus losses; AdamW for both nets;
 fp32 gradient sums over ``accum`` microbatches taken in a fixed order.
 
+**Objectives.** ``objective="classifier"`` is the above, the reference's:
+the small conv discriminator's logits under softplus losses.
+``objective="energy"`` is EB-GAN's (arXiv:1609.03126, section 2): the
+discriminator is an auto-encoder (:func:`~repro_torch.models.gan.autoencoder_init`,
+at :func:`~repro_torch.models.gan.autoencoder_widths`) whose decoder runs the port's transpose-conv kernels
+on train-mode plans, a sample's energy ``D(x)`` its reconstruction's mean
+squared error, and
+
+    L_D = mean D(real) + mean max(0, margin - D(G(z)))
+    L_G = mean D(G(z)) + pt_weight * f_PT(Enc(G(z)))
+
+with the pulling-away term ``f_PT`` (:func:`~repro_torch.models.gan.pulling_away`).
+The discriminator's phase runs the auto-encoder once on the real and fake
+rows together (``2 * micro`` rows). The step's read-back then carries four
+more scalars (:data:`ENERGY_STATS`: the phase's mean real and fake
+energies, the share of fake rows under the margin, whose hinge is live,
+and the generator phase's pulling-away term), in the same one copy.
+
 * **Step-atomic checkpoint/resume** every ``ckpt_every`` steps and at exit
   (:mod:`repro_torch.train.checkpoint`). Every input of step ``t`` is a pure
   function of ``(state, t)``: data from ``data.batch(index)``, latents from
@@ -111,6 +129,10 @@ from repro_torch.tree import tree_leaves, tree_map
 # the spans the port records beyond the reference's (module docstring)
 PORT_SPANS = frozenset(("train.launch", "train.readback", "train.commit",
                         "host.gc", "host.gc.hook"))
+OBJECTIVES = ("classifier", "energy")
+# the energy objective's read-back beyond the four scalars, in its order;
+# each is recorded as the gauge ``train.<name>`` while tracing is on
+ENERGY_STATS = ("energy_real", "energy_fake", "margin_active", "pt")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -132,8 +154,15 @@ class GanTrainerConfig:
     pods_alive: int = 1
     pods_total: int = 1
     data_parallel: bool = True    # shard_plan_apply when a mesh is active
+    objective: str = "classifier"   # or "energy" (module docstring)
+    margin: float | None = None     # energy: the hinge's margin m (required)
+    pt_weight: float = 0.1          # energy: the pulling-away term's weight
 
     def __post_init__(self):
+        if self.objective not in OBJECTIVES:
+            raise ValueError(f"unknown objective {self.objective!r}; one of {OBJECTIVES}")
+        if self.objective == "energy" and self.margin is None:
+            raise ValueError("the energy objective needs its margin")
         if not (1 <= self.pods_alive <= self.pods_total):
             raise ValueError(
                 f"need 1 <= pods_alive <= pods_total, got "
@@ -181,8 +210,17 @@ class GanTrainer:
         # the generator's step plan, compiled once at the micro batch size
         self.train_plan = gan.generator_plan(cfg, self.micro, train=True,
                                              method=tcfg.method)
-        self.out_hw = cfg.out_hw(cfg.layers[-1][0])
-        self.out_c = cfg.layers[-1][2]
+        self.out_hw = cfg.image_hw
+        self.out_c = cfg.image_channels
+        self.energy = tcfg.objective == "energy"
+        if self.energy:
+            # the auto-encoder's decoder, planned for the discriminator's
+            # phase (real and fake rows) and the generator's (fake rows)
+            self.ae_widths = gan.autoencoder_widths(cfg)
+            self.dec_cfg = gan.decoder_config(self.out_hw, self.out_c, self.ae_widths)
+            self.dec_plans = tuple(
+                gan.generator_plan(self.dec_cfg, rows, train=True, method=tcfg.method)
+                for rows in (2 * self.micro, self.micro))
         self.skipped_steps = 0
         self.resumed_step = None
         self.timer = StepTimer()
@@ -199,8 +237,12 @@ class GanTrainer:
         """Fresh parameters drawn from ``generator`` (generator first, then
         discriminator) and zero optimizer states."""
         gp = gan.generator_init(generator, self.cfg, device=self.device)
-        dp = gan.discriminator_init(generator, self.out_hw, self.out_c,
-                                    device=self.device)
+        if self.energy:
+            dp = gan.autoencoder_init(generator, self.out_hw, self.out_c,
+                                      self.ae_widths, device=self.device)
+        else:
+            dp = gan.discriminator_init(generator, self.out_hw, self.out_c,
+                                        device=self.device)
         g_opt = adamw_init(gp, self.tcfg.opt)
         d_opt = adamw_init(dp, self.tcfg.opt)
         if self.tcfg.compress_grads:
@@ -229,24 +271,52 @@ class GanTrainer:
         fake = self._generate(gp, z)
         return _softplus(-gan.discriminator_apply(dp, fake)).mean()
 
+    def _d_loss_energy(self, dp, gp, real, z):
+        """EB-GAN's discriminator loss and ``[mean D(real), mean D(fake),
+        share of fake rows under the margin]``; real and fake rows go
+        through the auto-encoder as one batch."""
+        with torch.no_grad():   # D's gradient only: no generator backward
+            fake = self._generate(gp, z)
+        e, _ = gan.energy(dp, self.dec_cfg, torch.cat([real, fake]),
+                          plan=self.dec_plans[0])
+        e_real, e_fake = e[: real.shape[0]], e[real.shape[0]:]
+        m = self.tcfg.margin
+        loss = e_real.mean() + torch.relu(m - e_fake).mean()
+        aux = torch.stack([e_real.mean(), e_fake.mean(), (e_fake < m).float().mean()])
+        return loss, aux.detach()
+
+    def _g_loss_energy(self, gp, dp, z):
+        """EB-GAN's generator loss and ``[f_PT]``: the fakes' energy and the
+        pulling-away term of their codes."""
+        fake = self._generate(gp, z)
+        e, code = gan.energy(dp, self.dec_cfg, fake, plan=self.dec_plans[1])
+        pt = gan.pulling_away(code)
+        return e.mean() + self.tcfg.pt_weight * pt, pt.detach()[None]
+
     @staticmethod
     def _accumulate(loss_fn, params, reals, zs):
-        """Mean loss and mean grads (w.r.t. ``params``) over the
-        microbatches, summed in fp32 in microbatch order.
-        ``loss_fn(params, real, z)``."""
+        """Mean loss, mean grads (w.r.t. ``params``) and mean auxiliary
+        values over the microbatches, summed in fp32 in microbatch order.
+        ``loss_fn(params, real, z)`` returns the loss, or ``(loss, aux)``
+        with ``aux`` a tensor of values to average (None without)."""
         tot_l = torch.zeros((), device=reals.device)
         tot_g = tree_map(lambda p: torch.zeros(p.shape, device=p.device), params)
+        tot_a = None
         for real, z in zip(reals, zs):
             with torch.enable_grad():
                 live = tree_map(lambda p: p.detach().requires_grad_(True), params)
                 loss = loss_fn(live, real, z)
+                if isinstance(loss, tuple):
+                    loss, aux = loss
+                    tot_a = aux if tot_a is None else tot_a + aux
                 grads = torch.autograd.grad(loss, tree_leaves(live))
             it = iter(grads)
             g = tree_map(lambda _: next(it), live)
             tot_g = tree_map(lambda a, b: a + b.to(torch.float32), tot_g, g)
             tot_l = tot_l + loss.detach()
         n = reals.shape[0]
-        return tot_l / n, tree_map(lambda t: t / n, tot_g)
+        return (tot_l / n, tree_map(lambda t: t / n, tot_g),
+                None if tot_a is None else tot_a / n)
 
     def _maybe_compress(self, grads, opt_state):
         if not self.tcfg.compress_grads:
@@ -257,31 +327,37 @@ class GanTrainer:
     def _step_eager(self, state, reals, zs):
         """One training step on ``reals (accum, micro, H, W, C)`` and ``zs
         (accum, micro, z_dim)``: ``(new state, stats)``, ``stats`` the
-        device tensor ``[g_loss, d_loss, g_gnorm, d_gnorm]``. It reads
+        device tensor ``[g_loss, d_loss, g_gnorm, d_gnorm]`` (then
+        :data:`ENERGY_STATS` for the energy objective). It reads
         nothing back to the host and writes into none of its inputs, so the
         step's CUDA graph captures it whole (:meth:`_step_fn`)."""
         opt = self.tcfg.opt
         gp, dp = state["g_params"], state["d_params"]
         g_opt, d_opt = state["g_opt"], state["d_opt"]
 
+        d_loss = self._d_loss_energy if self.energy else self._d_loss
+        g_loss = self._g_loss_energy if self.energy else self._g_loss
+
         # D phase: accumulate over micros, update against the current G
-        dl, dgrads = self._accumulate(
-            lambda dpp, real, z: self._d_loss(dpp, gp, real, z), dp, reals, zs)
+        dl, dgrads, d_aux = self._accumulate(
+            lambda dpp, real, z: d_loss(dpp, gp, real, z), dp, reals, zs)
         dgrads, d_err = self._maybe_compress(dgrads, d_opt)
         dp_new, d_opt_new, d_gnorm = adamw_update(dgrads, d_opt, dp, opt, opt.lr)
 
         # G phase: against the UPDATED discriminator
-        gl, ggrads = self._accumulate(
-            lambda gpp, real, z: self._g_loss(gpp, dp_new, z), gp, reals, zs)
+        gl, ggrads, g_aux = self._accumulate(
+            lambda gpp, real, z: g_loss(gpp, dp_new, z), gp, reals, zs)
         ggrads, g_err = self._maybe_compress(ggrads, g_opt)
         gp_new, g_opt_new, g_gnorm = adamw_update(ggrads, g_opt, gp, opt, opt.lr)
         if self.tcfg.compress_grads:   # err rides inside the opt state
             d_opt_new = dict(d_opt_new, err=d_err)
             g_opt_new = dict(g_opt_new, err=g_err)
 
+        stats = torch.stack([gl, dl, g_gnorm, d_gnorm])
+        if self.energy:
+            stats = torch.cat([stats, d_aux, g_aux])
         return ({"g_params": gp_new, "d_params": dp_new,
-                 "g_opt": g_opt_new, "d_opt": d_opt_new},
-                torch.stack([gl, dl, g_gnorm, d_gnorm]))
+                 "g_opt": g_opt_new, "d_opt": d_opt_new}, stats)
 
     def _step_graph(self, state, reals, zs) -> CudaGraph:
         """The step's CUDA graph, captured at the first CUDA step over
@@ -320,6 +396,11 @@ class GanTrainer:
             ok = all(np.isfinite(vals))
             metrics = {"g_loss": vals[0], "d_loss": vals[1], "g_gnorm": vals[2],
                        "d_gnorm": vals[3], "skipped": int(not ok)}
+            if self.energy:
+                metrics.update(zip(ENERGY_STATS, vals[4:]))
+                if tracing:
+                    for name in ENERGY_STATS:
+                        obs.gauge(f"train.{name}", metrics[name])
             if not ok:   # the old state, whole: nothing wrote into it
                 return state, metrics
             if self.device.type == "cuda":   # commit the graph's new state
@@ -388,7 +469,8 @@ class GanTrainer:
     def run(self, state, *, steps: int):
         """Train to ``steps`` total steps (resuming first): ``(state,
         history)``, one history row ``{"step", "g_loss", "d_loss",
-        "skipped"}`` per executed step. SIGTERM checkpoints and returns; a
+        "skipped"}`` per executed step (and :data:`ENERGY_STATS` for the
+        energy objective). SIGTERM checkpoints and returns; a
         crash loses at most the steps since the last checkpoint."""
         self._stop = False
         prev_handler = self._install_sigterm()
@@ -433,8 +515,11 @@ class GanTrainer:
                                 "step": step, "skipped_total": self.skipped_steps})
                         self.log(f"[gan-trainer] step {step}: non-finite step; params "
                                  f"untouched (total skipped {self.skipped_steps})")
-                    history.append({"step": step, "g_loss": metrics["g_loss"],
-                                    "d_loss": metrics["d_loss"], "skipped": skipped})
+                    row = {"step": step, "g_loss": metrics["g_loss"],
+                           "d_loss": metrics["d_loss"], "skipped": skipped}
+                    if self.energy:
+                        row.update((k, metrics[k]) for k in ENERGY_STATS)
+                    history.append(row)
                     if step % self.tcfg.log_every == 0:
                         self.log(f"[gan-trainer] step {step} g_loss "
                                  f"{metrics['g_loss']:.4f} d_loss "

@@ -7,14 +7,18 @@ staging bitwise the standalone epilogue-grad -> dx -> dw route (with an
 unaligned y too), the generator's batch invariance (per layer and
 through fused pairs), the latent projection's kernels (rows bitwise
 independent of the batch, forward, dW and dz against float64, one launch a
-generator call, a captured graph bitwise its eager calls), and the
+generator call, a captured graph bitwise its eager calls), the RGB head's
+kernels (EB-GAN's rows bitwise independent of the batch, forward, dx and dW
+against float64, dx only where asked), and the
 generator's gradients through the backward
 kernels, fused pairs and the per-phase kernel, the decode attention kernel
 at the LM shapes, and a decode step's independence of the other slots;
 then the CUDA graphs of the main path (repro_torch.graphs): each kind of
 executable (a generator per bucket, per layer and through pairs, the
-sequential executables, the decode step, the training step) bitwise equal
-to its eager call, the launch counters counting replays, the lifetime of
+sequential executables, the decode step, the training step with either
+objective) bitwise equal to its eager call, the energy step's decoder taking
+no dW in the generator's phase, the published EB-GAN served bitwise its
+one-row calls, the launch counters counting replays, the lifetime of
 the buffers a replay overwrites, and a failed capture raising; then the
 operator zoo: every method name of ``transpose_conv2d`` at the paper's
 Table-2 shapes and at every Table-4 layer against the tap-by-tap oracle,
@@ -48,6 +52,7 @@ from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import epilogue as epilib
 from repro_torch.kernels import project as proj
 from repro_torch.kernels import ref
+from repro_torch.kernels import rgb_head as head
 from repro_torch.kernels import transpose_conv2d as tcf
 from repro_torch.kernels import transpose_conv2d_bwd as bw
 from repro_torch.kernels import transpose_conv2d_gemm as tcg
@@ -296,6 +301,83 @@ def test_generator_call_launches_one_projection(card, b):
     slots = graphs.kernel_counters().slots
     got = {fn.__name__: n for (fn, name), n in zip(slots, counts) if name == "launches"}
     assert (got["project_relu_fwd"], got["project_relu_dw"], got["project_relu_dz"]) == (1, 0, 0)
+
+
+# --------------------------------------------------------- the RGB head
+
+HEAD_BUCKETS = (1, 8, 64)
+
+
+def _head_case(seed, b, hw, k, c, device):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((b, hw, hw, k)).astype(np.float32)
+    w = (rng.standard_normal((k, c)) * k ** -0.5).astype(np.float32)
+    bias = (0.1 * rng.standard_normal(c)).astype(np.float32)
+    g = rng.standard_normal((b, hw, hw, c)).astype(np.float32)
+    return tuple(torch.from_numpy(a).to(device) for a in (x, w, bias, g))
+
+
+def test_rgb_head_rows_do_not_depend_on_the_batch(card):
+    """EB-GAN's head (64 -> 3 over 256^2 pixels): each sample at buckets
+    1, 8 and 64 bitwise that sample at batch 64, the last sample alone too."""
+    x, w, b, _ = _head_case(0, 64, 256, 64, 3, card)
+    full = head.rgb_head_fwd(x, w, b)
+    for n in HEAD_BUCKETS:
+        assert torch.equal(head.rgb_head_fwd(x[:n].clone(), w, b), full[:n]), n
+    assert torch.equal(head.rgb_head_fwd(x[-1:].clone(), w, b), full[-1:])
+    # an x 4 bytes off alignment (4-byte copies) gives the same bits
+    assert torch.equal(head.rgb_head_fwd(offset_view(x[:8]), w, b), full[:8])
+
+
+@pytest.mark.parametrize("shape", [(2, 256, 64, 3), (3, 17, 4, 3), (1, 5, 37, 2)],
+                         ids=str)
+def test_rgb_head_and_its_gradients_match_float64(card, shape):
+    """y, dx, dW and db against float64, within 1e-4 * max|ref| + 1e-5, at
+    EB-GAN's head, a narrow one and a ragged one (pixels not a whole tile,
+    K over 32 and odd); dW's bits the same from an x off alignment."""
+    b, hw, k, c = shape
+    x, w, bias, g = _head_case(sum(shape), b, hw, k, c, card)
+    y = head.rgb_head_fwd(x, w, bias)
+    _within(y, torch.tanh(x.double() @ w.double() + bias.double()))
+    gm = g.double() * (1 - y.double() ** 2)
+    _within(head.rgb_head_dx(g, y, w), gm @ w.double().t())
+    dw, db = head.rgb_head_dw(x, g, y)
+    _within(dw, x.double().reshape(-1, k).t() @ gm.reshape(-1, c))
+    _within(db, gm.reshape(-1, c).sum(0))
+    dw4, db4 = head.rgb_head_dw(offset_view(x), g, y)
+    assert torch.equal(dw4, dw) and torch.equal(db4, db)
+    torch.cuda.synchronize()
+
+
+def test_rgb_head_function_computes_dx_only_where_asked(card):
+    """The autograd function: one forward launch, dW with its sum pass once,
+    dx only where x needs a gradient; the gradients within tolerance of
+    float64."""
+    x, w, b, g = _head_case(5, 2, 32, 64, 3, card)
+    fns = (head.rgb_head_fwd, head.rgb_head_dx, head.rgb_head_dw)
+    for want_dx in (False, True):
+        xx = x.clone().requires_grad_(want_dx)
+        ww, bb = w.clone().requires_grad_(), b.clone().requires_grad_()
+        before = [f.launches for f in fns] + [head.rgb_head_dw.reduce_launches]
+        (gan.rgb_head(xx, ww, bb) * g).sum().backward()
+        after = [f.launches for f in fns] + [head.rgb_head_dw.reduce_launches]
+        assert [a - c for a, c in zip(after, before)] == [1, int(want_dx), 1, 1]
+        y = torch.tanh(x.double() @ w.double() + b.double())
+        gm = g.double() * (1 - y ** 2)
+        _within(ww.grad, x.double().reshape(-1, 64).t() @ gm.reshape(-1, 3))
+        _within(bb.grad, gm.reshape(-1, 3).sum(0))
+        if want_dx:
+            _within(xx.grad, gm @ w.double().t())
+        else:
+            assert xx.grad is None
+
+
+def test_rgb_head_refuses_what_it_does_not_take(card):
+    x, w, b, _ = _head_case(0, 1, 4, 65, 3, card)
+    with pytest.raises(ValueError, match="input and"):
+        head.rgb_head_fwd(x, w, b)
+    with pytest.raises(TypeError):
+        head.rgb_head_fwd(x[..., :64].double(), w[:64].double(), b.double())
 
 
 def test_projection_graph_equals_eager_bitwise(card):
@@ -783,6 +865,27 @@ def test_engine_graphs_equal_eager_calls_bitwise(card, fuse):
     assert eng.metrics.recompiles == 4
 
 
+def test_engine_serves_published_ebgan_bitwise_its_one_row_calls(card):
+    """The published EB-GAN generator (RGB head included) at full width,
+    served through the engine's bucket graphs: each request's image is
+    bitwise its one-row call."""
+    from repro_torch.serve import BucketPolicy, GanEngine, GenRequest
+
+    cfg = gan.EBGAN_PUBLISHED
+    params = gan.generator_init(torch.Generator().manual_seed(0), cfg, device=card)
+    eng = GanEngine(BucketPolicy(buckets=(1, 8), max_wait_s=0.0))
+    eng.register(cfg, params)
+    eng.warmup()
+    z = np.random.default_rng(3).standard_normal((8, cfg.z_dim)).astype(np.float32)
+    reqs = [GenRequest(cfg.name, z[i : i + 1]) for i in range(8)]
+    eng.serve(reqs)
+    plan = eng.registry[cfg.name].plans[1]
+    for i, r in enumerate(reqs):
+        one = gan.generator_apply(params, cfg, z[i : i + 1], plan=plan, device=card)
+        assert r.output.shape == (1, 256, 256, 3)
+        assert torch.equal(r.output, one.cpu()), i
+
+
 def test_generator_graph_output_lifetime(card):
     """The executable's output is the graph's buffer: the next call
     overwrites it, and a copy the caller took first keeps its bits."""
@@ -934,6 +1037,45 @@ def test_trainer_graph_nan_step_commits_nothing(deterministic):
     assert _equal_trees(state, after0)
     state, m2 = tr._step_fn(state, *tr._batches(2))
     assert m2["skipped"] == 0 and not _equal_trees(state, after0)
+
+
+def _energy_trainer(card, batch=4):
+    from repro_torch.data import SyntheticImages
+    from repro_torch.train.gan_trainer import GanTrainer, GanTrainerConfig
+
+    cfg = gan.reduced_config(gan.EBGAN_PUBLISHED, 16)
+    data = SyntheticImages(cfg.image_hw, cfg.image_channels, batch, device=card)
+    tcfg = GanTrainerConfig(global_batch=batch, objective="energy", margin=0.4)
+    return GanTrainer(cfg, tcfg, data, log_fn=lambda *a: None)
+
+
+def test_energy_trainer_graph_steps_equal_eager_steps_bitwise(deterministic):
+    """EB-GAN's step (auto-encoder discriminator, hinge, pulling-away term)
+    at a sixteenth of the widths: three graphed steps bitwise three eager
+    ones, the eight read-back values included, the eager step's launches a
+    replay. The decoder takes dW in the discriminator's phase only: a step
+    launches the generator's dW and the decoder's once, and dx for the
+    decoder twice and the generator once."""
+    from repro_torch.train.gan_trainer import ENERGY_STATS
+
+    tr = _energy_trainer(deterministic)
+    state0 = tr.init_state(torch.Generator().manual_seed(0))
+    eager_state = graph_state = state0
+    names = ("g_loss", "d_loss", "g_gnorm", "d_gnorm") + ENERGY_STATS
+    for step in range(3):
+        reals, zs = tr._batches(step)
+        (eager_state, stats), eager = _counted(tr._step_eager, eager_state, reals, zs)
+        (graph_state, metrics), replayed = _counted(tr._step_fn, graph_state, reals, zs)
+        assert [metrics[k] for k in names] == stats.tolist() and not metrics["skipped"]
+        assert _equal_trees(graph_state, eager_state)
+        if step:
+            assert replayed == eager and tr._graph.launches == eager
+    slots = graphs.kernel_counters().slots
+    got = {fn.__name__: n for (fn, name), n in zip(slots, eager) if name == "launches"}
+    n_gen, n_dec = len(tr.cfg.layers), len(tr.dec_cfg.layers)
+    assert got["transpose_conv2d_dw"] == n_gen + n_dec
+    assert got["transpose_conv2d_dx"] == n_gen + 2 * n_dec
+    assert (got["rgb_head_fwd"], got["rgb_head_dx"], got["rgb_head_dw"]) == (2, 1, 1)
 
 
 def test_trainer_refuses_a_plan_replaced_after_capture(card):

@@ -1,7 +1,7 @@
 """CUDA graphs of the port (repro_torch.graphs), on the CPU: the launch
 accounting on fake counters, the refusal to build a graph anywhere but on
 a card, the check that a graph is called over the objects it captured, the
-list of the eleven kernel wrappers, and the engines' and the trainer's CPU
+list of the fourteen kernel wrappers, and the engines' and the trainer's CPU
 paths, which stay eager. The card's side -- graph replays bitwise equal to
 eager calls, counters counting replays, buffer lifetimes, a failed capture
 raising -- is in tests/test_torch_cuda.py.
@@ -19,6 +19,7 @@ from repro_torch.configs import get_config, reduced
 from repro_torch.data import SyntheticImages
 from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import project as proj
+from repro_torch.kernels import rgb_head as head
 from repro_torch.kernels import transpose_conv2d as tcf
 from repro_torch.kernels import transpose_conv2d_bwd as bw
 from repro_torch.kernels import transpose_conv2d_gemm as tcg
@@ -89,14 +90,16 @@ def test_wrapper_list_names_the_eight_kernels_and_their_counters():
         "epilogue_grad": bw.epilogue_grad, "dx": bw.transpose_conv2d_dx,
         "dw": bw.transpose_conv2d_dw, "decode_attention": da.decode_attention,
         "project": proj.project_relu_fwd, "project_dw": proj.project_relu_dw,
-        "project_dz": proj.project_relu_dz,
+        "project_dz": proj.project_relu_dz, "rgb_head": head.rgb_head_fwd,
+        "rgb_head_dx": head.rgb_head_dx, "rgb_head_dw": head.rgb_head_dw,
     }
     with_reduce = {name for name, fn in got.items() if hasattr(fn, "reduce_launches")}
-    assert with_reduce == {"fused", "gemm", "phase", "dx", "dw", "decode_attention"}
+    assert with_reduce == {"fused", "gemm", "phase", "dx", "dw", "decode_attention",
+                           "rgb_head_dw"}
     slots = graphs.kernel_counters().slots
-    # eleven launch counts, six reduce counts, and the epilogue-grad launches
-    # folded into dx and dw
-    assert len(slots) == 11 + 6 + 1
+    # fourteen launch counts, seven reduce counts, and the epilogue-grad
+    # launches folded into dx and dw
+    assert len(slots) == 14 + 7 + 1
     assert (bw.epilogue_grad, "folded_launches") in slots
     assert all(isinstance(getattr(fn, name), int) for fn, name in slots)
 

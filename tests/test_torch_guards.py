@@ -283,7 +283,7 @@ def _c_entry_points(source: str) -> dict:
     kinds = {"float": ctypes.c_float, "int": ctypes.c_int,
              "long long": ctypes.c_longlong}
     out = {}
-    for m in re.finditer(r"\bint\s+((?:tconv|decode|project)_\w+)\s*\(([^)]*)\)\s*\{", text):
+    for m in re.finditer(r"\bint\s+((?:tconv|decode|project|rgb)_\w+)\s*\(([^)]*)\)\s*\{", text):
         params = [p.strip() for p in m.group(2).split(",")]
         out[m.group(1)] = [
             ctypes.c_void_p if "*" in p
@@ -327,7 +327,8 @@ def test_ctypes_argtypes_match_the_c_signatures(monkeypatch):
                          ("transpose_conv2d_bwd", ("_lib",)),
                          ("transpose_conv2d_pair", ("_lib",)),
                          ("decode_attention", ("_lib",)),
-                         ("project", ("_lib",))):
+                         ("project", ("_lib",)),
+                         ("rgb_head", ("_lib",))):
         m = importlib.import_module(f"repro_torch.kernels.{mod}")
         for loader in loaders:
             fn = getattr(m, loader)
